@@ -1,0 +1,138 @@
+"""Serving driver of the port: a mixed-length request stream through the
+continuous-batching engine, on the card by default.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --full
+
+The stream is the JAX driver's (``repro/launch/serve.py:
+make_request_stream``, same numpy draws for one seed): a few shared
+"system prompt" prefixes with random tails of mixed lengths, a
+``--sampled-frac`` fraction decoded with seeded top-k sampling.  Requests
+go through the async front-end: all at once, or as an open-loop Poisson
+process with ``--arrival-rate``; ``--cancel-frac`` hangs up a fraction of
+clients halfway through their budget.  Weights are random, from a seeded
+``torch.Generator``; the reduced config is the default, ``--full`` serves
+the published widths.  Without a card and without ``--device cpu`` the
+driver raises.
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.serve.frontend import AsyncServeEngine
+from repro_torch.serve.scheduler import Request
+
+
+def make_request_stream(cfg, rng: np.random.RandomState, n_requests: int,
+                        n_prefixes: int, prefix_len: int, max_tail: int,
+                        max_new: int, rid0: int = 0,
+                        sampled_frac: float = 0.0, temperature: float = 0.8,
+                        top_k: int = 8):
+    """Each request takes one of ``n_prefixes`` shared prefixes plus a
+    random tail of 1..max_tail tokens; a ``sampled_frac`` fraction asks
+    for seeded top-k sampling.  Draw for draw the reference's generator,
+    so one seed gives both packages the same stream."""
+    prefixes = rng.randint(0, cfg.vocab_size,
+                           (n_prefixes, prefix_len)).astype(np.int32)
+    reqs = []
+    for i in range(n_requests):
+        p = prefixes[rng.randint(n_prefixes)]
+        tail = rng.randint(0, cfg.vocab_size,
+                           size=rng.randint(1, max_tail + 1)).astype(np.int32)
+        sampled = rng.rand() < sampled_frac
+        reqs.append(Request(
+            rid=rid0 + i, tokens=np.concatenate([p, tail]), max_new=max_new,
+            temperature=temperature if sampled else 0.0,
+            top_k=top_k if sampled else 0,
+            seed=int(rng.randint(1 << 30)) if sampled else None))
+    return reqs
+
+
+async def stream_requests(front: AsyncServeEngine, reqs, rate: float,
+                          cancel_frac: float,
+                          rng: np.random.RandomState):
+    """Submit ``reqs`` (all at once when ``rate`` is 0, else with
+    exponential gaps of mean 1/rate s), stream every response, and hang
+    up on a ``cancel_frac`` fraction of clients halfway through their
+    budget.  Returns (completions, time-to-first-token seconds)."""
+    results, ttfts = [], []
+
+    async def consume(handle, t_submit, cancel_after):
+        n = 0
+        async for _tok in handle.stream():
+            if n == 0:
+                ttfts.append(time.monotonic() - t_submit)
+            n += 1
+            if cancel_after is not None and n >= cancel_after:
+                handle.cancel()
+        results.append(handle.completion)
+
+    tasks = []
+    for r in reqs:
+        h = await front.submit(r.tokens, max_new=r.max_new,
+                               temperature=r.temperature, top_k=r.top_k,
+                               seed=r.seed, deadline_s=0, rid=r.rid)
+        cancel_after = (max(1, r.max_new // 2)
+                        if rng.rand() < cancel_frac else None)
+        tasks.append(asyncio.ensure_future(
+            consume(h, time.monotonic(), cancel_after)))
+        if rate > 0:
+            await asyncio.sleep(float(rng.exponential(1.0 / rate)))
+    await asyncio.gather(*tasks)
+    return results, ttfts
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
+    ap.add_argument("--full", action="store_true",
+                    help="serve the published widths (default: reduced)")
+    ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--prefixes", type=int, default=3)
+    ap.add_argument("--prefix-len", type=int, default=32)
+    ap.add_argument("--max-tail", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--sampled-frac", type=float, default=0.25)
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop Poisson arrivals (req/s); 0 submits "
+                         "everything at once")
+    ap.add_argument("--cancel-frac", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without one)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
+    params = tf.init_params(cfg, seed=args.seed, device=dev)
+    serve = dataclasses.replace(cfg.serve, max_batch=args.max_batch,
+                                max_seq=args.max_seq,
+                                prefix_block=args.prefix_len)
+    front = AsyncServeEngine(cfg, params, serve=serve, device=dev)
+    reqs = make_request_stream(cfg, np.random.RandomState(args.seed + 1),
+                               args.requests, args.prefixes,
+                               args.prefix_len, args.max_tail, args.max_new,
+                               sampled_frac=args.sampled_frac)
+    t0 = time.perf_counter()
+    done, ttfts = asyncio.run(stream_requests(
+        front, reqs, args.arrival_rate, args.cancel_frac,
+        np.random.RandomState(args.seed + 3)))
+    dt = time.perf_counter() - t0
+    toks = sum(len(c.tokens) for c in done)
+    print(f"device: {dev}; served {len(done)} requests / {toks} tokens in "
+          f"{dt:.3f}s ({toks / dt:.1f} tok/s); ttft p50 "
+          f"{np.percentile(ttfts, 50) * 1e3:.1f} ms")
+    print(front.stats().format())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+"""Serving engine facade (port of ``repro/serve/engine.py``).
+
+``ServeEngine.generate`` keeps the batched API — a (B, S) prompt matrix
+in, a (B, max_new) token matrix out — as a thin wrapper over the async
+front-end: each batch row becomes one streamed submission against the
+cached scheduler's pump, drained inside an ``asyncio.run``.  Greedy batch
+output is the streamed output; there is one serving path.
+"""
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serve.frontend import AsyncServeEngine
+from repro_torch.serve.scheduler import EngineStats, SlotScheduler
+
+Per = Union[float, int, Sequence, np.ndarray]
+
+
+@dataclass
+class GenerationResult:
+    tokens: torch.Tensor       # (B, max_new) int32, on the host
+    prompt_len: int
+
+
+def _per_request(val: Per, B: int, name: str) -> np.ndarray:
+    """Broadcast a scalar or validate a length-B per-request vector."""
+    arr = np.asarray(val)
+    if arr.ndim == 0:
+        return np.full((B,), arr.item())
+    if arr.shape != (B,):
+        raise ValueError(f"{name} must be scalar or ({B},), got "
+                         f"{arr.shape}")
+    return arr
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, max_seq: int = 512,
+                 max_batch: Optional[int] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.params = params
+        self.max_seq = max_seq
+        self.max_batch = max_batch
+        self.device = resolve_device(device)
+        self._frontends = {}         # max_batch -> AsyncServeEngine
+        self._rid = 0
+
+    def _frontend(self, batch: int) -> AsyncServeEngine:
+        """One scheduler (and front-end) per slot count, reused across
+        calls so the prefix cache warms up; dropped when ``self.params``
+        is swapped, since its cached KV came from the old weights."""
+        if self._frontends and next(iter(self._frontends.values())
+                                    ).scheduler.params is not self.params:
+            self._frontends.clear()
+        kb = self.max_batch or batch
+        if kb not in self._frontends:
+            serve = dataclasses.replace(self.cfg.serve, max_batch=kb,
+                                        max_seq=self.max_seq)
+            self._frontends[kb] = AsyncServeEngine(scheduler=SlotScheduler(
+                self.cfg, self.params, serve=serve, device=self.device))
+        return self._frontends[kb]
+
+    def generate(self, tokens, max_new: int = 32, temperature: Per = 0.0,
+                 top_k: Per = 0, seed: Optional[int] = None
+                 ) -> GenerationResult:
+        """tokens: (B, S) prompt ids.  ``temperature`` / ``top_k`` may be
+        scalars or length-B vectors; a request is greedy when its
+        temperature is 0.  ``seed`` seeds row b's sampler with seed + b,
+        so two calls with one seed draw the same tokens; without it the
+        generators derive from cfg.serve.seed and the request id."""
+        prompts = np.asarray(tokens, np.int32)
+        B, S = prompts.shape
+        if S + max_new > self.max_seq:
+            raise ValueError(f"prompt {S} + max_new {max_new} exceeds "
+                             f"max_seq {self.max_seq}")
+        front = self._frontend(B)
+        temps = _per_request(temperature, B, "temperature")
+        ks = _per_request(top_k, B, "top_k")
+        rids = list(range(self._rid, self._rid + B))
+        self._rid += B
+
+        async def go():
+            handles = []
+            for b in range(B):
+                handles.append(await front.submit(
+                    prompts[b], max_new=max_new,
+                    temperature=float(temps[b]), top_k=int(ks[b]),
+                    seed=None if seed is None else seed + b,
+                    deadline_s=0,         # batch callers never expire
+                    rid=rids[b]))
+            return [await h.result() for h in handles]
+
+        done = asyncio.run(go())
+        out = np.stack([c.tokens for c in done])
+        return GenerationResult(tokens=torch.as_tensor(out), prompt_len=S)
+
+    def stats(self) -> EngineStats:
+        """Snapshot merged across every live scheduler."""
+        return EngineStats.merge(
+            [f.scheduler.stats() for f in self._frontends.values()])

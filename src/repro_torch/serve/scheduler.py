@@ -1,0 +1,821 @@
+"""Continuous-batching slot scheduler over a paged KV pool (port of
+``repro/serve/scheduler.py`` for the dense attention path).
+
+The engine owns ``max_batch`` slots.  KV lives in one shared
+(L, num_kv_blocks + 1, kv_block_size, K, hd) block pool on the device
+(the last block of each layer is a write sink, see models/layers.py) and
+every slot holds a (blocks_per_slot,) int32 block table; a request
+reserves ceil((S + max_new) / kv_block_size) blocks from the host-side
+``BlockAllocator`` instead of max_seq rows.  Every device tensor of the
+slot state keeps its shape for the engine's lifetime.
+
+Prefill is chunked: the prompt is fed through ``prefill_chunk`` in
+``prefill_bucket``-sized chunks at absolute bucket offsets, scattered
+through the slot's table.  A freshly admitted request resumes decode at
+``pos = S - 1`` by re-feeding its last prompt token, so the first output
+token is sampled by the decode chunk and prefill produces no logits.
+
+Decode runs ``decode_chunk`` steps per scheduler round as a Python loop
+of device work that never waits on the host: per-slot position,
+remaining budget, temperature and top-k are device tensors, finished and
+idle slots keep running masked (an idle slot's table row is all
+sentinels, so its KV write lands in the sink), and the chunk's tokens
+and emit masks are stacked on the device and copied to the host once, at
+``collect``.  Whether a chunk samples at all is decided on the host from
+its mirror of the slots' temperatures, so a greedy-only chunk pays only
+an argmax.  Each sampled slot draws from its own ``torch.Generator``.
+
+Prefix reuse is gated by the count-min admission filter in
+serve/prefix_cache.py and is zero-copy: a hit writes the cached entry's
+physical block ids into the new slot's table and bumps their refcounts.
+
+The host loop is split into pump phases — ``admit_pending`` /
+``dispatch`` / ``collect``, plus ``cancel`` / ``preempt`` /
+``expire_deadlines`` at pump boundaries — that ``step()`` composes
+synchronously and serve/frontend.py drives as an async pump.  On the card
+``dispatch`` only enqueues work, so admission and prefill for the next
+round overlap the chunk in flight; both run on one stream, so the chunk
+never sees the later admission's writes.
+
+Not ported yet (each raises ``NotImplementedError``): speculative decoding
+(``spec_k > 0``), sketched long-context KV (``kv_sketch_window > 0``),
+recurrent families and the observer hooks.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.serve.prefix_cache import SketchPrefixCache
+
+
+@dataclass
+class Request:
+    rid: int
+    tokens: np.ndarray           # (S,) int32 prompt
+    max_new: int
+    # per-request sampling: None temperature falls back to the scheduler
+    # default; top_k == 0 disables top-k filtering.  The slot's generator
+    # is ``generator`` when given, else one seeded with ``seed``, else one
+    # seeded with the scheduler's base seed plus the rid.
+    temperature: Optional[float] = None
+    top_k: int = 0
+    seed: Optional[int] = None
+    generator: Optional[torch.Generator] = None
+    # SLO scheduling: higher priority admits first and may preempt
+    # strictly lower-priority running slots; ``deadline`` is an absolute
+    # time.monotonic() past which the request expires
+    priority: int = 0
+    deadline: Optional[float] = None
+
+
+@dataclass
+class Completion:
+    rid: int
+    prompt_len: int
+    tokens: np.ndarray           # (<= max_new,) int32 generated
+    prefix_hit: bool
+    # "ok" | "cancelled" | "expired" (partial tokens in the last two)
+    status: str = "ok"
+
+
+def _stat(kind: str) -> Any:
+    """An ``EngineStats`` field tagged with its merge kind: "counter"
+    (sums), "gauge" (level over resources the scheduler owns; sums),
+    "peak" (high-water mark; max) or "geometry" (constant; max)."""
+    return dataclasses.field(default=0, metadata={"kind": kind})
+
+
+@dataclass
+class EngineStats:
+    """One flat snapshot of a scheduler (or, merged, of an engine): queue
+    pressure, slot occupancy, pool high-water marks and prefix-cache
+    effectiveness.  Field names match the JAX package's ``EngineStats``."""
+    queue_depth: int = _stat("gauge")
+    active_slots: int = _stat("gauge")
+    max_batch: int = _stat("gauge")
+    completed: int = _stat("counter")
+    cancelled: int = _stat("counter")
+    expired: int = _stat("counter")
+    preempted: int = _stat("counter")
+    decode_steps: int = _stat("counter")
+    pool_blocks: int = _stat("gauge")
+    block_size: int = _stat("geometry")
+    blocks_reserved: int = _stat("gauge")
+    blocks_free: int = _stat("gauge")
+    blocks_peak: int = _stat("peak")
+    kv_reserved_bytes: int = _stat("gauge")
+    kv_peak_reserved_bytes: int = _stat("peak")
+    kv_peak_used_bytes: int = _stat("peak")
+    kv_dense_equiv_bytes: int = _stat("gauge")
+    prefix_lookups: int = _stat("counter")
+    prefix_hits: int = _stat("counter")
+    prefix_admitted: int = _stat("counter")
+    prefix_evicted: int = _stat("counter")
+    prefix_cached_bytes: int = _stat("gauge")
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_hits / max(self.prefix_lookups, 1)
+
+    @staticmethod
+    def merge(parts: Sequence["EngineStats"]) -> "EngineStats":
+        """Counters and gauges sum; peaks and geometry take the max."""
+        out = EngineStats()
+        for p in parts:
+            for f in dataclasses.fields(EngineStats):
+                a, b = getattr(out, f.name), getattr(p, f.name)
+                if f.metadata.get("kind") in ("peak", "geometry"):
+                    setattr(out, f.name, max(a, b))
+                else:
+                    setattr(out, f.name, a + b)
+        return out
+
+    def format(self) -> str:
+        """Human-readable multi-line report."""
+        return "\n".join([
+            f"queue={self.queue_depth} active={self.active_slots}/"
+            f"{self.max_batch} completed={self.completed} "
+            f"(cancelled={self.cancelled} expired={self.expired} "
+            f"preemptions={self.preempted})",
+            f"decode: steps={self.decode_steps}",
+            f"paged KV: {self.pool_blocks} blocks x {self.block_size} "
+            f"tokens, reserved={self.blocks_reserved} (peak "
+            f"{self.blocks_peak}, free {self.blocks_free}) — "
+            f"{self.kv_peak_reserved_bytes}B peak vs dense "
+            f"{self.kv_dense_equiv_bytes}B",
+            f"prefix cache: hit_rate={self.prefix_hit_rate:.2f} "
+            f"({self.prefix_hits}/{self.prefix_lookups}), "
+            f"admitted={self.prefix_admitted}, "
+            f"evicted={self.prefix_evicted}, "
+            f"cached_bytes={self.prefix_cached_bytes}",
+        ])
+
+
+class BlockAllocator:
+    """Host-side free-list allocator over the paged KV block pool.
+
+    Every pool block has a refcount: 1 for the slot that allocated it,
+    +1 per prefix-cache entry holding it, +1 per additional slot sharing
+    it through a prefix hit.  A block returns to the free list exactly
+    when its count reaches zero.  ``peak_reserved`` records the
+    high-water mark of allocated blocks.
+    """
+
+    def __init__(self, num_blocks: int, block_bytes: int):
+        self.num_blocks = num_blocks
+        self.block_bytes = block_bytes
+        self._free = list(range(num_blocks - 1, -1, -1))   # pop() -> 0,1,..
+        self.rc = np.zeros((num_blocks,), np.int64)
+        self.peak_reserved = 0
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def reserved(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Take ``n`` blocks (refcount 1 each); None if not enough free."""
+        if n > len(self._free):
+            return None
+        ids = [self._free.pop() for _ in range(n)]
+        self.rc[ids] += 1
+        self.peak_reserved = max(self.peak_reserved, self.reserved)
+        return ids
+
+    def ref(self, ids: Sequence[int]) -> None:
+        for b in ids:
+            self.rc[b] += 1
+
+    def unref(self, ids: Sequence[int]) -> None:
+        for b in ids:
+            self.rc[b] -= 1
+            assert self.rc[b] >= 0, f"block {b} over-unreffed"
+            if self.rc[b] == 0:
+                self._free.append(b)
+
+    def reserved_bytes(self) -> int:
+        return self.reserved * self.block_bytes
+
+    def peak_reserved_bytes(self) -> int:
+        return self.peak_reserved * self.block_bytes
+
+
+@dataclass
+class DecodeState:
+    """Device-resident slot state; every tensor keeps its shape for the
+    engine's lifetime and is updated in place."""
+    cache: Dict[str, Any]        # {"kv": {"k", "v"}} block pool (+ sink)
+    tables: torch.Tensor         # (B, blocks_per_slot) int32 block tables
+    cur: torch.Tensor            # (B, 1) int64 next token to feed
+    pos: torch.Tensor            # (B,) int32 write/attend position
+    remaining: torch.Tensor      # (B,) int32 output tokens still owed
+    temp: torch.Tensor           # (B,) f32 sampling temperature
+    top_k: torch.Tensor          # (B,) int32 top-k cutoff (0 = off)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
+                               f"see ROADMAP {item}")
+
+
+class SlotScheduler:
+    def __init__(self, cfg: ModelConfig, params: Any,
+                 serve: Optional[ServeConfig] = None,
+                 temperature: float = 0.0, device: DeviceLike = None):
+        if cfg.family not in tf.ATTN_FAMILIES:
+            raise _not_ported(f"family {cfg.family!r}", "Queue 1 #12")
+        sv = serve if serve is not None else cfg.serve
+        if sv.spec_k > 0:
+            raise _not_ported("speculative decoding (spec_k > 0)",
+                              "Queue 1 #8")
+        if sv.kv_sketch_window > 0:
+            raise _not_ported("sketched long-context KV "
+                              "(kv_sketch_window > 0)", "Queue 1 #9")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params on {params['embed'].device}, engine "
+                             f"on {self.device}")
+        if sv.paged_kernels and self.device.type != "cuda":
+            raise ValueError("paged_kernels=True needs a CUDA device: the "
+                             "CUDA kernel has no CPU or interpret mode")
+        self.cfg = cfg
+        self.params = params
+        self.serve = sv
+        self.temperature = float(temperature)   # default for requests
+        # paged attention implementation: None picks by device
+        self.use_kernels = sv.paged_kernels
+        B = sv.max_batch
+        self._queue: List[Request] = []
+        self._slot_req: List[Optional[Request]] = [None] * B
+        self._slot_out: List[List[int]] = [[] for _ in range(B)]
+        self._slot_hit: List[bool] = [False] * B
+        self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
+        self._slot_rows: List[int] = [0] * B
+        # host mirrors of per-slot device state: the pump phases never
+        # read device tensors, so the next round's host work overlaps the
+        # chunk in flight
+        self._slot_temp: List[float] = [0.0] * B
+        self._slot_gen: List[Optional[torch.Generator]] = [None] * B
+        self._slot_admit_seq: List[int] = [0] * B
+        self._admit_seq = 0
+        # rid -> pending admit_plen, set on a request's FIRST admission
+        # attempt so pool-pressure retries don't re-feed the count-min
+        self._admit_memo: Dict[int, Optional[int]] = {}
+        # rid -> (original prompt_len, tokens emitted before preemption,
+        # prefix_hit so far)
+        self._preempted: Dict[int, Tuple[int, List[int], bool]] = {}
+        # the chunk in flight between dispatch() and collect(): stacked
+        # (2, chunk, B) tokens/emits plus its timing events on the card
+        self._inflight: Optional[Tuple[torch.Tensor, Any]] = None
+        self.chunk_ms: List[float] = []   # device time per decode chunk
+        self.cancellations = 0
+        self.expirations = 0
+        self.preemptions = 0
+        self._used_rows = 0
+        self.peak_used_rows = 0
+        self.decode_steps = 0
+        self.completed: List[Completion] = []
+        self._base_seed = int(sv.seed)
+
+        self.block_size = max(1, sv.kv_block_size)
+        if sv.prefix_block % self.block_size:
+            raise ValueError(f"kv_block_size {self.block_size} must divide "
+                             f"prefix_block {sv.prefix_block} so cached "
+                             f"prefixes share whole blocks")
+        self.blocks_per_slot = -(-sv.max_seq // self.block_size)
+        nb = sv.num_kv_blocks or B * self.blocks_per_slot
+        self.num_blocks = nb
+        cache = tf.init_paged_cache(cfg, nb, self.block_size, self.device)
+        # K and V, all layers, one block
+        block_bytes = (2 * cfg.num_layers * self.block_size
+                       * cfg.num_kv_heads * cfg.resolved_head_dim
+                       * cache["kv"]["k"].element_size())
+        self.alloc = BlockAllocator(nb, block_bytes)
+        self.prefix_cache = SketchPrefixCache(
+            sv, allocator=self.alloc, block_size=self.block_size)
+        dev = self.device
+        self._state = DecodeState(
+            cache=cache,
+            tables=torch.full((B, self.blocks_per_slot), nb,
+                              dtype=torch.int32, device=dev),
+            cur=torch.zeros((B, 1), dtype=torch.int64, device=dev),
+            pos=torch.zeros((B,), dtype=torch.int32, device=dev),
+            remaining=torch.zeros((B,), dtype=torch.int32, device=dev),
+            temp=torch.zeros((B,), dtype=torch.float32, device=dev),
+            top_k=torch.zeros((B,), dtype=torch.int32, device=dev),
+        )
+
+    def set_observer(self, obs: Any) -> None:
+        """The reference's observability hooks are not ported yet."""
+        raise _not_ported("the observer hooks (repro.obs)", "Queue 1 #10")
+
+    # ------------------------------------------------------------------
+    # Device pieces
+    # ------------------------------------------------------------------
+
+    def _sample(self, lg: torch.Tensor, sampled: List[int]) -> torch.Tensor:
+        """Per-slot next token: argmax for greedy slots; top-k filtered
+        temperature sampling, from the slot's own generator, for the
+        host-known list of ``sampled`` slots.  A greedy-only chunk passes
+        an empty list and pays the argmax alone."""
+        greedy = torch.argmax(lg, dim=-1)
+        if not sampled:
+            return greedy
+        st = self._state
+        V = lg.shape[-1]
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        kth = torch.gather(
+            srt, 1, (st.top_k - 1).clamp(0, V - 1)[:, None].long())[:, 0]
+        keep = (st.top_k <= 0)[:, None] | (lg >= kth[:, None])
+        filt = torch.where(keep, lg, torch.full_like(lg, -float("inf")))
+        probs = torch.softmax(filt / st.temp.clamp(min=1e-6)[:, None], -1)
+        out = greedy.clone()
+        for s in sampled:
+            # exponential race: argmax(p / E) with E ~ Exp(1) draws from p
+            e = torch.empty_like(probs[s]).exponential_(
+                generator=self._slot_gen[s])
+            out[s] = torch.argmax(probs[s] / e)
+        return out
+
+    def _run_chunk(self) -> torch.Tensor:
+        """Enqueue ``decode_chunk`` decode steps for every slot; returns
+        the stacked (2, chunk, B) int64 tokens and emit flags, still on
+        the device."""
+        cfg, st = self.cfg, self._state
+        sampled = [s for s, r in enumerate(self._slot_req)
+                   if r is not None and self._slot_temp[s] > 0.0]
+        toks, emits = [], []
+        for _ in range(self.serve.decode_chunk):
+            running = st.remaining > 0
+            logits, _ = tf.decode_step(self.params, st.cache, st.cur, st.pos,
+                                       cfg, st.tables,
+                                       kernels=self.use_kernels)
+            nxt = self._sample(logits[:, :cfg.vocab_size], sampled)
+            step = running.to(torch.int32)
+            st.pos.add_(step)
+            st.remaining.sub_(step)
+            st.cur.copy_(nxt[:, None])
+            toks.append(nxt)
+            emits.append(running.to(torch.int64))
+        return torch.stack([torch.stack(toks), torch.stack(emits)])
+
+    # ------------------------------------------------------------------
+    # Scheduling
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        sv = self.serve
+        S = len(req.tokens)
+        if req.max_new < 1 or S < 1:
+            raise ValueError("requests need a prompt and at least one "
+                             "output token")
+        if S + req.max_new > sv.max_seq:
+            raise ValueError(f"prompt {S} + max_new {req.max_new} exceeds "
+                             f"max_seq {sv.max_seq}")
+        # reject up front what the pool can never serve, so it can't
+        # head-of-line-block the queue
+        need = -(-(S + req.max_new) // self.block_size)
+        if need > self.num_blocks:
+            raise ValueError(f"request needs {need} KV blocks of "
+                             f"{self.block_size}, pool has "
+                             f"{self.num_blocks} (raise num_kv_blocks)")
+        self._enqueue(req, front=False)
+
+    def _enqueue(self, req: Request, front: bool) -> None:
+        """Priority-ordered insertion (descending priority, FIFO within a
+        band); ``front`` inserts at the head of the request's band (for
+        preempted continuations)."""
+        pr = req.priority
+        if front:
+            i = 0
+            while i < len(self._queue) and self._queue[i].priority > pr:
+                i += 1
+        else:
+            i = len(self._queue)
+            while i > 0 and self._queue[i - 1].priority < pr:
+                i -= 1
+        self._queue.insert(i, req)
+
+    def _request_generator(self, req: Request) -> torch.Generator:
+        if req.generator is not None:
+            return req.generator
+        g = torch.Generator(device=self.device)
+        g.manual_seed(req.seed if req.seed is not None
+                      else self._base_seed + req.rid)
+        return g
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device without waiting on the stream (pinned,
+        non-blocking copy), so admission overlaps a chunk in flight."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _chunk_prefill_loop(self, prompt: np.ndarray, table: torch.Tensor,
+                            start_off: int) -> None:
+        """Feed prompt rows [start_off, S) through bucket-sized prefill
+        chunks.  Starts are always absolute bucket multiples, so a
+        prefix-cache hit resuming mid-prompt replays exactly the chunk
+        boundaries a cold miss used (overlap rows recompute to the values
+        they hold) and both paths write the same cache rows."""
+        sv = self.serve
+        S = len(prompt)
+        bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
+        off = (start_off // bucket) * bucket
+        while off < S:
+            seg = prompt[off:off + bucket]
+            tok = np.zeros((1, bucket), np.int64)
+            tok[0, :len(seg)] = seg
+            tf.prefill_chunk(self.params, self._state.cache,
+                             self._to_device(tok), table, off, self.cfg,
+                             kernels=self.use_kernels)
+            off += bucket
+
+    def _take_blocks(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` pool blocks, evicting idle prefix-cache entries
+        under pressure; None when the pool can't serve it now."""
+        ids = self.alloc.alloc(n)
+        while ids is None and self.prefix_cache.evict_one(idle_only=True):
+            ids = self.alloc.alloc(n)
+        return ids
+
+    def _admit(self, slot: int, req: Request) -> bool:
+        """Try to admit ``req`` into ``slot``; False when the block pool
+        can't reserve the request's KV now (it stays queued)."""
+        prompt = np.asarray(req.tokens, np.int32)
+        S = len(prompt)
+        bs = self.block_size
+        st = self._state
+        if req.rid not in self._admit_memo:
+            hit = self.prefix_cache.lookup(prompt)
+            self._admit_memo[req.rid] = self.prefix_cache.observe(prompt)
+        else:
+            # pool-pressure retry: counted on the first attempt already
+            hit = self.prefix_cache.peek(prompt)
+        admit_plen = self._admit_memo[req.rid]
+        shared: List[int] = []
+        start_off = 0
+        if hit is not None:
+            plen, ids = hit
+            shared = list(ids)
+            start_off = plen
+            # pin the shared blocks before any allocation below can
+            # pressure the cache into evicting (and freeing) them
+            self.alloc.ref(shared)
+        if admit_plen is not None and admit_plen <= start_off:
+            admit_plen = None
+        n_total = -(-(S + req.max_new) // bs)
+        new_ids = self._take_blocks(n_total - len(shared))
+        if new_ids is None:
+            if hit is not None:
+                self.alloc.unref(shared)
+            if not any(r is not None for r in self._slot_req):
+                raise RuntimeError(
+                    f"kv pool ({self.num_blocks} blocks of {bs}) too small "
+                    f"for prompt {S} + max_new {req.max_new}")
+            return False
+        slot_ids = shared + new_ids
+        row = np.full((self.blocks_per_slot,), self.num_blocks, np.int32)
+        row[:len(slot_ids)] = slot_ids
+        table = self._to_device(row)
+        st.tables[slot] = table
+        self._chunk_prefill_loop(prompt, table, start_off)
+        self._slot_blocks[slot] = slot_ids
+        if admit_plen is not None:
+            self.prefix_cache.admit(prompt, admit_plen,
+                                    tuple(slot_ids[:admit_plen // bs]))
+        # demand: every row a live request attends, shared rows counted
+        # per referencing request
+        self._slot_rows[slot] = S + req.max_new
+        self._used_rows += self._slot_rows[slot]
+        self.peak_used_rows = max(self.peak_used_rows, self._used_rows)
+        self._admit_memo.pop(req.rid, None)
+
+        temp = (self.temperature if req.temperature is None
+                else float(req.temperature))
+        st.cur[slot, 0] = int(prompt[S - 1])
+        st.pos[slot] = S - 1
+        st.remaining[slot] = req.max_new
+        st.temp[slot] = temp
+        st.top_k[slot] = int(req.top_k)
+        self._slot_req[slot] = req
+        self._slot_out[slot] = []
+        self._slot_hit[slot] = hit is not None
+        self._slot_temp[slot] = temp
+        self._slot_gen[slot] = (self._request_generator(req) if temp > 0.0
+                                else None)
+        self._slot_admit_seq[slot] = self._admit_seq
+        self._admit_seq += 1
+        return True
+
+    def _complete(self, slot: int, status: str) -> Completion:
+        """Completion for ``slot``'s occupant, folding in output emitted
+        before an earlier preemption (original prompt_len, full output)."""
+        req = self._slot_req[slot]
+        out = list(self._slot_out[slot][:req.max_new])
+        hit = self._slot_hit[slot]
+        plen = len(req.tokens)
+        stash = self._preempted.pop(req.rid, None)
+        if stash is not None:
+            plen, prior, hit0 = stash
+            out = prior + out
+            hit = hit or hit0
+        return Completion(rid=req.rid, prompt_len=plen,
+                          tokens=np.asarray(out, np.int32),
+                          prefix_hit=hit, status=status)
+
+    def _complete_queued(self, req: Request, status: str) -> Completion:
+        """Completion for a request leaving the queue (cancelled or
+        expired before admission)."""
+        plen, prior, hit = self._preempted.pop(
+            req.rid, (len(req.tokens), [], False))
+        self._admit_memo.pop(req.rid, None)
+        return Completion(rid=req.rid, prompt_len=plen,
+                          tokens=np.asarray(prior, np.int32),
+                          prefix_hit=hit, status=status)
+
+    def _release_slot_state(self, freed: List[int],
+                            deactivate: bool = False) -> None:
+        """Release every slot in ``freed`` — device table rows, pool
+        blocks, host mirrors.  ``deactivate`` also zeroes the device
+        ``remaining`` (mid-flight evictions)."""
+        for s in freed:
+            if deactivate:
+                self._state.remaining[s] = 0
+            # sentinel the row BEFORE its blocks can be freed and reused:
+            # an idle slot still runs the decode write every step
+            self._state.tables[s] = self.num_blocks
+            self.alloc.unref(self._slot_blocks[s])
+            self._slot_blocks[s] = []
+            self._used_rows -= self._slot_rows[s]
+            self._slot_rows[s] = 0
+            self._slot_req[s] = None
+            self._slot_out[s] = []
+            self._slot_temp[s] = 0.0
+            self._slot_gen[s] = None
+
+    def _retire(self) -> List[Completion]:
+        """Retire every slot whose collected output reached ``max_new``."""
+        done: List[Completion] = []
+        freed: List[int] = []
+        for s, req in enumerate(self._slot_req):
+            if req is not None and len(self._slot_out[s]) >= req.max_new:
+                done.append(self._complete(s, "ok"))
+                freed.append(s)
+        self._release_slot_state(freed)
+        self.completed.extend(done)
+        return done
+
+    def cancel(self, rid: int, status: str = "cancelled"
+               ) -> Optional[Completion]:
+        """Cancel a queued or in-flight request (pump boundary only): a
+        queued one leaves the queue, an admitted one is evicted and its
+        blocks unreffed.  Returns the Completion (partial tokens) or None
+        for an unknown rid."""
+        assert self._inflight is None, (
+            "cancel() between dispatch() and collect()")
+        comp = None
+        for i, r in enumerate(self._queue):
+            if r.rid == rid:
+                self._queue.pop(i)
+                comp = self._complete_queued(r, status)
+                break
+        if comp is None:
+            for s, r in enumerate(self._slot_req):
+                if r is not None and r.rid == rid:
+                    comp = self._complete(s, status)
+                    self._release_slot_state([s], deactivate=True)
+                    break
+        if comp is None:
+            return None
+        if status == "expired":
+            self.expirations += 1
+        else:
+            self.cancellations += 1
+        self.completed.append(comp)
+        return comp
+
+    def expire_deadlines(self, now: Optional[float] = None
+                         ) -> List[Completion]:
+        """Expire every request whose deadline has passed (queued ones
+        with empty output, in-flight ones with what they have)."""
+        if now is None:
+            now = time.monotonic()
+        late = [r.rid for r in self._queue
+                if r.deadline is not None and r.deadline <= now]
+        late += [r.rid for r in self._slot_req
+                 if r is not None and r.deadline is not None
+                 and r.deadline <= now]
+        return [c for c in (self.cancel(rid, "expired") for rid in late)
+                if c is not None]
+
+    def preempt(self, slot: int) -> Request:
+        """Evict a running slot and requeue its request as a continuation
+        (prompt + tokens so far, budget reduced) at the head of its
+        priority band.  A sampled slot's continuation keeps drawing from
+        the slot's generator.  Pump boundary only."""
+        assert self._inflight is None, (
+            "preempt() between dispatch() and collect()")
+        req = self._slot_req[slot]
+        assert req is not None, f"preempt of empty slot {slot}"
+        out = list(self._slot_out[slot])
+        plen0, prior, hit0 = self._preempted.get(
+            req.rid, (len(req.tokens), [], False))
+        self._preempted[req.rid] = (plen0, prior + out,
+                                    hit0 or self._slot_hit[slot])
+        cont = dataclasses.replace(
+            req,
+            tokens=np.concatenate([np.asarray(req.tokens, np.int32),
+                                   np.asarray(out, np.int32)]),
+            max_new=req.max_new - len(out),
+            generator=(self._slot_gen[slot] if self._slot_gen[slot] is not None
+                       else req.generator))
+        self._release_slot_state([slot], deactivate=True)
+        self.preemptions += 1
+        # the continuation must not re-feed the count-min tracker
+        self._admit_memo[req.rid] = None
+        self._enqueue(cont, front=True)
+        return cont
+
+    def _preempt_for(self, req: Request) -> Optional[int]:
+        """Evict the lowest-priority running slot strictly below
+        ``req``'s priority (ties toward the most recently admitted);
+        None when preemption is off or no slot qualifies."""
+        if not self.serve.preemption:
+            return None
+        best = None
+        for s, r in enumerate(self._slot_req):
+            if r is None or r.priority >= req.priority:
+                continue
+            rank = (r.priority, -self._slot_admit_seq[s])
+            if best is None or rank < best[0]:
+                best = (rank, s)
+        if best is None:
+            return None
+        self.preempt(best[1])
+        return best[1]
+
+    @property
+    def pending(self) -> bool:
+        """True while any request is queued or occupying a slot."""
+        return bool(self._queue) or any(
+            r is not None for r in self._slot_req)
+
+    @property
+    def queue_len(self) -> int:
+        return len(self._queue)
+
+    def progress(self) -> Dict[int, List[int]]:
+        """rid -> tokens emitted so far, for every request still queued or
+        in flight (a preempted request's earlier output counts)."""
+        out: Dict[int, List[int]] = {}
+        for rid, (_, prior, _) in self._preempted.items():
+            out[rid] = list(prior)
+        for s, r in enumerate(self._slot_req):
+            if r is not None:
+                out[r.rid] = out.get(r.rid, []) + list(self._slot_out[s])
+        for r in self._queue:
+            out.setdefault(r.rid, [])
+        return out
+
+    # ------------------------------------------------------------------
+    # Pump phases
+    # ------------------------------------------------------------------
+
+    def admit_pending(self) -> int:
+        """Move queued requests into free slots until the queue empties,
+        the engine fills or the pool can't serve the head request; a full
+        engine may preempt a strictly lower-priority slot for a
+        higher-priority head.  Safe while a chunk is in flight."""
+        admitted = 0
+        while self._queue:
+            head = self._queue[0]
+            slot = next((s for s, r in enumerate(self._slot_req)
+                         if r is None), None)
+            if slot is None:
+                slot = self._preempt_for(head) \
+                    if self._inflight is None else None
+            if slot is None or not self._admit(slot, head):
+                break
+            self._queue.pop(0)
+            admitted += 1
+        return admitted
+
+    def dispatch(self) -> bool:
+        """Launch one decode chunk.  On the card this only enqueues work;
+        ``collect()`` waits for it.  False when no slot is active."""
+        assert self._inflight is None, "one decode chunk may be in flight"
+        if not any(r is not None for r in self._slot_req):
+            return False
+        events = None
+        if self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        out = self._run_chunk()
+        if events is not None:
+            events[1].record()
+        self.decode_steps += self.serve.decode_chunk
+        self._inflight = (out, events)
+        return True
+
+    def collect(self) -> List[Completion]:
+        """Copy the chunk's tokens to the host (the round's one wait on
+        the device), account them to their slots and retire finished
+        requests.  Slots admitted while the chunk was in flight emitted
+        nothing (their ``remaining`` was 0 when it was enqueued)."""
+        assert self._inflight is not None, "collect() without dispatch()"
+        out, events = self._inflight
+        self._inflight = None
+        host = out.cpu().numpy()
+        if events is not None:
+            self.chunk_ms.append(events[0].elapsed_time(events[1]))
+        toks, emits = host[0], host[1].astype(bool)
+        for t in range(toks.shape[0]):
+            for s in range(toks.shape[1]):
+                if self._slot_req[s] is not None and emits[t, s]:
+                    self._slot_out[s].append(int(toks[t, s]))
+        return self._retire()
+
+    def step(self) -> List[Completion]:
+        """One synchronous round: expire, admit, dispatch, collect."""
+        self.expire_deadlines()
+        self.admit_pending()
+        if not self.dispatch():
+            return []
+        return self.collect()
+
+    def drain(self) -> List[Completion]:
+        """Step until every queued and in-flight request completed."""
+        done: List[Completion] = []
+        while self.pending:
+            done.extend(self.step())
+        return done
+
+    def run(self, requests: Optional[List[Request]] = None
+            ) -> List[Completion]:
+        """Closed batch: submit ``requests`` (if given) and drain."""
+        for r in requests or []:
+            self.submit(r)
+        return self.drain()
+
+    # ------------------------------------------------------------------
+    # Introspection
+    # ------------------------------------------------------------------
+
+    def kv_reserved_bytes(self) -> int:
+        """Bytes of pool blocks currently allocated (slots + cache)."""
+        return self.alloc.reserved_bytes()
+
+    def kv_peak_reserved_bytes(self) -> int:
+        return self.alloc.peak_reserved_bytes()
+
+    def kv_peak_used_bytes(self) -> int:
+        """High-water mark of the KV row demand of live requests."""
+        row_bytes = self.alloc.block_bytes / self.block_size
+        return int(row_bytes * self.peak_used_rows)
+
+    def kv_dense_equiv_bytes(self) -> int:
+        """Bytes a dense (L, max_batch, max_seq, K, hd) cache would hold."""
+        row_bytes = self.alloc.block_bytes / self.block_size
+        return int(row_bytes * self.serve.max_seq * self.serve.max_batch)
+
+    def stats(self) -> EngineStats:
+        pc = self.prefix_cache.stats
+        return EngineStats(
+            queue_depth=len(self._queue),
+            active_slots=sum(r is not None for r in self._slot_req),
+            max_batch=self.serve.max_batch,
+            completed=len(self.completed),
+            cancelled=self.cancellations,
+            expired=self.expirations,
+            preempted=self.preemptions,
+            decode_steps=self.decode_steps,
+            pool_blocks=self.num_blocks,
+            block_size=self.block_size,
+            blocks_reserved=self.alloc.reserved,
+            blocks_free=self.alloc.free_count,
+            blocks_peak=self.alloc.peak_reserved,
+            kv_reserved_bytes=self.kv_reserved_bytes(),
+            kv_peak_reserved_bytes=self.kv_peak_reserved_bytes(),
+            kv_peak_used_bytes=self.kv_peak_used_bytes(),
+            kv_dense_equiv_bytes=self.kv_dense_equiv_bytes(),
+            prefix_lookups=pc.lookups,
+            prefix_hits=pc.hits,
+            prefix_admitted=pc.admitted,
+            prefix_evicted=pc.evicted,
+            prefix_cached_bytes=pc.bytes,
+        )
