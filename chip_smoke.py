@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels from
 the sources in this checkout, holds each against its plain version,
-checks the full-width model against its plain path, and serves
-full-width gemma-2b through the port's main path.
+checks the full-width model against its plain path, serves full-width
+gemma-2b and trains full-width yi-9b through the port's main paths.
 
     python3 chip_smoke.py
 
@@ -10,11 +10,19 @@ Phases (one line each; any failure exits non-zero):
   2. kernel    — paged attention vs its plain version at the decode,
                  chunked-prefill and a reduced (hd=16) geometry, with
                  kernel / plain / library (SDPA yardstick) times and the
-                 bandwidth bound
+                 bandwidth bound; sketch_update vs its plain version at
+                 the reference's four kernel shapes and one yi-9b w_gate
+                 layer piece whose indices pass 2^31, with kernel / plain
+                 times and the bandwidth bound
   3. model     — full-width gemma-2b decode_step logits, kernel vs plain
   4. serve     — 16 requests through the async engine (the path
                  ServeEngine.generate wraps), launches counted, greedy
                  output checked against a teacher-forced recompute
+  5. train     — yi-9b at full width and depth, 4 steps of batch 8 x 128
+                 tokens with sketched AdamW (ratio 4, rows 3) through
+                 train/loop.py; losses finite, sketch_update launched,
+                 step 1's norm1 tables and params checked in situ against
+                 the plain version from the step's own gradient
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -34,6 +43,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor rate
+F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
 SEED = 0
 
 
@@ -196,6 +206,99 @@ def phase_kernel(flush):
     return rows
 
 
+# name: (n, C, R, offset, gradient dtype).  The reference's four kernel
+# shapes (tests/test_sketch_opt.py), then one layer piece of yi-9b's
+# w_gate leaf (48 x 4096 x 11008; ratio 4, rows 3 -> C = 180,355,072):
+# layer 47 at offset 47 * n, so its indices run to 2,164,260,863 > 2^31
+SKETCH_GEOMETRIES = {
+    "ref_1000": (1000, 300, 3, 0, torch.float32),
+    "ref_4096": (4096, 512, 3, 0, torch.float32),
+    "ref_700": (700, 128, 4, 0, torch.float32),
+    "ref_8192": (8192, 640, 2, 0, torch.float32),
+    "yi9b_w_gate_layer47": (45_088_768, 180_355_072, 3, 47 * 45_088_768,
+                            torch.bfloat16),
+}
+SKETCH_MAIN = "yi9b_w_gate_layer47"
+B1, B2 = 0.9, 0.95
+
+
+def close_to(got, want, what):
+    """rtol 1e-5 and atol 1e-5 x max|want| (f32 atomics add in a varying
+    order; see csrc/sketch_update.cu).  Returns max |got - want|."""
+    err = (got - want).abs().max().item()
+    tol = 1e-5 * want.abs().max().item()
+    bad = ((got - want).abs() > tol + 1e-5 * want.abs()).sum().item()
+    if bad or not torch.isfinite(got).all():
+        fail(f"{what}: {bad} entries outside tolerance, max err {err}")
+    return err
+
+
+def phase_sketch_kernel(flush):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sketch_update import sketch_update
+    from repro_torch.sketch.hashing import cached_coeffs
+    dev = flush.device
+    rows = {}
+    for gi, (name, (n, C, R, off, dt)) in enumerate(
+            SKETCH_GEOMETRIES.items()):
+        gen = torch.Generator(dev).manual_seed(SEED + gi)
+        g = torch.randn(n, generator=gen, device=dev).to(dt)
+        m0 = torch.randn((R, C), generator=gen, device=dev)
+        v0 = torch.randn((R, C), generator=gen, device=dev).abs_()
+        cm = cached_coeffs(n + 3, R, device=dev)
+        cv = cached_coeffs(n + 4, R, device=dev)
+        km, kv = m0.clone(), v0.clone()
+        [(mh, vh)] = sketch_update([(g, off)], km, kv, cm, cv, b1=B1, b2=B2)
+        torch.cuda.synchronize()
+        rm, rv, rmh, rvh = ref.sketch_update_ref(g, m0, v0, cm, cv, B1, B2,
+                                                 offset=off)
+        err = max(close_to(km, rm, f"sketch_update {name} new_m"),
+                  close_to(kv, rv, f"sketch_update {name} new_v"))
+        del rm, rv
+        err = max(err, close_to(mh, rmh, f"sketch_update {name} m_hat"),
+                  close_to(vh, rvh, f"sketch_update {name} v_hat"))
+        del rmh, rvh, mh, vh
+        torch.cuda.empty_cache()
+        reps = 5 if n > 1 << 20 else 50
+        kernel_ms, parts, _ = device_ms(
+            lambda: list(sketch_update([(g, off)], km, kv, cm, cv, b1=B1,
+                                       b2=B2)), reps, flush)
+        kernel_only = sum(v for k, v in parts.items() if any(
+            f in k for f in ("scale_kernel", "accumulate_kernel",
+                             "retrieve_kernel")))
+        plain_ms = device_ms(lambda: ref.sketch_update_ref(
+            g, m0, v0, cm, cv, B1, B2, offset=off), 3 if reps == 5 else 10,
+            flush)[0]
+        torch.cuda.empty_cache()
+        # bytes: g once, each table read and written once, m_hat and
+        # v_hat written once, the coefficients read once
+        nbytes = (n * g.element_size() + 2 * 2 * R * C * 4 + 2 * n * 4
+                  + 2 * R * 4 * 4)
+        # f32 operations on these inputs: (1-b1)g, g^2, (1-b2)g^2; R adds
+        # per table into the tables; 2 R C table scalings; the median
+        # network's R(R-1)/2 compare pairs and the min's R-1 (the hashes
+        # are integer work, for which the table of peaks has no rate)
+        flops = n * (3 + 2 * R + R * (R - 1) + (R - 1)) + 2 * R * C
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        rows[name] = dict(
+            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=err, bytes=nbytes, flops=flops)
+        print(f"[kernel] sketch_update {name} (n={n}, C={C}, R={R}, "
+              f"offset={off}, g {str(dt)[6:]}): max|err| {err:.3e} "
+              f"(tol 1e-5 x max|ref| + 1e-5 rel; tables and estimates) "
+              f"kernel_ms={kernel_ms:.5f} (kernels alone "
+              f"{kernel_only:.5f}, the rest is the coefficient cast) "
+              f"plain_ms={plain_ms:.5f} library_ms=null (no single "
+              f"PyTorch call computes it) bound_ms={max(t_bytes, t_ops):.6f}"
+              f" ({nbytes} B, {flops} f32 flop)")
+        del g, m0, v0, km, kv
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full-width model, kernel vs plain path
 # ---------------------------------------------------------------------------
@@ -339,6 +442,169 @@ def phase_serve(cfg, params, dev, logit_gap):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: train
+# ---------------------------------------------------------------------------
+
+
+SKETCH_KERNELS = ("scale_kernel", "accumulate_kernel", "retrieve_kernel")
+
+
+class TrainProbe:
+    """``train(on_grads=...)`` hook.  In-situ check: at step 0 it copies
+    the stacked ``blocks/norm1`` leaf's gradient, params and pre-step
+    tables; at step 1, before that step's update, it holds the tables and
+    params the kernel path produced against the plain version run on the
+    copies.  Breakdown: from the hook of step 2 to the hook of step 3 (one
+    step's work: step 2's optimizer, then step 3's batch, forward and
+    backward) it runs the profiler and sums device time by kernel."""
+
+    def __init__(self):
+        self.saved = None
+        self.report = None
+        self.moment_bytes = None
+        self.prof = None
+        self.breakdown = None
+
+    def __call__(self, step, params, grads, opt):
+        from torch.profiler import ProfilerActivity, profile
+        if step == 2:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif step == 3:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - self.t0) * 1e3
+            self.prof.__exit__(None, None, None)
+            by_name = {}
+            for e in self.prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by_name[e.name] = (by_name.get(e.name, 0.0)
+                                       + e.time_range.elapsed_us() / 1e3)
+            self.prof = None
+            busy = sum(by_name.values())
+            if busy <= 0:
+                fail("the profiler recorded no device time in the train "
+                     "step")
+            sk = sum(v for k, v in by_name.items()
+                     if any(f in k for f in SKETCH_KERNELS))
+            gemm = sum(v for k, v in by_name.items()
+                       if any(f in k.lower() for f in (
+                           "gemm", "xmma", "cutlass", "nvjet")))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            self.breakdown = (
+                f"one step under the profiler (step 2's optimizer + step "
+                f"3's forward/backward): wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle); "
+                f"sketch_update kernels {sk:.3f} ms "
+                f"({100 * sk / busy:.1f}% of busy), GEMMs {gemm:.3f} ms "
+                f"({100 * gemm / busy:.1f}%), other {busy - sk - gemm:.3f} "
+                f"ms; top kernels "
+                + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+        from repro_torch.kernels import ref
+        from repro_torch.models.transformer import param_leaves
+        from repro_torch.sketch.optimizer import (moment_state_bytes,
+                                                  sketched_leaf_update)
+        from repro_torch.train.optimizer import bias_corrections
+        names = [n for n, _ in param_leaves(params)]
+        i = names.index("blocks/norm1")
+        mo = opt.moments[i]
+        if step == 0:
+            self.moment_bytes = moment_state_bytes(opt)
+            self.saved = dict(
+                g=[t.clone() for t in param_leaves(grads)[i][1]],
+                p=[t.clone() for t in param_leaves(params)[i][1]],
+                m=mo.m.table.clone(), v=mo.v.table.clone())
+            return
+        if step != 1:
+            return
+        sv = self.saved
+        off = [k * sv["g"][0].numel() for k in range(len(sv["g"]))]
+        pieces = list(zip([t.reshape(-1) for t in sv["g"]], off))
+        new_m, new_v = ref.sketch_accumulate_ref(
+            pieces, sv["m"], sv["v"], mo.m.coeffs, mo.v.coeffs, B1, B2)
+        bc1, bc2 = bias_corrections(B1, B2, 1)
+        want_p = []
+        for p, (g, o) in zip(sv["p"], pieces):
+            mh, vh = ref.sketch_retrieve_ref(g.numel(), o, new_m, new_v,
+                                             mo.m.coeffs, mo.v.coeffs)
+            sketched_leaf_update(p, mh, vh, lr=TRAIN["lr"], eps=1e-8,
+                                 weight_decay=0.01, bc1=bc1, bc2=bc2)
+            want_p.append(p)
+        err_t = max(close_to(mo.m.table, new_m, "in-situ norm1 m table"),
+                    close_to(mo.v.table, new_v, "in-situ norm1 v table"))
+        got = torch.stack([t.float() for t in param_leaves(params)[i][1]])
+        want = torch.stack([t.float() for t in want_p])
+        err_p = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=2 ** -7,
+                              atol=2 ** -9 * want.abs().max().item()):
+            fail(f"in-situ norm1 params: max err {err_p} (one bf16 ulp "
+                 f"allowed)")
+        self.report = (f"in-situ step-1 norm1 ({len(pieces)} pieces of "
+                       f"{sv['g'][0].numel()}, tables {tuple(new_m.shape)})"
+                       f" kernel vs plain: tables max|err| {err_t:.3e}, "
+                       f"params max|err| {err_p:.3e} (one bf16 ulp allowed)")
+        self.saved = None
+
+
+# batch and seq are launch/train.py's defaults; lr is train()'s default:
+# the CLI's 3e-3, tuned on the reduced configs, took the full-width
+# model's loss from 11.6 to 129 in one step on the card
+TRAIN = dict(steps=4, batch=8, seq=128, lr=3e-4)
+
+
+def phase_train(dev):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.sketch_update import sketch_update
+    from repro_torch.train.loop import train
+    cfg = get_config("yi-9b")
+    cfg = dataclasses.replace(cfg, sketch=dataclasses.replace(
+        cfg.sketch, opt_state_ratio=4, opt_state_rows=3,
+        opt_state_min_elems=1 << 16))
+    logs = []
+    probe = TrainProbe()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sketch_update.launches = 0              # count the main path alone
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    hist = train(cfg, **TRAIN, seed=SEED, device=dev, log_every=1,
+                 log_fn=logs.append, on_grads=probe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sketch_update.launches
+    peak = torch.cuda.max_memory_allocated()
+    for ln in logs:
+        print(f"[train] {ln}")
+    b = probe.moment_bytes
+    n_params = cfg.param_count()
+    if not all(np.isfinite(hist.losses)) or len(hist.losses) != 4 \
+            or launches <= 0 or probe.report is None \
+            or probe.breakdown is None:
+        fail(f"train: losses {hist.losses}, sketch_update launches "
+             f"{launches}, in-situ check {probe.report}")
+    print(f"[train] yi-9b full width and depth ({cfg.num_layers} layers, "
+          f"{n_params} params), batch {TRAIN['batch']} x seq "
+          f"{TRAIN['seq']}, sketched AdamW ratio 4 rows 3: losses "
+          + ", ".join(f"{x:.4f}" for x in hist.losses) + "; step ms (the "
+          "profiler runs from step 2's optimizer to step 3's backward) "
+          + ", ".join(f"{t * 1e3:.1f}" for t in hist.step_times)
+          + f"; {wall:.2f}s for the run incl. init; [opt] sketched moments "
+          f"{b['sketched']} B + {b['dense']} B dense leaves vs dense AdamW "
+          f"{8 * n_params} B; peak allocated {peak} B "
+          f"({peak / 2 ** 30:.2f} GiB) of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory} B; "
+          f"sketch_update launches {launches} "
+          f"({launches // TRAIN['steps']} per step), paged_attention "
+          f"launches {paged_attention.launches}; {card()}")
+    print(f"[train] {probe.report}")
+    print(f"[train] {probe.breakdown}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -361,14 +627,20 @@ def main() -> None:
 
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     rows = phase_kernel(flush)
+    sk_rows = phase_sketch_kernel(flush)
 
     cfg = get_config("gemma-2b")
     params = tf.init_params(cfg, seed=SEED, device=dev)
     gap = phase_model(cfg, params, dev, flush)
     del flush
     launches = phase_serve(cfg, params, dev, gap)
+    del params                               # free gemma-2b for training
+    gc.collect()
+    torch.cuda.empty_cache()
+    sk_launches = phase_train(dev)
 
     d = rows["decode"]
+    sk = sk_rows[SKETCH_MAIN]
     record = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -377,7 +649,15 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-        "library_ms": d["library_ms"]}]}
+        "library_ms": d["library_ms"]}, {
+        "name": "sketch_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sketch_update.cu",
+        "replaces": "src/repro/kernels/sketch_update.py:125",
+        "launches": sk_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in sk_rows.values()),
+        "ms": sk["kernel_ms"], "plain_ms": sk["plain_ms"],
+        "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
+        "library_ms": None}]}
     print(json.dumps(record))
     print(card())
     print(json.dumps({"ok": True, "device": {

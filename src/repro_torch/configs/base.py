@@ -30,7 +30,8 @@ class SketchConfig:
     ``num_sketches``: D independent sketches (median combine).
     ``opt_state_ratio``: > 0 moves AdamW (m, v) moments for large leaves
     into count-sketch tables of ~numel/ratio entries per moment
-    (the sketched optimizer; not ported yet); 0 keeps the dense optimizer (default).
+    (sketch/optimizer.py, through the sketch_update kernel on the card);
+    0 keeps the dense optimizer (default).
     ``opt_state_rows``: sketch rows per table (median/min combine width).
     ``opt_state_min_elems``: leaves smaller than this stay dense.
     """

@@ -1,7 +1,7 @@
 """Shared layers of the port (``repro/models/layers.py``): norms, RoPE,
 GQA/MQA attention over the paged KV pool (decode and chunked prefill),
-a plain full-sequence causal attention, the GLU FFN, embeddings and the
-LM head.
+full-sequence causal attention (the training path), the GLU FFN,
+embeddings, the LM head and the training loss.
 
 Plain functions over explicit parameter dicts.  Weights are bf16;
 norms, softmax statistics and logits are f32.
@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -132,8 +133,11 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def causal_attention(p: dict, x: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
-    """Plain full-sequence causal attention (f32 scores, one softmax):
-    the test oracle behind ``forward(mode="train")``.  x: (B, S, d)."""
+    """Full-sequence causal attention of ``forward(mode="train")``: the
+    training path's attention, differentiated by autograd.  f32 scores and
+    one softmax over all keys; the reference's ``causal_attention`` walks
+    KV chunks of 1024 with an online softmax, the same function (one chunk
+    at the training path's sequence lengths).  x: (B, S, d)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -169,13 +173,54 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens]
 
 
-def logits_fn(params: dict, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """Final hidden -> vocab logits (f32), dense or tied head."""
+def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, Vp) vocab projection: the dense head or the tied embed."""
     if cfg.sketch.sketched_head:
         raise NotImplementedError(
             "the FCS-sketched LM head is not ported yet; see ROADMAP "
             "Queue 1 #11")
-    head = params["head"] if params.get("head") is not None \
+    return params["head"] if params.get("head") is not None \
         else params["embed"].t()
-    return (x @ head).float()
+
+
+def logits_fn(params: dict, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Final hidden -> vocab logits (f32), dense or tied head."""
+    return (x @ _head(params, cfg)).float()
+
+
+def _ce_chunk(x: torch.Tensor, head_c: torch.Tensor, labels: torch.Tensor,
+              c0: int, m: torch.Tensor, l: torch.Tensor,
+              gold: torch.Tensor):
+    """One vocab chunk of the online logsumexp: columns [c0, c0 + vc)."""
+    logits = (x @ head_c).float()                       # (B, S, vc)
+    vc = head_c.shape[-1]
+    m_new = torch.maximum(m, logits.max(dim=-1).values)
+    l = l * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[..., None]).sum(dim=-1)
+    idx = labels - c0
+    valid = (idx >= 0) & (idx < vc)
+    g = logits.gather(-1, idx.clamp(0, vc - 1)[..., None])[..., 0]
+    return m_new, l, gold + torch.where(valid, g, torch.zeros_like(g))
+
+
+def cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
+                  cfg: ModelConfig, vocab_chunk: int = 8192) -> torch.Tensor:
+    """Mean next-token cross entropy over (B, S) (the reference's
+    ``cross_entropy``): a vocab-chunked online logsumexp, each chunk
+    recomputed in the backward, so the (B, S, V) f32 logits never exist
+    whole.  The logsumexp runs over all ``padded_vocab`` columns of the
+    head (padded rows carry init weights, as in the reference).  The
+    reference pads the head to a whole number of chunks and masks the
+    padding; here the last chunk is narrower, which is the same sum."""
+    head = _head(params, cfg)
+    B, S, _ = x.shape
+    V = head.shape[-1]
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    l = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    for c0 in range(0, V, vocab_chunk):
+        m, l, gold = checkpoint(_ce_chunk, x, head[:, c0:c0 + vocab_chunk],
+                                labels, c0, m, l, gold, use_reentrant=False)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return (lse - gold).mean()

@@ -1,6 +1,7 @@
 """Dense attention model assembly (``repro/models/transformer.py``, the
-attention stack only): parameter init, the paged slot cache, and the
-full-sequence / decode / chunked-prefill forward paths.
+attention stack only): parameter init, the paged slot cache, the
+full-sequence (training) / decode / chunked-prefill forward paths, and
+the training loss.
 
 Parameter layout (plain dicts of tensors; ``models/bridge.py`` builds the
 same layout from the JAX package's parameter tree):
@@ -9,6 +10,12 @@ same layout from the JAX package's parameter tree):
    "blocks": [ {"attn": {"wq", "wk", "wv", "wo"}, "ffn": {"w_gate",
                 "w_up", "w_down"}, "norm1": (d,), "norm2": (d,)}, ... ]}
 
+The reference stacks every block parameter as one (L, ...) leaf; the
+port keeps L per-layer tensors.  ``param_leaves`` lists the reference's
+leaves in its flatten order (sorted keys; a tied ``None`` head drops out)
+with each stacked leaf as its L per-layer pieces — the order and grouping
+the optimizers' state follows.
+
 Paged cache: {"kv": {"k": (L, NB + 1, bs, K, hd), "v": ...}} — the pool
 plus one write-sink block per layer (see models/layers.py).  The
 decode and prefill paths update it in place.
@@ -16,9 +23,10 @@ decode and prefill paths update it in place.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -27,6 +35,53 @@ from repro_torch.models import layers as ly
 Params = Dict[str, Any]
 
 ATTN_FAMILIES = ("dense",)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to the tensor leaves of nested dicts and lists (and of
+    trees of the same structure in ``rest``); ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def param_leaves(params: Params) -> List[Tuple[str, List[torch.Tensor]]]:
+    """The reference's parameter leaves in ``jax.tree.flatten`` order, each
+    as (path, pieces): a stacked block leaf ("blocks/attn/wq") has its L
+    per-layer tensors as pieces, a top-level leaf itself.  Works on any
+    tree shaped like the params (gradients, dense moments)."""
+    out: List[Tuple[str, List[torch.Tensor]]] = []
+
+    def walk(node: Any, path: str) -> None:
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}" if path else k)
+        else:
+            out.append((path, [node]))
+
+    for k in sorted(params):
+        if k != "blocks":
+            walk(params[k], k)
+            continue
+        blocks = params["blocks"]
+
+        def stacked(nodes: List[Any], path: str) -> None:
+            if isinstance(nodes[0], dict):
+                for kk in sorted(nodes[0]):
+                    stacked([n[kk] for n in nodes], f"{path}/{kk}")
+            else:
+                out.append((path, list(nodes)))
+
+        stacked(blocks, "blocks")
+    return out
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -111,6 +166,12 @@ def _ffn_residual(p_l: dict, x: torch.Tensor, cfg: ModelConfig):
     return x + ly.glu_ffn(p_l["ffn"], h, cfg.act)
 
 
+def _train_block(p_l: dict, x: torch.Tensor, cfg: ModelConfig):
+    h = ly.rms_norm(x, p_l["norm1"], cfg.norm_eps)
+    return _ffn_residual(p_l, x + ly.causal_attention(p_l["attn"], h, cfg),
+                         cfg)
+
+
 def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
             mode: str = "train", cache: Optional[dict] = None,
             index: Optional[torch.Tensor] = None,
@@ -119,7 +180,9 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: embedded inputs (B, S, d).  Returns (final-normed hidden, cache).
 
-    Modes: "train" (full-sequence causal; the test oracle), "decode" (one
+    Modes: "train" (full-sequence causal; each block's activations are
+    recomputed in the backward, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` over the layer scan), "decode" (one
     token per slot at per-slot positions ``index`` (B,) through the block
     ``tables`` (B, nb)), "chunk" (a (1, C) prompt chunk of one slot at
     absolute offset ``index`` (1,) through its (1, nb) table row).  The
@@ -129,9 +192,7 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     _check_family(cfg)
     if mode == "train":
         for p_l in params["blocks"]:
-            h = ly.rms_norm(x, p_l["norm1"], cfg.norm_eps)
-            x = _ffn_residual(p_l, x + ly.causal_attention(p_l["attn"], h,
-                                                           cfg), cfg)
+            x = checkpoint(_train_block, p_l, x, cfg, use_reentrant=False)
         return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), None
     if mode not in ("decode", "chunk"):
         raise ValueError(f"mode {mode!r} is not ported (train / decode / "
@@ -153,6 +214,16 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def embed_inputs(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return ly.embed_tokens(params["embed"], tokens)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` {"tokens", "labels"}
+    (B, S) int: the reference's ``loss_fn`` for the dense family (its MoE
+    aux loss is 0 here)."""
+    y, _ = forward(params, embed_inputs(params, batch["tokens"]), cfg,
+                   mode="train")
+    return ly.cross_entropy(params, y, batch["labels"], cfg)
 
 
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,

@@ -1,9 +1,19 @@
-"""Count-sketch vector container (port of ``repro/sketch/csvec.py``),
-reduced to what the serve path's prefix cache uses: the count-min mode
-(``signed=False``) with ``accumulate_coords``, ``query`` (min of rows),
-``decay`` and ``state_bytes``.  The signed median estimate and ``topk``
-come with sketched KV and the sketched optimizer (ROADMAP Queue 1
-#9 and #13).
+"""Count-sketch vector container (port of ``repro/sketch/csvec.py``).
+
+Both estimate modes of the reference:
+
+  signed=True  — count sketch: signed accumulate, median-of-rows estimate
+                 (the sketched optimizer's first moment);
+  signed=False — count-min: unsigned accumulate, min-of-rows estimate
+                 (the optimizer's second moment and the serve path's
+                 prefix-cache admission counter).
+
+Ported: ``csvec_zeros``, dense ``accumulate``, ``accumulate_coords``,
+``query`` / ``query_all``, ``decay`` and ``state_bytes``.  The signed
+median is numpy's (the two middle rows averaged when the row count is
+even), as ``jnp.median`` computes it; ``torch.median`` returns the lower
+middle value and is not used.  ``topk``, ``merge`` and ``l2_estimate``
+come with sketched KV (ROADMAP Queue 1 #9).
 
 The container holds only the (rows, cols) f32 table and the (rows, 4)
 hash coefficients; bucket hashes are recomputed on the fly
@@ -28,6 +38,10 @@ class CSVec:
     seed: int = 0
 
     @property
+    def rows(self) -> int:
+        return self.table.shape[0]
+
+    @property
     def cols(self) -> int:
         return self.table.shape[1]
 
@@ -35,14 +49,20 @@ class CSVec:
 def csvec_zeros(d: int, cols: int, rows: int = 3, seed: int = 0,
                 signed: bool = True, device=None) -> CSVec:
     """Empty sketch for a d-vector: (rows, cols) zeros + cached coeffs."""
-    if signed:
-        raise NotImplementedError(
-            "signed (median) CSVec is not ported yet; see ROADMAP Queue 1 "
-            "#9 and #13")
     return CSVec(table=torch.zeros((rows, cols), dtype=torch.float32,
                                    device=device),
                  coeffs=cached_coeffs(seed, rows, device=device), d=int(d),
                  signed=signed, seed=int(seed))
+
+
+def accumulate(sk: CSVec, vec: torch.Tensor, offset: int = 0) -> CSVec:
+    """In place: sk + CS(vec), every coordinate of a dense vector.  The
+    vector's element j is coordinate ``offset + j`` of the sketched
+    d-vector, so the pieces of one vector can be added one at a time."""
+    flat = vec.reshape(-1).to(torch.float32)
+    idx = offset + torch.arange(flat.shape[0], dtype=torch.int64,
+                                device=flat.device)
+    return accumulate_coords(sk, idx, flat)
 
 
 def accumulate_coords(sk: CSVec, idx: torch.Tensor,
@@ -54,11 +74,36 @@ def accumulate_coords(sk: CSVec, idx: torch.Tensor,
     return sk
 
 
+def median_rows(est: torch.Tensor) -> torch.Tensor:
+    """Median over dim 0, numpy's: the middle value for an odd count, the
+    mean of the two middle values for an even one.  Sorted by the same
+    odd-even transposition network as the TPU kernel's ``_median_rows``
+    and the CUDA kernel's retrieve pass (only elementwise min / max)."""
+    rows = list(est.unbind(0))
+    R = len(rows)
+    for p in range(R):
+        for j in range(p % 2, R - 1, 2):
+            lo = torch.minimum(rows[j], rows[j + 1])
+            hi = torch.maximum(rows[j], rows[j + 1])
+            rows[j], rows[j + 1] = lo, hi
+    if R % 2:
+        return rows[R // 2]
+    return 0.5 * (rows[R // 2 - 1] + rows[R // 2])
+
+
 def query(sk: CSVec, idx: torch.Tensor) -> torch.Tensor:
-    """Count-min point estimates at idx: the min over rows."""
+    """Point estimates at idx: median of rows (signed) / min (unsigned)."""
     bk, sg = row_buckets_signs(sk.coeffs, idx, sk.cols, sk.signed)
     est = torch.gather(sk.table, 1, bk.to(torch.int64)) * sg
+    if sk.signed:
+        return median_rows(est)
     return est.min(dim=0).values
+
+
+def query_all(sk: CSVec) -> torch.Tensor:
+    """Estimates for all d coordinates."""
+    return query(sk, torch.arange(sk.d, dtype=torch.int64,
+                                  device=sk.table.device))
 
 
 def decay(sk: CSVec, factor: float = 0.5) -> CSVec:

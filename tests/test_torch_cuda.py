@@ -1,8 +1,9 @@
-"""The port on the card: the sm_90a paged-attention kernel against its
-plain version, the model's kernel path against its plain path, and the
-slot engine launching the kernel.  Every test carries the ``cuda`` marker
-and skips without a card; the file imports nothing of JAX, so it runs on
-the card's machine:
+"""The port on the card: the sm_90a paged-attention and sketch_update
+kernels against their plain versions, the model's kernel path against its
+plain path, the slot engine launching the paged-attention kernel, and
+the sketched optimizer launching sketch_update.  Every test carries the
+``cuda`` marker and skips without a card; the file imports nothing of
+JAX, so it runs on the card's machine:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -14,9 +15,14 @@ import torch
 
 from repro_torch.configs.registry import reduced_config
 from repro_torch.kernels import ref
+from repro_torch.kernels.ops import sketch_update_op
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.sketch_update import sketch_update
 from repro_torch.models import transformer as tf
 from repro_torch.serve.scheduler import Request, SlotScheduler
+from repro_torch.sketch.hashing import cached_coeffs
+from repro_torch.sketch.optimizer import (sketched_adamw_init,
+                                          sketched_adamw_update)
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +134,94 @@ def test_engine_launches_the_kernel(card):
     assert sorted(c.rid for c in done) == [0, 1, 2, 3]
     assert all(len(c.tokens) == 6 for c in done)
     assert sched.alloc.reserved == sched.prefix_cache.held_blocks()
+
+
+def _sketch_inputs(n, C, R, offset, dtype, dev, pieces=1):
+    rng = np.random.RandomState(n % 1000)
+    g = torch.tensor(rng.randn(n), dtype=dtype, device=dev)
+    mt = torch.tensor(rng.randn(R, C), dtype=torch.float32, device=dev)
+    vt = torch.tensor(np.abs(rng.randn(R, C)), dtype=torch.float32,
+                      device=dev)
+    cm = cached_coeffs(n + 3, R, device=dev)
+    cv = cached_coeffs(n + 4, R, device=dev)
+    cuts = np.linspace(0, n, pieces + 1).astype(int)
+    parts = [(g[a:b], offset + int(a)) for a, b in zip(cuts, cuts[1:])]
+    return g, parts, mt, vt, cm, cv
+
+
+# (n, C, R, offset, dtype, pieces): the reference's four kernel shapes
+# (tests/test_sketch_opt.py), a bf16 gradient at an offset past 2^31
+# (a yi-9b FFN leaf's last layers), and three pieces of one vector
+SKETCH_SHAPES = [
+    (1000, 300, 3, 0, torch.float32, 1),
+    (4096, 512, 3, 0, torch.float32, 1),
+    (700, 128, 4, 0, torch.float32, 1),
+    (8192, 640, 2, 0, torch.float32, 1),
+    (50_000, 4096, 3, 2_119_172_096, torch.bfloat16, 1),
+    (30_000, 2048, 3, 7, torch.float32, 3),
+]
+
+
+@pytest.mark.parametrize("shape", SKETCH_SHAPES)
+def test_sketch_update_kernel_matches_plain_version(card, shape):
+    """Tables and estimates within rtol 1e-5 and atol 1e-5 x max|table|:
+    f32 atomics add in a varying order, and the kernel scales each term
+    where the plain version scales the sum."""
+    n, C, R, offset, dtype, npieces = shape
+    g, parts, mt, vt, cm, cv = _sketch_inputs(n, C, R, offset, dtype, card,
+                                              npieces)
+    km, kv = mt.clone(), vt.clone()
+    before = sketch_update.launches
+    est = list(sketch_update(parts, km, kv, cm, cv, b1=0.9, b2=0.95))
+    torch.cuda.synchronize()
+    assert sketch_update.launches == before + 1 + 2 * npieces
+    new_m, new_v = ref.sketch_accumulate_ref(parts, mt, vt, cm, cv, 0.9,
+                                             0.95)
+    for got, want in ((km, new_m), (kv, new_v)):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    for (gp, off), (m_hat, v_hat) in zip(parts, est):
+        rm, rv = ref.sketch_retrieve_ref(gp.numel(), off, new_m, new_v, cm,
+                                         cv)
+        torch.testing.assert_close(m_hat, rm, rtol=1e-5,
+                                   atol=1e-5 * new_m.abs().max().item())
+        torch.testing.assert_close(v_hat, rv, rtol=1e-5,
+                                   atol=1e-5 * new_v.abs().max().item())
+
+
+def test_sketched_optimizer_launches_the_kernel(card):
+    """Reduced yi-9b, sketched AdamW: one step on the card launches
+    sketch_update and matches the plain path's step (params within one
+    bf16 ulp, tables as above)."""
+    cfg = reduced_config("yi-9b")
+    params = tf.init_params(cfg, seed=3, device=card)
+    gen = torch.Generator(card).manual_seed(4)
+    grads = tf.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=card).to(p.dtype), params)
+    clone = lambda t: tf.tree_map(torch.clone, t)
+    p_k, p_r = clone(params), clone(params)
+    s_k = sketched_adamw_init(p_k, ratio=4, rows=3, min_elems=4096)
+    s_r = sketched_adamw_init(p_r, ratio=4, rows=3, min_elems=4096)
+    before = sketch_update.launches
+    sketched_adamw_update(grads, s_k, p_k, lr=1e-2)
+    assert sketch_update.launches > before
+    sketched_adamw_update(grads, s_r, p_r, lr=1e-2, use_kernel=False)
+    for (_, a), (_, b) in zip(tf.param_leaves(p_k), tf.param_leaves(p_r)):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x.float(), y.float(), rtol=2 ** -7,
+                                       atol=1e-6)
+    for a, b in zip(s_k.moments, s_r.moments):
+        if hasattr(a.m, "table"):
+            for x, y in ((a.m.table, b.m.table), (a.v.table, b.v.table)):
+                torch.testing.assert_close(
+                    x, y, rtol=1e-5, atol=1e-5 * y.abs().max().item())
+
+
+def test_sketch_update_op_sends_cuda_tensors_to_the_kernel(card):
+    g, parts, mt, vt, cm, cv = _sketch_inputs(512, 128, 3, 0, torch.float32,
+                                              card)
+    before = sketch_update.launches
+    list(sketch_update_op(parts, mt, vt, cm, cv, b1=0.9, b2=0.95))
+    assert sketch_update.launches == before + 3
+    with pytest.raises(ValueError, match="float32"):
+        sketch_update(parts, mt.double(), vt, cm, cv, b1=0.9, b2=0.95)
