@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source is compiled on its own by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  Builds
 land in ``build/kernels/`` at the repository root, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused.  ``build_all`` starts one ``nvcc`` per source together and
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source together and
 waits for all of them.
 """
 from __future__ import annotations
@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"paged_attention": "paged_attention.cu",
-           "sketch_update": "sketch_update.cu"}
+           "sketch_update": "sketch_update.cu",
+           "kv_sketch": "kv_sketch.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,7 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{h[:16]}.so"
 

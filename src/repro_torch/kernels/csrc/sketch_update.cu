@@ -12,10 +12,11 @@
 //   v_hat[idx] = min_r     new_v[r, h'_r(idx)]
 //
 // with the bucket and sign hashes of sketch/hashing.py evaluated in
-// native uint32 arithmetic (multiply-add mod 2^32, then MurmurHash3
-// fmix32; bucket = mix % C, sign = top bit).  The index is carried in 64
-// bits and hashed by its low 32 bits: the reference's int32 iota wraps
-// the same way, and a yi-9b FFN leaf has 2,164,260,864 > 2^31 elements.
+// native uint32 arithmetic (csrc/hashing.cuh: multiply-add mod 2^32, then
+// MurmurHash3 fmix32; bucket = mix % C, sign = top bit).  The index is
+// carried in 64 bits and hashed by its low 32 bits: the reference's int32
+// iota wraps the same way, and a yi-9b FFN leaf has 2,164,260,864 > 2^31
+// elements.
 // The plain version is kernels/ref.py:sketch_update_ref.
 //
 // The TPU has no scatter, so the Pallas kernel contracts signed one-hot
@@ -52,19 +53,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hashing.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;   // grid-stride: 16 blocks per SM
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -104,11 +98,11 @@ accumulate_kernel(const T* __restrict__ g, int64_t n, int64_t offset,
     const uint32_t u = (uint32_t)(offset + i);   // low 32 bits
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const uint32_t bm = mix32(c[4 * r] * u + c[4 * r + 1]) % C;
-      const uint32_t neg = mix32(c[4 * r + 2] * u + c[4 * r + 3]) >> 31;
+      const uint32_t bm = sketch::bucket(c[4 * r], c[4 * r + 1], u, C);
+      const bool neg = sketch::negative(c[4 * r + 2], c[4 * r + 3], u);
       atomicAdd(m + (size_t)r * C + bm, neg ? -gm : gm);
       const uint32_t bv =
-          mix32(c[4 * R + 4 * r] * u + c[4 * R + 4 * r + 1]) % C;
+          sketch::bucket(c[4 * R + 4 * r], c[4 * R + 4 * r + 1], u, C);
       atomicAdd(v + (size_t)r * C + bv, gv);
     }
   }
@@ -135,30 +129,16 @@ retrieve_kernel(int64_t n, int64_t offset, const float* __restrict__ m,
     float w = 0.0f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const uint32_t bm = mix32(c[4 * r] * u + c[4 * r + 1]) % C;
-      const uint32_t neg = mix32(c[4 * r + 2] * u + c[4 * r + 3]) >> 31;
+      const uint32_t bm = sketch::bucket(c[4 * r], c[4 * r + 1], u, C);
+      const bool neg = sketch::negative(c[4 * r + 2], c[4 * r + 3], u);
       const float x = m[(size_t)r * C + bm];
       e[r] = neg ? -x : x;
       const uint32_t bv =
-          mix32(c[4 * R + 4 * r] * u + c[4 * R + 4 * r + 1]) % C;
+          sketch::bucket(c[4 * R + 4 * r], c[4 * R + 4 * r + 1], u, C);
       const float y = v[(size_t)r * C + bv];
       w = r == 0 ? y : fminf(w, y);
     }
-    // odd-even transposition network, as _median_rows
-#pragma unroll
-    for (int p = 0; p < R; ++p) {
-#pragma unroll
-      for (int j = p % 2; j < R - 1; j += 2) {
-        const float lo = fminf(e[j], e[j + 1]);
-        const float hi = fmaxf(e[j], e[j + 1]);
-        e[j] = lo;
-        e[j + 1] = hi;
-      }
-    }
-    if constexpr (R % 2)
-      m_hat[i] = e[R / 2];
-    else
-      m_hat[i] = 0.5f * (e[R / 2 - 1] + e[R / 2]);
+    m_hat[i] = sketch::median<R>(e);
     v_hat[i] = w;
   }
 }

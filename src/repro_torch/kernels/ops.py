@@ -11,6 +11,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.sketch_update import sketch_update
 
@@ -65,3 +66,28 @@ def sketch_update_op(pieces: Sequence[Tuple[torch.Tensor, int]],
     return (ref.sketch_retrieve_ref(g.numel(), off, m_table, v_table,
                                     coeffs_m, coeffs_v)
             for g, off in pieces)
+
+
+def tail_fold_op(rows: torch.Tensor, positions: torch.Tensor,
+                 counts: torch.Tensor, tail: torch.Tensor,
+                 coeffs: torch.Tensor,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Fold the first ``counts[g]`` rows of each ``rows[g]`` into the
+    tables ``tail[g]``, in place (kernels/kv_sketch.py:tail_fold).
+    ``use_kernel`` as for ``paged_attention_op``, decided by the tables'
+    device."""
+    if _resolve(use_kernel, tail.device, "use_kernel"):
+        return tail_fold(rows, positions, counts, tail, coeffs)
+    return ref.tail_fold_ref(rows, positions, counts, tail, coeffs)
+
+
+def tail_scores_op(q: torch.Tensor, tail_k: torch.Tensor,
+                   coeffs: torch.Tensor, T: int,
+                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Median-of-rows tail score estimates (B, K, N, T) for queries
+    (B, K, N, hd) against key tables (B, Z, C, K, hd)
+    (kernels/kv_sketch.py:tail_scores).  ``use_kernel`` as for
+    ``paged_attention_op``."""
+    if _resolve(use_kernel, q.device, "use_kernel"):
+        return tail_scores(q, tail_k, coeffs, T)
+    return ref.tail_scores_ref(q, tail_k, coeffs, T)

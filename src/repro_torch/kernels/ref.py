@@ -15,6 +15,15 @@ and count-min ``CSVec`` (sketch/csvec.py), whose median is the plain
 are its two halves over the pieces of one flat vector (element j of a
 piece at ``offset`` is coordinate ``offset + j``); they are what
 ``kernels/ops.py:sketch_update_op`` runs on CPU tensors.
+
+``tail_fold_ref`` and ``tail_scores_ref`` are the sketched-KV tail fold
+and score estimates of ``repro/kernels/ref.py:kv_tail_fold_ref`` /
+``kv_tail_scores_ref``, batched over a leading axis as the CUDA kernels
+take them: the fold is the signed bucket-accumulate of
+``serve/kv_sketch.py:fold_rows`` (one ``index_add_`` of the rows into a
+zero delta, then the delta added to the tables), the scores the bucket
+products gathered through the signed position hashes and combined with
+``median_rows``.
 """
 from __future__ import annotations
 
@@ -24,9 +33,11 @@ from typing import Iterable, Tuple
 import torch
 
 from repro_torch.sketch.csvec import CSVec, accumulate, median_rows, query
+from repro_torch.sketch.hashing import row_buckets_signs
 
 __all__ = ["paged_attention_ref", "median_rows", "sketch_accumulate_ref",
-           "sketch_retrieve_ref", "sketch_update_ref"]
+           "sketch_retrieve_ref", "sketch_update_ref", "tail_fold_ref",
+           "tail_scores_ref"]
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -128,3 +139,44 @@ def sketch_update_ref(g: torch.Tensor, m_table: torch.Tensor,
     m_hat, v_hat = sketch_retrieve_ref(g.numel(), offset, new_m, new_v,
                                        coeffs_m, coeffs_v)
     return new_m, new_v, m_hat, v_hat
+
+
+def tail_fold_ref(rows: torch.Tensor, positions: torch.Tensor,
+                  counts: torch.Tensor, tail: torch.Tensor,
+                  coeffs: torch.Tensor) -> torch.Tensor:
+    """In place: ``tail[g, z, h_z(p)] += s_z(p) * rows[g, n]`` for the
+    first ``counts[g]`` rows n of each batch element, p = positions[g, n].
+    rows (G, N, D); positions (G, N) int; counts (G,) int; tail
+    (G, Z, C, D) f32 (may be a strided view); coeffs (Z, 4) int64.
+    Returns ``tail``."""
+    G, N, D = rows.shape
+    _, Z, C, _ = tail.shape
+    bk, sg = row_buckets_signs(coeffs, positions.reshape(-1), C,
+                               signed=True)                    # (Z, G*N)
+    valid = (torch.arange(N, device=rows.device)[None, :]
+             < counts.to(rows.device)[:, None]).reshape(1, G * N)
+    sg = torch.where(valid, sg, torch.zeros_like(sg))
+    g = torch.arange(G, device=rows.device).repeat_interleave(N)
+    z = torch.arange(Z, device=rows.device)[:, None]
+    flat = ((g[None, :] * Z + z) * C + bk).reshape(-1)          # (Z*G*N,)
+    vals = sg[:, :, None] * rows.reshape(1, G * N, D).float()
+    delta = torch.zeros((G * Z * C, D), dtype=torch.float32,
+                        device=rows.device)
+    delta.index_add_(0, flat, vals.reshape(-1, D))
+    tail.add_(delta.view(G, Z, C, D))
+    return tail
+
+
+def tail_scores_ref(q: torch.Tensor, tail_k: torch.Tensor,
+                    coeffs: torch.Tensor, T: int) -> torch.Tensor:
+    """Median-of-rows score estimates ``out[b, k, n, t] = median_z
+    s_z(t) * q[b, k, n] . tail_k[b, z, h_z(t), k]`` for t in [0, T).
+    q (B, K, N, hd) f32; tail_k (B, Z, C, K, hd) f32 -> (B, K, N, T)."""
+    C = tail_k.shape[2]
+    qa = torch.einsum("bknh,bzckh->zbknc", q.float(), tail_k.float())
+    bk, sg = row_buckets_signs(
+        coeffs, torch.arange(T, dtype=torch.int64, device=q.device), C,
+        signed=True)                                            # (Z, T)
+    est = torch.stack([qa[z][..., bk[z].long()] * sg[z]
+                       for z in range(qa.shape[0])])            # (Z,B,K,N,T)
+    return median_rows(est)

@@ -13,6 +13,15 @@ clients halfway through their budget.  Weights are random, from a seeded
 ``torch.Generator``; the reduced config is the default, ``--full`` serves
 the published widths.  Without a card and without ``--device cpu`` the
 driver raises.
+
+Sketched long-context KV: ``--kv-sketch-window W`` keeps W exact rows per
+slot and folds older blocks into FCS tail tables
+(``--kv-sketch-ratio`` / ``--kv-sketch-rows`` size them);
+``--long-context S`` appends one request with an S-token prompt, which
+folds during its prefill.  E.g. on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --max-seq 512 --kv-sketch-window 64 --long-context 400
 """
 from __future__ import annotations
 
@@ -78,7 +87,8 @@ async def stream_requests(front: AsyncServeEngine, reqs, rate: float,
     for r in reqs:
         h = await front.submit(r.tokens, max_new=r.max_new,
                                temperature=r.temperature, top_k=r.top_k,
-                               seed=r.seed, deadline_s=0, rid=r.rid)
+                               seed=r.seed, kv_sketch=r.kv_sketch,
+                               deadline_s=0, rid=r.rid)
         cancel_after = (max(1, r.max_new // 2)
                         if rng.rand() < cancel_frac else None)
         tasks.append(asyncio.ensure_future(
@@ -106,6 +116,19 @@ def main(argv=None):
                     help="open-loop Poisson arrivals (req/s); 0 submits "
                          "everything at once")
     ap.add_argument("--cancel-frac", type=float, default=0.0)
+    ap.add_argument("--kv-sketch-window", type=int, default=0,
+                    help="exact recent-window rows per slot; older blocks "
+                         "fold into per-slot FCS tail tables and free "
+                         "(0 = whole context exact)")
+    ap.add_argument("--kv-sketch-ratio", type=int, default=8,
+                    help="sequence-axis compression of the tail tables "
+                         "(cols ~ max_seq / ratio)")
+    ap.add_argument("--kv-sketch-rows", type=int, default=3,
+                    help="hash rows of the tail tables (median over rows)")
+    ap.add_argument("--long-context", type=int, default=0,
+                    help="append one request with a prompt of this many "
+                         "tokens (fold-through prefill and two-span "
+                         "decode; needs --kv-sketch-window)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -116,12 +139,24 @@ def main(argv=None):
     params = tf.init_params(cfg, seed=args.seed, device=dev)
     serve = dataclasses.replace(cfg.serve, max_batch=args.max_batch,
                                 max_seq=args.max_seq,
-                                prefix_block=args.prefix_len)
+                                prefix_block=args.prefix_len,
+                                kv_sketch_window=args.kv_sketch_window,
+                                kv_sketch_ratio=args.kv_sketch_ratio,
+                                kv_sketch_rows=args.kv_sketch_rows)
     front = AsyncServeEngine(cfg, params, serve=serve, device=dev)
     reqs = make_request_stream(cfg, np.random.RandomState(args.seed + 1),
                                args.requests, args.prefixes,
                                args.prefix_len, args.max_tail, args.max_new,
                                sampled_frac=args.sampled_frac)
+    if args.long_context:
+        if args.kv_sketch_window <= 0:
+            raise ValueError("--long-context needs --kv-sketch-window")
+        S = min(args.long_context, args.max_seq - args.max_new)
+        rng_lc = np.random.RandomState(args.seed + 2)
+        reqs.append(Request(
+            rid=len(reqs),
+            tokens=rng_lc.randint(0, cfg.vocab_size, (S,)).astype(np.int32),
+            max_new=args.max_new))
     t0 = time.perf_counter()
     done, ttfts = asyncio.run(stream_requests(
         front, reqs, args.arrival_rate, args.cancel_frac,
@@ -131,6 +166,13 @@ def main(argv=None):
     print(f"device: {dev}; served {len(done)} requests / {toks} tokens in "
           f"{dt:.3f}s ({toks / dt:.1f} tok/s); ttft p50 "
           f"{np.percentile(ttfts, 50) * 1e3:.1f} ms")
+    sched = front.scheduler
+    if sched.sketch_on:
+        print(f"kv sketch: window={serve.kv_sketch_window} rows "
+              f"(ratio={serve.kv_sketch_ratio}, rows={serve.kv_sketch_rows}"
+              f", cols={sched.tail_cols}) — exact-window "
+              f"{sched.kv_sketch_exact_bytes()}B live + sketched-tail "
+              f"{sched.kv_sketch_tail_bytes()}B fixed")
     print(front.stats().format())
 
 

@@ -12,6 +12,10 @@ of the reference's scan-over-layers layout are split per layer.
 ``opt_state_from_reference`` carries the reference's optimizer state
 (``AdamWState`` or ``SketchedAdamWState``, converted the same way) into
 the port's, so a run of the reference can be continued by the port.
+
+``tail_from_reference`` carries a sketched engine's tail tables
+(the reference's ``cache["tail"]``, {"k", "v"} of (L, B, Z, C, K, hd))
+into the port's stacked (2, L, B, Z, C, K, hd) layout.
 """
 from __future__ import annotations
 
@@ -110,3 +114,11 @@ def opt_state_from_reference(state: Any, cfg: ModelConfig,
             moments.append(DenseMoments(m=pieces(mo.m, path),
                                         v=pieces(mo.v, path)))
     return SketchedAdamWState(step=step, moments=moments)
+
+
+def tail_from_reference(tail: Any, device: DeviceLike = None
+                        ) -> torch.Tensor:
+    """Reference tail tables {"k", "v"} (numpy) -> the port's stacked
+    (2, L, B, Z, C, K, hd) f32 tensor (serve/kv_sketch.py), exactly."""
+    dev = resolve_device(device)
+    return torch.stack([to_torch(tail["k"], dev), to_torch(tail["v"], dev)])

@@ -18,7 +18,7 @@ the ``[:NB]`` view.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,15 +83,31 @@ def _project_qkv_rope(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def paged_attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  tables: torch.Tensor, start: torch.Tensor,
-                 fold_base: torch.Tensor,
-                 use_kernel: Optional[bool]) -> torch.Tensor:
+                 fold_base: torch.Tensor, use_kernel: Optional[bool],
+                 tail: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 sketch: Optional[dict] = None) -> torch.Tensor:
     """Attend straight through the block tables (the reference's
     ``_kernel_paged_attention``).  qg: (B, Sq, K, R, hd); k/v: the
     (NB, bs, K, hd) pools; start: (B,) position of each slot's query
-    row 0.  Returns (B, Sq, K, R, hd) in qg's dtype."""
-    _, l, acc = kops.paged_attention_op(qg, k, v, tables, start, fold_base,
-                                        use_kernel=use_kernel)
-    o = acc / torch.clamp(l, min=1e-30)[..., None]      # (B,K,R,Sq,hd)
+    row 0.  With ``tail`` (this layer's (B, Z, C, K, hd) k and v tables)
+    and ``sketch`` (serve/kv_sketch.py) the exact span is
+    [fold_base, start + i] and the tail supplies [0, fold_base), merged
+    with online-softmax statistics; slots with fold_base == 0 keep the
+    exact output verbatim, so a window covering the context decodes
+    bitwise as a sketch-free engine.  Returns (B, Sq, K, R, hd) in qg's
+    dtype."""
+    m_e, l_e, acc_e = kops.paged_attention_op(qg, k, v, tables, start,
+                                              fold_base,
+                                              use_kernel=use_kernel)
+    o = acc_e / torch.clamp(l_e, min=1e-30)[..., None]  # (B,K,R,Sq,hd)
+    if tail is not None:
+        from repro_torch.serve import kv_sketch as kvs
+        m_t, l_t, acc_t = kvs.tail_attend(
+            qg, tail[0], tail[1], sketch["coeffs"], sketch["pos_hash"],
+            fold_base, 1.0 / math.sqrt(qg.shape[-1]), use_kernel=use_kernel)
+        merged = kvs.merge_spans(m_e, l_e, acc_e, m_t, l_t, acc_t)
+        o = torch.where((fold_base > 0)[:, None, None, None, None], merged,
+                        o)
     return o.permute(0, 3, 1, 2, 4).to(qg.dtype)
 
 
@@ -99,8 +115,10 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
                          pool_k: torch.Tensor, pool_v: torch.Tensor,
                          positions: torch.Tensor, tables: torch.Tensor,
                          fold_base: torch.Tensor,
-                         use_kernel: Optional[bool] = None
-                         ) -> torch.Tensor:
+                         use_kernel: Optional[bool] = None,
+                         tail: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                         sketch: Optional[dict] = None) -> torch.Tensor:
     """Attention of new rows against the paged pool — the reference's
     ``_paged_decode_attention`` (one token per slot, x (B, 1, d),
     positions (B, 1)) and ``chunk_attention`` (one prompt chunk of one
@@ -111,7 +129,8 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     write sink, so an idle slot or a tail chunk's padding mutates no live
     block.  Then query i of slot b attends causally — key p visible iff
     ``fold_base[b] <= p <= positions[b, i]`` — through the tables, so a
-    chunk sees earlier chunks and shared prefix blocks.  Pools are
+    chunk sees earlier chunks and shared prefix blocks; ``tail`` /
+    ``sketch`` add the folded span (see ``paged_attend``).  Pools are
     (NB + 1, bs, K, hd) with the sink last.  Returns (B, S, d)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -127,7 +146,8 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     pool_v.index_put_((phys, off), vn.to(pool_v.dtype))
     qg = q.reshape(B, S, K, H // K, hd)
     o = paged_attend(qg, pool_k[:NB], pool_v[:NB], tables,
-                     positions[:, 0].contiguous(), fold_base, use_kernel)
+                     positions[:, 0].contiguous(), fold_base, use_kernel,
+                     tail, sketch)
     return o.reshape(B, S, H * hd) @ p["wo"]
 
 

@@ -17,8 +17,10 @@ with each stacked leaf as its L per-layer pieces — the order and grouping
 the optimizers' state follows.
 
 Paged cache: {"kv": {"k": (L, NB + 1, bs, K, hd), "v": ...}} — the pool
-plus one write-sink block per layer (see models/layers.py).  The
-decode and prefill paths update it in place.
+plus one write-sink block per layer (see models/layers.py) — and, for a
+sketched long-context engine, "tail": the (2, L, B, Z, C, K, hd) f32 FCS
+tail tables (serve/kv_sketch.py).  The decode and prefill paths update
+the pool in place and only read the tail.
 """
 from __future__ import annotations
 
@@ -145,15 +147,21 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device: DeviceLike = None,
-                     dtype: torch.dtype = torch.bfloat16) -> dict:
+                     dtype: torch.dtype = torch.bfloat16,
+                     tail: Optional[Tuple[int, int, int]] = None) -> dict:
     """Shared (L, num_blocks + 1, block_size, K, hd) KV block pool; block
-    ``num_blocks`` of each layer is the write sink."""
+    ``num_blocks`` of each layer is the write sink.  ``tail`` = (batch,
+    rows, cols) adds the zeroed FCS tail tables of a sketched engine."""
     _check_family(cfg)
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                   "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    cache = {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    if tail is not None:
+        from repro_torch.serve import kv_sketch as kvs
+        cache["tail"] = kvs.init_tail(cfg, *tail, device=dev)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +184,8 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
             mode: str = "train", cache: Optional[dict] = None,
             index: Optional[torch.Tensor] = None,
             tables: Optional[torch.Tensor] = None,
-            kernels: Optional[bool] = None
+            kernels: Optional[bool] = None,
+            sketch: Optional[dict] = None
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: embedded inputs (B, S, d).  Returns (final-normed hidden, cache).
 
@@ -188,6 +197,13 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     absolute offset ``index`` (1,) through its (1, nb) table row).  The
     paged modes write the cache in place and return it.  ``kernels``:
     paged attention implementation (see kernels/ops.py).
+
+    ``sketch`` (paged modes only): two-span long-context attention
+    against FCS tail tables (serve/kv_sketch.py): {"fold_base": (B,)
+    int32, "tail": (2, L, B, Z, C, K, hd) tables of these B slots,
+    "coeffs": (Z, 4) hash coefficients, "pos_hash": the (Z, T) position
+    buckets and signs of ``kv_sketch.pos_buckets_signs``}.  Without it
+    nothing is folded and the exact span starts at 0.
     """
     _check_family(cfg)
     if mode == "train":
@@ -200,14 +216,18 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     positions = index[:, None] + torch.arange(S, dtype=torch.int32,
                                               device=x.device)
-    # nothing is folded on this path: the exact span starts at 0
-    fold_base = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    if sketch is None:
+        fold_base = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    else:
+        fold_base = sketch["fold_base"]
     kv = cache["kv"]
     for i, p_l in enumerate(params["blocks"]):
         h = ly.rms_norm(x, p_l["norm1"], cfg.norm_eps)
+        tail = (None if sketch is None
+                else (sketch["tail"][0, i], sketch["tail"][1, i]))
         a = ly.paged_self_attention(p_l["attn"], h, cfg, kv["k"][i],
                                     kv["v"][i], positions, tables,
-                                    fold_base, kernels)
+                                    fold_base, kernels, tail, sketch)
         x = _ffn_residual(p_l, x + a, cfg)
     return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
@@ -228,26 +248,31 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
 
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                 index: torch.Tensor, cfg: ModelConfig,
-                tables: torch.Tensor, kernels: Optional[bool] = None
+                tables: torch.Tensor, kernels: Optional[bool] = None,
+                sketch: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """tokens: (B, 1) int; index: (B,) int32 positions; tables: (B, nb)
-    int32.  Returns (logits (B, Vp) f32, cache updated in place)."""
+    int32; ``sketch``: optional two-span state (see forward).  Returns
+    (logits (B, Vp) f32, cache updated in place)."""
     x = embed_inputs(params, tokens)
     y, cache = forward(params, x, cfg, mode="decode", cache=cache,
                        index=index.to(torch.int32), tables=tables,
-                       kernels=kernels)
+                       kernels=kernels, sketch=sketch)
     return ly.logits_fn(params, y, cfg)[:, 0], cache
 
 
 def prefill_chunk(params: Params, cache: dict, tokens: torch.Tensor,
                   table: torch.Tensor, start, cfg: ModelConfig,
-                  kernels: Optional[bool] = None) -> dict:
+                  kernels: Optional[bool] = None,
+                  sketch: Optional[dict] = None) -> dict:
     """Chunked prefill step: write KV rows for absolute positions
     [start, start + C) into the pool through the slot's
     (blocks_per_slot,) block-table row, attending the chunk against
     everything the table already references below it.  tokens: (1, C);
-    start: int or (1,) int32.  No logits: decode resumes at the last
-    prompt position and recomputes that row."""
+    start: int or (1,) int32; ``sketch``: optional two-span state of
+    this one slot (its (1,) fold_base and (2, L, 1, ...) tail view; see
+    forward).  No logits: decode resumes at the last prompt position and
+    recomputes that row."""
     dev = tokens.device
     # a fill, not a host-to-device copy: no wait on the stream
     st = (start.to(device=dev, dtype=torch.int32).reshape(1)
@@ -256,5 +281,5 @@ def prefill_chunk(params: Params, cache: dict, tokens: torch.Tensor,
     tbl = table.to(device=dev, dtype=torch.int32).reshape(1, -1)
     _, cache = forward(params, embed_inputs(params, tokens), cfg,
                        mode="chunk", cache=cache, index=st, tables=tbl,
-                       kernels=kernels)
+                       kernels=kernels, sketch=sketch)
     return cache

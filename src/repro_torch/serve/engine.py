@@ -69,13 +69,17 @@ class ServeEngine:
         return self._frontends[kb]
 
     def generate(self, tokens, max_new: int = 32, temperature: Per = 0.0,
-                 top_k: Per = 0, seed: Optional[int] = None
-                 ) -> GenerationResult:
+                 top_k: Per = 0, seed: Optional[int] = None,
+                 kv_sketch: Optional[Per] = None) -> GenerationResult:
         """tokens: (B, S) prompt ids.  ``temperature`` / ``top_k`` may be
         scalars or length-B vectors; a request is greedy when its
         temperature is 0.  ``seed`` seeds row b's sampler with seed + b,
         so two calls with one seed draw the same tokens; without it the
-        generators derive from cfg.serve.seed and the request id."""
+        generators derive from cfg.serve.seed and the request id.
+        ``kv_sketch`` (scalar or per-request bools) opts requests out of
+        long-context KV sketching on engines built with
+        ``cfg.serve.kv_sketch_window > 0``: False keeps that request's
+        whole context exact."""
         prompts = np.asarray(tokens, np.int32)
         B, S = prompts.shape
         if S + max_new > self.max_seq:
@@ -84,6 +88,8 @@ class ServeEngine:
         front = self._frontend(B)
         temps = _per_request(temperature, B, "temperature")
         ks = _per_request(top_k, B, "top_k")
+        kss = (None if kv_sketch is None
+               else _per_request(kv_sketch, B, "kv_sketch"))
         rids = list(range(self._rid, self._rid + B))
         self._rid += B
 
@@ -94,6 +100,7 @@ class ServeEngine:
                     prompts[b], max_new=max_new,
                     temperature=float(temps[b]), top_k=int(ks[b]),
                     seed=None if seed is None else seed + b,
+                    kv_sketch=None if kss is None else bool(kss[b]),
                     deadline_s=0,         # batch callers never expire
                     rid=rids[b]))
             return [await h.result() for h in handles]

@@ -115,13 +115,16 @@ class AsyncServeEngine:
                      temperature: Optional[float] = None, top_k: int = 0,
                      seed: Optional[int] = None,
                      generator: Optional[torch.Generator] = None,
+                     kv_sketch: Optional[bool] = None,
                      priority: int = 0,
                      deadline_s: Optional[float] = None,
                      rid: Optional[int] = None) -> StreamHandle:
         """Submit one request; returns its StreamHandle.  Waits (never
         raises) while ``queue_depth`` requests are already queued.
-        ``deadline_s`` is relative to now (None -> the serve config's
-        default; 0 disables); ``rid`` overrides the engine's counter."""
+        ``kv_sketch=False`` keeps this request's whole context exact on a
+        sketched engine; ``deadline_s`` is relative to now (None -> the
+        serve config's default; 0 disables); ``rid`` overrides the
+        engine's counter."""
         self._ensure_loop()
         while self._sched.queue_len >= self.queue_depth:
             self._space.clear()
@@ -137,7 +140,8 @@ class AsyncServeEngine:
         req = Request(rid=rid, tokens=np.asarray(tokens, np.int32),
                       max_new=int(max_new), temperature=temperature,
                       top_k=int(top_k), seed=seed, generator=generator,
-                      priority=int(priority), deadline=deadline)
+                      kv_sketch=kv_sketch, priority=int(priority),
+                      deadline=deadline)
         self._sched.submit(req)
         handle = StreamHandle(self, req)
         self._handles[rid] = handle

@@ -37,9 +37,21 @@ synchronously and serve/frontend.py drives as an async pump.  On the card
 round overlap the chunk in flight; both run on one stream, so the chunk
 never sees the later admission's writes.
 
+Sketched long-context KV (``kv_sketch_window > 0``, serve/kv_sketch.py):
+a sketched slot holds only its recent window of exact blocks.  Prefill
+allocates blocks lazily ahead of the write frontier and folds blocks that
+aged past the window into the slot's FCS tail tables
+(``_sketch_prefill_admit``); at each decode dispatch ``_plan_folds``
+extends the slot's blocks for the coming chunk and decides how many aged
+rows fold at the chunk's head, and ``_finish_folds`` frees the folded
+blocks after the chunk is enqueued.  The integer bookkeeping is the
+reference's.  A chunk or prefill in which no slot has folded anything
+runs the sketch-free attention, which is what the sketched attention
+selects for such slots anyway (the ``fold_base == 0`` anchor); host
+mirrors tell which.
+
 Not ported yet (each raises ``NotImplementedError``): speculative decoding
-(``spec_k > 0``), sketched long-context KV (``kv_sketch_window > 0``),
-recurrent families and the observer hooks.
+(``spec_k > 0``), recurrent families and the observer hooks.
 """
 from __future__ import annotations
 
@@ -54,6 +66,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.serve import kv_sketch as kvs
 from repro_torch.serve.prefix_cache import SketchPrefixCache
 
 
@@ -70,6 +83,10 @@ class Request:
     top_k: int = 0
     seed: Optional[int] = None
     generator: Optional[torch.Generator] = None
+    # sketched long-context KV: None follows the engine (on when
+    # kv_sketch_window > 0); False opts this request out — it reserves
+    # full exact coverage and never folds
+    kv_sketch: Optional[bool] = None
     # SLO scheduling: higher priority admits first and may preempt
     # strictly lower-priority running slots; ``deadline`` is an absolute
     # time.monotonic() past which the request expires
@@ -121,6 +138,8 @@ class EngineStats:
     prefix_admitted: int = _stat("counter")
     prefix_evicted: int = _stat("counter")
     prefix_cached_bytes: int = _stat("gauge")
+    fold_rows: int = _stat("counter")   # exact rows folded into tails
+    kv_sketch_tail_bytes: int = _stat("gauge")
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -141,7 +160,7 @@ class EngineStats:
 
     def format(self) -> str:
         """Human-readable multi-line report."""
-        return "\n".join([
+        lines = [
             f"queue={self.queue_depth} active={self.active_slots}/"
             f"{self.max_batch} completed={self.completed} "
             f"(cancelled={self.cancelled} expired={self.expired} "
@@ -157,7 +176,11 @@ class EngineStats:
             f"admitted={self.prefix_admitted}, "
             f"evicted={self.prefix_evicted}, "
             f"cached_bytes={self.prefix_cached_bytes}",
-        ])
+        ]
+        if self.fold_rows or self.kv_sketch_tail_bytes:
+            lines.append(f"kv sketch: folded_rows={self.fold_rows}, "
+                         f"tail_bytes={self.kv_sketch_tail_bytes}")
+        return "\n".join(lines)
 
 
 class BlockAllocator:
@@ -223,6 +246,7 @@ class DecodeState:
     remaining: torch.Tensor      # (B,) int32 output tokens still owed
     temp: torch.Tensor           # (B,) f32 sampling temperature
     top_k: torch.Tensor          # (B,) int32 top-k cutoff (0 = off)
+    fold_base: torch.Tensor      # (B,) int32 first exact (unfolded) row
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -240,9 +264,6 @@ class SlotScheduler:
         if sv.spec_k > 0:
             raise _not_ported("speculative decoding (spec_k > 0)",
                               "Queue 1 #8")
-        if sv.kv_sketch_window > 0:
-            raise _not_ported("sketched long-context KV "
-                              "(kv_sketch_window > 0)", "Queue 1 #9")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine "
@@ -269,6 +290,14 @@ class SlotScheduler:
         self._slot_temp: List[float] = [0.0] * B
         self._slot_gen: List[Optional[torch.Generator]] = [None] * B
         self._slot_admit_seq: List[int] = [0] * B
+        # decode resumes at S - 1 and collect() advances the mirror by the
+        # tokens emitted, so fold planning never reads device positions
+        self._slot_pos: List[int] = [0] * B
+        # sketched KV: first live logical block per slot (host mirror of
+        # fold_base / block_size) and whether the slot folds at all
+        self._slot_first_lblk: List[int] = [0] * B
+        self._slot_use_sketch: List[bool] = [False] * B
+        self.fold_rows_total = 0
         self._admit_seq = 0
         # rid -> pending admit_plen, set on a request's FIRST admission
         # attempt so pool-pressure retries don't re-feed the count-min
@@ -297,8 +326,33 @@ class SlotScheduler:
         self.blocks_per_slot = -(-sv.max_seq // self.block_size)
         nb = sv.num_kv_blocks or B * self.blocks_per_slot
         self.num_blocks = nb
-        cache = tf.init_paged_cache(cfg, nb, self.block_size, self.device)
-        # K and V, all layers, one block
+        self.sketch_on = bool(sv.kv_sketch_window)
+        tail = None
+        if self.sketch_on:
+            W, bs = int(sv.kv_sketch_window), self.block_size
+            if W % bs or W < bs:
+                raise ValueError(f"kv_sketch_window {W} must be a positive "
+                                 f"multiple of kv_block_size {bs}")
+            self.kv_window = W
+            Z = max(1, int(sv.kv_sketch_rows))
+            self.tail_rows = Z
+            self.tail_cols = kvs.tail_cols(sv.max_seq,
+                                           max(1, int(sv.kv_sketch_ratio)))
+            self.tail_domain = kvs.pos_domain(sv.max_seq, bs)
+            self.tail_coeffs = kvs.tail_coeffs(sv, device=self.device)
+            self.tail_pos_hash = kvs.pos_buckets_signs(
+                self.tail_coeffs, self.tail_domain, self.tail_cols)
+            # max position advance per decode chunk; the in-chunk fold cap
+            # keeps pace with it (+1 block so a lagging slot catches up)
+            self.adv_max = sv.decode_chunk
+            self.fold_cap = bs * (-(-self.adv_max // bs) + 1)
+            bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
+            self.prefill_fold_cap = bs * (bucket // bs + 1)
+            tail = (B, Z, self.tail_cols)
+        cache = tf.init_paged_cache(cfg, nb, self.block_size, self.device,
+                                    tail=tail)
+        # K and V, all layers, one block (the tail tables are per-slot
+        # constant state, not paged)
         block_bytes = (2 * cfg.num_layers * self.block_size
                        * cfg.num_kv_heads * cfg.resolved_head_dim
                        * cache["kv"]["k"].element_size())
@@ -315,6 +369,7 @@ class SlotScheduler:
             remaining=torch.zeros((B,), dtype=torch.int32, device=dev),
             temp=torch.zeros((B,), dtype=torch.float32, device=dev),
             top_k=torch.zeros((B,), dtype=torch.int32, device=dev),
+            fold_base=torch.zeros((B,), dtype=torch.int32, device=dev),
         )
 
     def set_observer(self, obs: Any) -> None:
@@ -349,19 +404,40 @@ class SlotScheduler:
             out[s] = torch.argmax(probs[s] / e)
         return out
 
-    def _run_chunk(self) -> torch.Tensor:
+    def _sketch_state(self, fold_base: torch.Tensor, tail: torch.Tensor
+                      ) -> dict:
+        return {"fold_base": fold_base, "tail": tail,
+                "coeffs": self.tail_coeffs, "pos_hash": self.tail_pos_hash}
+
+    def _run_chunk(self, fold: Optional[np.ndarray] = None) -> torch.Tensor:
         """Enqueue ``decode_chunk`` decode steps for every slot; returns
         the stacked (2, chunk, B) int64 tokens and emit flags, still on
-        the device."""
+        the device.  A sketch engine first folds ``fold[b]`` aged rows of
+        each slot into its tail (planned by ``_plan_folds``): the folded
+        rows lie below the window every query of the chunk keeps exact,
+        so folding at the head equals folding between the steps."""
         cfg, st = self.cfg, self._state
         sampled = [s for s, r in enumerate(self._slot_req)
                    if r is not None and self._slot_temp[s] > 0.0]
+        sketch = None
+        if fold is not None:
+            if fold.any():
+                fold_len = self._to_device(fold)
+                kvs.fold_pool(st.cache["kv"], st.cache["tail"], st.tables,
+                              st.fold_base, fold_len, self.tail_coeffs,
+                              self.fold_cap, use_kernel=self.use_kernels)
+                st.fold_base.add_(fold_len)
+            bs = self.block_size
+            if any(r is not None and self._slot_first_lblk[s] * bs + fold[s]
+                   for s, r in enumerate(self._slot_req)):
+                sketch = self._sketch_state(st.fold_base, st.cache["tail"])
         toks, emits = [], []
         for _ in range(self.serve.decode_chunk):
             running = st.remaining > 0
             logits, _ = tf.decode_step(self.params, st.cache, st.cur, st.pos,
                                        cfg, st.tables,
-                                       kernels=self.use_kernels)
+                                       kernels=self.use_kernels,
+                                       sketch=sketch)
             nxt = self._sample(logits[:, :cfg.vocab_size], sampled)
             step = running.to(torch.int32)
             st.pos.add_(step)
@@ -386,7 +462,16 @@ class SlotScheduler:
                              f"max_seq {sv.max_seq}")
         # reject up front what the pool can never serve, so it can't
         # head-of-line-block the queue
-        need = -(-(S + req.max_new) // self.block_size)
+        bs = self.block_size
+        need = -(-(S + req.max_new) // bs)
+        if self.sketch_on and req.kv_sketch is not False:
+            # a sketched request never holds its whole context: its peak
+            # is the exact window + one prefill bucket of write frontier +
+            # one chunk of decode lookahead
+            bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
+            peak = (self.kv_window // bs + -(-bucket // bs)
+                    + -(-self.adv_max // bs) + 2)
+            need = min(need, peak)
         if need > self.num_blocks:
             raise ValueError(f"request needs {need} KV blocks of "
                              f"{self.block_size}, pool has "
@@ -444,6 +529,80 @@ class SlotScheduler:
                              kernels=self.use_kernels)
             off += bucket
 
+    def _sketch_prefill_admit(self, slot: int, prompt: np.ndarray,
+                              shared: List[int], start_off: int
+                              ) -> Tuple[List[int], int, bool]:
+        """Fold-through chunked prefill for a sketched request: blocks are
+        allocated just ahead of the write frontier, and blocks that aged
+        wholly past the exact window fold into the slot's tail tables and
+        return to the pool, so a prompt's peak block hold is the window
+        plus one prefill bucket, whatever its length.
+
+        Returns (slot_ids, first_lblk, ok): the blocks still held (logical
+        blocks [first_lblk, ...)), already unreffed when ok is False (the
+        caller defers the admission)."""
+        sv = self.serve
+        bs, W, NB = self.block_size, self.kv_window, self.num_blocks
+        S = len(prompt)
+        dev = self.device
+        bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
+        row = np.full((self.blocks_per_slot,), NB, np.int32)
+        slot_ids = list(shared)
+        row[:len(slot_ids)] = slot_ids
+        tail = self._state.cache["tail"][:, :, slot:slot + 1]
+        first_lblk = 0
+        fold_base = 0
+        off = (start_off // bucket) * bucket
+        while off < S:
+            seg = prompt[off:off + bucket]
+            end = off + len(seg)                   # prompt rows fed so far
+            need_end = (end - 1) // bs             # last logical block hit
+            have_end = first_lblk + len(slot_ids) - 1
+            if need_end > have_end:
+                ids = self._take_blocks(need_end - have_end)
+                if ids is None:
+                    self.alloc.unref(slot_ids)
+                    return [], 0, False
+                row[have_end + 1:need_end + 1] = ids
+                slot_ids.extend(ids)
+            tok = np.zeros((1, bucket), np.int64)
+            tok[0, :len(seg)] = seg
+            sketch = None
+            if fold_base > 0:
+                sketch = self._sketch_state(
+                    torch.full((1,), fold_base, dtype=torch.int32,
+                               device=dev), tail)
+            tf.prefill_chunk(self.params, self._state.cache,
+                             self._to_device(tok), self._to_device(row), off,
+                             self.cfg, kernels=self.use_kernels,
+                             sketch=sketch)
+            # fold whole blocks that aged past the window ([0, end) keeps
+            # >= W exact rows; the decode resume row S-1 always stays
+            # exact because fold_base <= S - W <= S - 1)
+            n_elig = max(0, (end - W) // bs) - first_lblk
+            while n_elig > 0:
+                k = min(n_elig, self.prefill_fold_cap // bs)
+                kvs.fold_pool(
+                    self._state.cache["kv"], tail,
+                    self._to_device(row)[None],
+                    torch.full((1,), fold_base, dtype=torch.int32,
+                               device=dev),
+                    torch.full((1,), k * bs, dtype=torch.int32, device=dev),
+                    self.tail_coeffs, self.prefill_fold_cap,
+                    use_kernel=self.use_kernels)
+                # sentinel the folded entries before freeing: a freed
+                # block may be re-allocated while this row is live
+                row[first_lblk:first_lblk + k] = NB
+                dead = slot_ids[:k]
+                del slot_ids[:k]
+                self.alloc.unref(dead)
+                first_lblk += k
+                fold_base += k * bs
+                self.fold_rows_total += k * bs
+                n_elig -= k
+            off += bucket
+        return slot_ids, first_lblk, True
+
     def _take_blocks(self, n: int) -> Optional[List[int]]:
         """Allocate ``n`` pool blocks, evicting idle prefix-cache entries
         under pressure; None when the pool can't serve it now."""
@@ -477,26 +636,54 @@ class SlotScheduler:
             self.alloc.ref(shared)
         if admit_plen is not None and admit_plen <= start_off:
             admit_plen = None
-        n_total = -(-(S + req.max_new) // bs)
-        new_ids = self._take_blocks(n_total - len(shared))
-        if new_ids is None:
-            if hit is not None:
-                self.alloc.unref(shared)
-            if not any(r is not None for r in self._slot_req):
-                raise RuntimeError(
-                    f"kv pool ({self.num_blocks} blocks of {bs}) too small "
-                    f"for prompt {S} + max_new {req.max_new}")
-            return False
-        slot_ids = shared + new_ids
-        row = np.full((self.blocks_per_slot,), self.num_blocks, np.int32)
-        row[:len(slot_ids)] = slot_ids
-        table = self._to_device(row)
-        st.tables[slot] = table
-        self._chunk_prefill_loop(prompt, table, start_off)
+        use_sketch = self.sketch_on and req.kv_sketch is not False
+        first_lblk = 0
+        if use_sketch:
+            # the slot's tables may hold a retired occupant's sums
+            st.cache["tail"][:, :, slot].zero_()
+            slot_ids, first_lblk, ok = self._sketch_prefill_admit(
+                slot, prompt, shared, start_off)
+            if not ok:
+                if not any(r is not None for r in self._slot_req):
+                    raise RuntimeError(
+                        f"kv pool ({self.num_blocks} blocks of {bs}) too "
+                        f"small for sketched prompt {S} with window "
+                        f"{self.kv_window}")
+                return False
+            row = np.full((self.blocks_per_slot,), self.num_blocks,
+                          np.int32)
+            row[first_lblk:first_lblk + len(slot_ids)] = slot_ids
+            st.tables[slot] = self._to_device(row)
+        else:
+            n_total = -(-(S + req.max_new) // bs)
+            new_ids = self._take_blocks(n_total - len(shared))
+            if new_ids is None:
+                if hit is not None:
+                    self.alloc.unref(shared)
+                if not any(r is not None for r in self._slot_req):
+                    raise RuntimeError(
+                        f"kv pool ({self.num_blocks} blocks of {bs}) too "
+                        f"small for prompt {S} + max_new {req.max_new}")
+                return False
+            slot_ids = shared + new_ids
+            row = np.full((self.blocks_per_slot,), self.num_blocks,
+                          np.int32)
+            row[:len(slot_ids)] = slot_ids
+            table = self._to_device(row)
+            st.tables[slot] = table
+            self._chunk_prefill_loop(prompt, table, start_off)
         self._slot_blocks[slot] = slot_ids
+        if admit_plen is not None and first_lblk > 0:
+            # fold-through freed leading prompt blocks: the prefix's block
+            # run no longer exists, and admitting the surviving suffix
+            # would register freed (re-allocatable) ids as cache entries
+            admit_plen = None
         if admit_plen is not None:
             self.prefix_cache.admit(prompt, admit_plen,
                                     tuple(slot_ids[:admit_plen // bs]))
+        st.fold_base[slot] = first_lblk * bs
+        self._slot_first_lblk[slot] = first_lblk
+        self._slot_use_sketch[slot] = use_sketch
         # demand: every row a live request attends, shared rows counted
         # per referencing request
         self._slot_rows[slot] = S + req.max_new
@@ -511,6 +698,7 @@ class SlotScheduler:
         st.remaining[slot] = req.max_new
         st.temp[slot] = temp
         st.top_k[slot] = int(req.top_k)
+        self._slot_pos[slot] = S - 1
         self._slot_req[slot] = req
         self._slot_out[slot] = []
         self._slot_hit[slot] = hit is not None
@@ -558,6 +746,12 @@ class SlotScheduler:
             # sentinel the row BEFORE its blocks can be freed and reused:
             # an idle slot still runs the decode write every step
             self._state.tables[s] = self.num_blocks
+            # the fold frontier resets with the slot; the tail sums are
+            # zeroed at the next admission
+            self._state.fold_base[s] = 0
+            self._slot_first_lblk[s] = 0
+            self._slot_use_sketch[s] = False
+            self._slot_pos[s] = 0
             self.alloc.unref(self._slot_blocks[s])
             self._slot_blocks[s] = []
             self._used_rows -= self._slot_rows[s]
@@ -691,6 +885,61 @@ class SlotScheduler:
             out.setdefault(r.rid, [])
         return out
 
+    def _plan_folds(self) -> np.ndarray:
+        """Pre-chunk bookkeeping for sketched slots: allocate the blocks
+        the coming chunk can write (a sketched slot never reserves its
+        whole context) and decide how many rows each slot folds into its
+        tail at the chunk head.  Returns the per-slot fold length (rows,
+        block multiples); ``_finish_folds`` frees the folded blocks after
+        the chunk is enqueued.  Reads only host mirrors."""
+        bs, W = self.block_size, self.kv_window
+        fold = np.zeros((self.serve.max_batch,), np.int32)
+        for s, req in enumerate(self._slot_req):
+            if req is None or not self._slot_use_sketch[s]:
+                continue
+            p = self._slot_pos[s]
+            first = self._slot_first_lblk[s]
+            held = self._slot_blocks[s]
+            # the chunk writes rows up to p + adv_max, clamped to the
+            # request's own demand
+            last = min(p + self.adv_max, self._slot_rows[s] - 1)
+            need_end = min(last // bs, self.blocks_per_slot - 1)
+            have_end = first + len(held) - 1
+            if need_end > have_end:
+                ids = self._take_blocks(need_end - have_end)
+                if ids is None:
+                    raise RuntimeError(
+                        f"kv pool exhausted extending sketched slot {s} "
+                        f"(pool {self.num_blocks} blocks of {bs}; raise "
+                        f"num_kv_blocks or shrink kv_sketch_window)")
+                self._state.tables[s, have_end + 1:need_end + 1] = \
+                    self._to_device(np.asarray(ids, np.int32))
+                held.extend(ids)
+            # fold whole blocks aged past the exact window, at most the
+            # chunk's fold span
+            n = min(max(0, (p + 1 - W) // bs - first), self.fold_cap // bs,
+                    len(held))
+            fold[s] = n * bs
+        return fold
+
+    def _finish_folds(self, fold: np.ndarray) -> None:
+        """Post-chunk half of a fold: the chunk folded the rows and
+        advanced ``fold_base``; the blocks now leave the slot — table
+        entries sentineled first (enqueued after the chunk), then the
+        references dropped."""
+        dead: List[int] = []
+        for s in range(self.serve.max_batch):
+            n = int(fold[s]) // self.block_size
+            if n == 0:
+                continue
+            first = self._slot_first_lblk[s]
+            self._state.tables[s, first:first + n] = self.num_blocks
+            dead.extend(self._slot_blocks[s][:n])
+            del self._slot_blocks[s][:n]
+            self._slot_first_lblk[s] = first + n
+            self.fold_rows_total += n * self.block_size
+        self.alloc.unref(dead)
+
     # ------------------------------------------------------------------
     # Pump phases
     # ------------------------------------------------------------------
@@ -720,14 +969,17 @@ class SlotScheduler:
         assert self._inflight is None, "one decode chunk may be in flight"
         if not any(r is not None for r in self._slot_req):
             return False
+        fold = self._plan_folds() if self.sketch_on else None
         events = None
         if self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-        out = self._run_chunk()
+        out = self._run_chunk(fold)
         if events is not None:
             events[1].record()
+        if fold is not None:
+            self._finish_folds(fold)
         self.decode_steps += self.serve.decode_chunk
         self._inflight = (out, events)
         return True
@@ -748,6 +1000,7 @@ class SlotScheduler:
             for s in range(toks.shape[1]):
                 if self._slot_req[s] is not None and emits[t, s]:
                     self._slot_out[s].append(int(toks[t, s]))
+                    self._slot_pos[s] += 1
         return self._retire()
 
     def step(self) -> List[Completion]:
@@ -793,6 +1046,22 @@ class SlotScheduler:
         row_bytes = self.alloc.block_bytes / self.block_size
         return int(row_bytes * self.serve.max_seq * self.serve.max_batch)
 
+    def kv_sketch_tail_bytes(self) -> int:
+        """Bytes of the per-slot FCS tail tables: the fixed cost that
+        replaces exact-KV growth past the window (0 without sketching)."""
+        if not self.sketch_on:
+            return 0
+        return kvs.tail_state_bytes(self._state.cache["tail"])
+
+    def kv_sketch_exact_bytes(self) -> int:
+        """Bytes of pool blocks held now by sketched slots: the exact
+        recent-window span of the two-span cache."""
+        if not self.sketch_on:
+            return 0
+        return sum(len(self._slot_blocks[s]) * self.alloc.block_bytes
+                   for s in range(self.serve.max_batch)
+                   if self._slot_use_sketch[s])
+
     def stats(self) -> EngineStats:
         pc = self.prefix_cache.stats
         return EngineStats(
@@ -818,4 +1087,6 @@ class SlotScheduler:
             prefix_admitted=pc.admitted,
             prefix_evicted=pc.evicted,
             prefix_cached_bytes=pc.bytes,
+            fold_rows=self.fold_rows_total,
+            kv_sketch_tail_bytes=self.kv_sketch_tail_bytes(),
         )

@@ -13,7 +13,7 @@ Ported: ``csvec_zeros``, dense ``accumulate``, ``accumulate_coords``,
 median is numpy's (the two middle rows averaged when the row count is
 even), as ``jnp.median`` computes it; ``torch.median`` returns the lower
 middle value and is not used.  ``topk``, ``merge`` and ``l2_estimate``
-come with sketched KV (ROADMAP Queue 1 #9).
+are on no ported path (ROADMAP Queue 1 #14).
 
 The container holds only the (rows, cols) f32 table and the (rows, 4)
 hash coefficients; bucket hashes are recomputed on the fly

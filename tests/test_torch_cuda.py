@@ -1,7 +1,8 @@
-"""The port on the card: the sm_90a paged-attention and sketch_update
-kernels against their plain versions, the model's kernel path against its
-plain path, the slot engine launching the paged-attention kernel, and
-the sketched optimizer launching sketch_update.  Every test carries the
+"""The port on the card: the sm_90a paged-attention, sketch_update,
+tail_fold and tail_scores kernels against their plain versions, the
+model's kernel path against its plain path, the slot engine launching
+the paged-attention kernel (and, sketched, the tail kernels), and the
+sketched optimizer launching sketch_update.  Every test carries the
 ``cuda`` marker and skips without a card; the file imports nothing of
 JAX, so it runs on the card's machine:
 
@@ -15,7 +16,9 @@ import torch
 
 from repro_torch.configs.registry import reduced_config
 from repro_torch.kernels import ref
-from repro_torch.kernels.ops import sketch_update_op
+from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
+from repro_torch.kernels.ops import (sketch_update_op, tail_fold_op,
+                                     tail_scores_op)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.sketch_update import sketch_update
 from repro_torch.models import transformer as tf
@@ -225,3 +228,108 @@ def test_sketch_update_op_sends_cuda_tensors_to_the_kernel(card):
     assert sketch_update.launches == before + 3
     with pytest.raises(ValueError, match="float32"):
         sketch_update(parts, mt.double(), vt, cm, cv, b1=0.9, b2=0.95)
+
+
+# (G, N, Z, C, D, rows dtype): reduced with even and odd row counts, then
+# the gemma-2b 8k serve shapes: the decode-chunk fold (18 layers x 8 slots
+# x k/v, fold_cap 32) and one slot's prefill fold-through (18 x k/v, 272)
+FOLD_SHAPES = [
+    (5, 24, 2, 48, 16, torch.float32),
+    (3, 40, 4, 32, 40, torch.bfloat16),
+    (288, 32, 3, 1024, 256, torch.bfloat16),
+    (36, 272, 3, 1024, 256, torch.bfloat16),
+]
+
+
+def _fold_inputs(G, N, Z, C, D, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    rows = torch.tensor(rng.randn(G, N, D), dtype=dtype, device=dev)
+    base = rng.randint(0, 4096, (G, 1))
+    pos = torch.tensor(base + np.arange(N)[None], dtype=torch.int32,
+                       device=dev)
+    counts = torch.tensor(rng.randint(0, N + 1, G), dtype=torch.int32,
+                          device=dev)
+    counts[0] = N
+    tail = torch.tensor(rng.randn(G, Z, C, D), dtype=torch.float32,
+                        device=dev)
+    return rows, pos, counts, tail, cached_coeffs(seed + 7, Z, device=dev)
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_tail_fold_kernel_matches_plain_version(card, shape):
+    """Tables within 1e-5 x max|table|: f32 sums in another order (the
+    kernel adds row by row, the plain version adds the summed delta)."""
+    rows, pos, counts, tail, cf = _fold_inputs(*shape, card)
+    got, want = tail.clone(), tail.clone()
+    before = tail_fold.launches
+    tail_fold(rows, pos, counts, got, cf)
+    torch.cuda.synchronize()
+    assert tail_fold.launches == before + 1
+    ref.tail_fold_ref(rows, pos, counts, want, cf)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_tail_fold_kernel_on_a_strided_slot_view(card):
+    """One slot's tables out of a stacked (2, L, B, Z, C, D) tensor, as
+    the prefill fold-through passes them: only that slot changes."""
+    rng = np.random.RandomState(3)
+    L, B, Z, C, D, N = 2, 3, 3, 32, 16, 20
+    full = torch.tensor(rng.randn(2, L, B, Z, C, D), dtype=torch.float32,
+                        device=card)
+    want = full.clone()
+    rows = torch.tensor(rng.randn(2 * L, N, D), dtype=torch.bfloat16,
+                        device=card)
+    pos = torch.arange(N, dtype=torch.int32, device=card).repeat(2 * L, 1)
+    counts = torch.full((2 * L,), N, dtype=torch.int32, device=card)
+    cf = cached_coeffs(5, Z, device=card)
+    tail_fold(rows, pos, counts, full[:, :, 1].view(2 * L, Z, C, D), cf)
+    ref.tail_fold_ref(rows, pos, counts, want[:, :, 1].view(2 * L, Z, C, D),
+                      cf)
+    torch.testing.assert_close(full, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    bad = torch.zeros((2 * L, Z, D, C), device=card).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tail_fold(rows, pos, counts, bad, cf)
+
+
+# (B, K, N, hd, Z, C, T): reduced with even row counts and two kv heads,
+# then gemma-2b's 8k decode (8 slots x 8 query heads) and one 256-token
+# prefill chunk (256 x 8 query rows)
+SCORE_SHAPES = [
+    (2, 2, 6, 16, 2, 48, 200),
+    (3, 1, 5, 40, 4, 32, 130),
+    (8, 1, 8, 256, 3, 1024, 8192),
+    (1, 1, 2048, 256, 3, 1024, 8192),
+]
+
+
+@pytest.mark.parametrize("shape", SCORE_SHAPES)
+def test_tail_scores_kernel_matches_plain_version(card, shape):
+    """Estimates within 1e-4 x max|estimate|: the bucket products sum hd
+    f32 terms in another order; gathers, signs and medians are exact."""
+    B, K, N, hd, Z, C, T = shape
+    rng = np.random.RandomState(1)
+    q = torch.tensor(rng.randn(B, K, N, hd), dtype=torch.float32,
+                     device=card)
+    tk = torch.tensor(rng.randn(B, Z, C, K, hd), dtype=torch.float32,
+                      device=card)
+    cf = cached_coeffs(11, Z, device=card)
+    before = tail_scores.launches
+    got = tail_scores(q, tk, cf, T)
+    torch.cuda.synchronize()
+    assert tail_scores.launches == before + 2
+    want = ref.tail_scores_ref(q, tk, cf, T)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+
+
+def test_tail_ops_send_cuda_tensors_to_the_kernels(card):
+    rows, pos, counts, tail, cf = _fold_inputs(*FOLD_SHAPES[0], card)
+    f0, s0 = tail_fold.launches, tail_scores.launches
+    tail_fold_op(rows, pos, counts, tail, cf)
+    tail_scores_op(torch.zeros((1, 1, 2, 16), device=card),
+                   torch.zeros((1, 2, 48, 1, 16), device=card), cf, 64)
+    assert (tail_fold.launches, tail_scores.launches) == (f0 + 1, s0 + 2)
+    with pytest.raises(ValueError, match="float32"):
+        tail_fold(rows, pos, counts, tail.double(), cf)

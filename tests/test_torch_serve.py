@@ -183,10 +183,9 @@ async def _aenumerate(it):
 
 def test_not_ported_options_raise(served):
     tcfg, tparams = served["tcfg"], served["tparams"]
-    for kw in (dict(spec_k=2), dict(kv_sketch_window=32)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlotScheduler(tcfg, tparams, serve=_serve(tcfg, **kw),
-                          device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SlotScheduler(tcfg, tparams, serve=_serve(tcfg, spec_k=2),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         served["ts"].set_observer(object())
 
