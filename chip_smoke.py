@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels from
-the sources in this checkout, holds each against its plain version,
+the sources in this checkout, holds each against its plain version, runs
+the paper's sketched CP decompositions and codecs at the paper's sizes,
 checks the full-width model against its plain path, serves full-width
 gemma-2b (at 512 and, sketched, at 8k context) and trains full-width
 yi-9b through the port's main paths.
@@ -20,6 +21,23 @@ Phases (one line each; any failure exits non-zero):
                  decode and chunked-prefill scores) and reduced shapes
                  with 2 and 4 hash rows, with kernel / plain / library
                  (index_add_ for the fold) times and the bound
+     cs        — count_sketch and unsketch vs their plain versions at the
+                 reference's six shapes, a bf16 case and the cpd path's
+                 shapes (the CS oracle's 100 x 1,000,000 sketch, Fig. 5's
+                 2,400,000-entry decompress, the FCS tiuu), with kernel /
+                 plain / library (index_add_, index_select) times, the
+                 bound and the inverse-index build time
+     cpd       — the paper core and CPD at the paper's sizes: Fig. 1 RTPM
+                 (I 100, rank 10, D 2; plain held against the same run
+                 on the CPU; TS and FCS at J 1000 / 4000 / 10000 with
+                 every oracle call of a card run repeated on the CPU; CS
+                 on vec(T) at J 10000 with three oracle calls held against
+                 the plain version on the card), Table 2 (HCS vs FCS at
+                 I 50, oracle calls repeated on the CPU), ALS (I 80, D 10,
+                 30 sweeps; every MTTKRP call repeated on the CPU, plain
+                 also as a whole run) and the Fig. 5 / 6 codecs at cr 2-16
+                 (decompress kernel vs plain, error falling with cr); both
+                 kernels launched, counted over the path's runs alone
   3. model     — full-width gemma-2b decode_step logits, kernel vs plain;
                  then sketched: a populated tail on most slots, kernel vs
                  plain, and slots that folded nothing equal to the
@@ -457,6 +475,472 @@ def phase_kv_kernels(flush):
         del q, tk
         torch.cuda.empty_cache()
     return fold_rows, score_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2, cs: count_sketch and unsketch vs their plain versions
+# ---------------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+# name: (D, B, I, J, x dtype); D = 0 is one 1-D table (the reference's
+# call).  The six shapes of tests/test_kernels.py and its bf16 case, then
+# the cpd path's: the CS oracle's tiuu at Fig. 1 (the 100 rows of the
+# (I, I^3) matrix, J 10000, D 2) and the FCS tiuu's CS of 15 inits
+CS_GEOMETRIES = {
+    "ref_1x64_J32": (0, 1, 64, 32, F32),
+    "ref_4x1000_J256": (0, 4, 1000, 256, F32),
+    "ref_2x300_J64": (0, 2, 300, 64, F32),
+    "ref_8x4096_J512": (0, 8, 4096, 512, F32),
+    "ref_1x50_J300": (0, 1, 50, 300, F32),
+    "ref_3x128_J128": (0, 3, 128, 128, F32),
+    "ref_bf16_4x512_J128": (0, 4, 512, 128, BF16),
+    "cs_tiuu_fig1": (2, 100, 1_000_000, 10_000, F32),
+    "fcs_tiuu_fig1": (2, 15, 100, 10_000, F32),
+}
+CS_MAIN = "cs_tiuu_fig1"
+# name: (D, B, I, J, y per repetition): the six reference shapes, then
+# Fig. 5's decompress at cr 2 (the 2,400,000 entries of A (x) B read from
+# 20 sketches of 1,199,997) and the FCS tiuu's lookup at Fig. 1
+UNSKETCH_GEOMETRIES = {
+    "ref_1x64_J32": (0, 1, 64, 32, False),
+    "ref_4x1000_J256": (0, 4, 1000, 256, False),
+    "ref_2x300_J64": (0, 2, 300, 64, False),
+    "ref_8x4096_J512": (0, 8, 4096, 512, False),
+    "ref_1x50_J300": (0, 1, 50, 300, False),
+    "ref_3x128_J128": (0, 3, 128, 128, False),
+    "kron_fig5_cr2": (20, 1, 2_400_000, 1_199_997, True),
+    "fcs_tiuu_fig1": (2, 15, 100, 29_998, True),
+}
+UNSKETCH_MAIN = "kron_fig5_cr2"
+
+
+def cs_tables(D, I, J, dev, gen):
+    shape = (I,) if D == 0 else (D, I)
+    h = torch.randint(0, J, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    s = 1.0 - 2.0 * torch.randint(0, 2, shape, generator=gen, device=dev,
+                                  dtype=torch.int32).float()
+    return h, s
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_cs_kernels(flush):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.count_sketch import (count_sketch,
+                                                  inverse_index, unsketch)
+    dev = flush.device
+    cs_rows, un_rows = {}, {}
+    for gi, (name, (D, B, I, J, dt)) in enumerate(CS_GEOMETRIES.items()):
+        gen = torch.Generator(dev).manual_seed(SEED + 40 + gi)
+        x = torch.randn((B, I), generator=gen, device=dev).to(dt)
+        h, s = cs_tables(D, I, J, dev, gen)
+        idx = inverse_index(h, J)
+        got = count_sketch(x, h, s, J, idx)
+        torch.cuda.synchronize()
+        want = ref.count_sketch_ref(x, h, s, J)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = 1e-5 if dt == F32 else 2 ** -7       # bf16: one rounding
+        tol = rel * want.float().abs().max().item()
+        if not err <= tol or not torch.isfinite(got).all() \
+                or not torch.equal(got, count_sketch(x, h, s, J, idx)):
+            fail(f"count_sketch {name}: max err {err} (tol {tol}), or two "
+                 f"launches differ")
+        del got, want
+        big = I * B > 1 << 24
+        index_ms = device_ms(lambda: inverse_index(h, J), 10, flush)[0]
+        kernel_ms = device_ms(lambda: count_sketch(x, h, s, J, idx),
+                              10 if big else 50, flush)[0]
+        plain_ms = device_ms(lambda: ref.count_sketch_ref(x, h, s, J),
+                             3 if big else 10, flush)[0]
+        # yardstick: one index_add_ of precomputed s.x at the flat bucket
+        # of every (repetition, i) into a zeroed (B, D J)
+        Dn = max(D, 1)
+        h2, s2 = h.reshape(Dn, I), s.reshape(Dn, I)
+        flat = (h2.long() + J * torch.arange(Dn, device=dev)[:, None]
+                ).reshape(-1)
+        sx = torch.cat([x.float() * s2[d] for d in range(Dn)], dim=1)
+        table = torch.zeros((B, Dn * J), device=dev)
+        library_ms = device_ms(lambda: table.index_add_(1, flat, sx),
+                               10 if big else 50, flush)[0]
+        del sx, table, flat
+        esize = x.element_size()
+        # bytes: x, the inverse index and signs read once, the output
+        # written once; f32 operations: one add per element and repetition
+        nbytes = (B * I * esize + Dn * I * 8 + Dn * (J + 1) * 4
+                  + Dn * B * J * esize)
+        bms, by = bound(nbytes, Dn * B * I)
+        cs_rows[name] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bms,
+                             bound_by=by, max_abs_err=err)
+        print(f"[cs] count_sketch {name} (D={D}, B={B}, I={I}, J={J}, x "
+              f"{str(dt)[6:]}): max|err| {err:.3e} (tol {rel:g} x max|out| "
+              f"= {tol:.3e}; two launches bitwise equal) kernel_ms="
+              f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+              f"{library_ms:.5f} (index_add_) bound_ms={bms:.6f} ({by}, "
+              f"{nbytes} B) inverse index build {index_ms:.5f} ms")
+        del x, h, s, idx
+        torch.cuda.empty_cache()
+    for gi, (name, (D, B, I, J, per_row)) in enumerate(
+            UNSKETCH_GEOMETRIES.items()):
+        gen = torch.Generator(dev).manual_seed(SEED + 50 + gi)
+        Dn = max(D, 1)
+        y = torch.randn(((Dn,) if per_row else ()) + (B, J), generator=gen,
+                        device=dev)
+        h, s = cs_tables(D, I, J, dev, gen)
+        got = unsketch(y, h, s)
+        torch.cuda.synchronize()
+        want = ref.unsketch_ref(y, h, s)
+        if not torch.equal(got, want):
+            fail(f"unsketch {name}: not bitwise equal to the plain version "
+                 f"(max err {(got - want).abs().max().item()})")
+        del got, want
+        big = Dn * I > 1 << 24
+        kernel_ms = device_ms(lambda: unsketch(y, h, s), 10 if big else 50,
+                              flush)[0]
+        plain_ms = device_ms(lambda: ref.unsketch_ref(y, h, s),
+                             3 if big else 10, flush)[0]
+        # yardstick: one index_select of y at every repetition's flat
+        # bucket, without the sign
+        h2 = h.reshape(Dn, I).long()
+        if per_row:
+            ys = y.permute(1, 0, 2).reshape(B, Dn * J).contiguous()
+            flat = (h2 + J * torch.arange(Dn, device=dev)[:, None]
+                    ).reshape(-1)
+        else:
+            ys, flat = y, h2.reshape(-1)
+        library_ms = device_ms(lambda: torch.index_select(ys, 1, flat),
+                               10 if big else 50, flush)[0]
+        del ys, flat, h2
+        # bytes: tables read once, y read once, the output written once
+        nbytes = (Dn * I * 8 + Dn * B * I * 4
+                  + (Dn if per_row else 1) * B * J * 4)
+        bms, by = bound(nbytes, 0)
+        un_rows[name] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bms,
+                             bound_by=by, max_abs_err=0.0)
+        print(f"[cs] unsketch {name} (D={D}, B={B}, I={I}, J={J}, y "
+              f"{'per repetition' if per_row else 'shared'}): bitwise equal "
+              f"to the plain version kernel_ms={kernel_ms:.5f} plain_ms="
+              f"{plain_ms:.5f} library_ms={library_ms:.5f} (index_select) "
+              f"bound_ms={bms:.6f} ({by}, {nbytes} B)")
+        del y, h, s
+        torch.cuda.empty_cache()
+    return cs_rows, un_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2, cpd: the paper core and CP decomposition at the paper's sizes
+# ---------------------------------------------------------------------------
+
+
+def traced(fn):
+    """Run ``fn`` once under a CUDA-only profiler (CUPTI kernel records):
+    (result, wall s ending in a synchronize, device busy s).  The kernel
+    durations are summed from the raw records: building the profiler's
+    event tree costs tens of microseconds of host time per record, and a
+    CS decomposition launches tens of thousands of kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e9
+    if busy <= 0:
+        fail("the profiler recorded no device time in a cpd run")
+    return out, wall, busy
+
+
+def on_card(hashes, dev):
+    """The same hashes tabulated on the card from their coefficients."""
+    from repro_torch.core import ModeHash, mode_hash_from_coeffs
+    if isinstance(hashes, ModeHash):
+        return mode_hash_from_coeffs(hashes.coeffs, hashes.I, hashes.J, dev)
+    return tuple(on_card(mh, dev) for mh in hashes)
+
+
+class Shadow:
+    """Repeats every oracle call the card makes on the CPU plain path at
+    the same input.  Each must agree within 1e-4 x max|CPU value| +
+    1e-6 x ||T||_F x the product of the input vectors' norms: an f32 FFT
+    correlation's rounding error scales with the norms of what it
+    correlates, not with its output, which cancels to far below them when
+    the sketch holds little signal.  This holds the card to the CPU along
+    the card's own trajectory.  A sketched run is not held to a whole CPU
+    run: power iteration and ALS on a sketch amplify rounding, so two
+    rounding orders of the same run part by far more than 1e-3."""
+
+    def __init__(self, what, T_norm):
+        self.what, self.T_norm, self.calls, self.worst = what, T_norm, 0, 0.0
+
+    def wrap(self, card_fn, cpu_fn, n_vec):
+        """``n_vec(args)``: the product of the input vectors' norms."""
+        def fn(*args):
+            out = card_fn(*args)
+            want = cpu_fn(*(a.cpu() if torch.is_tensor(a) else a
+                            for a in args))
+            err = (out.cpu() - want).abs().max().item()
+            tol = (1e-4 * want.abs().max().item()
+                   + 1e-6 * self.T_norm * n_vec(args))
+            if not err <= tol:
+                fail(f"{self.what}: oracle call {self.calls} card vs CPU max "
+                     f"err {err} (tol {tol})")
+            self.calls += 1
+            self.worst = max(self.worst, err / tol)
+            return out
+        return fn
+
+    def rtpm(self, T, T_cpu, method, hc, hashes, I, R, L, T_iters, inits,
+             dev):
+        """RTPM on the card with every oracle call shadowed; a note."""
+        from repro_torch.cpd.rtpm import make_oracle, rtpm
+        k_or = make_oracle(T, method, hc)
+        c_or = make_oracle(T_cpu, method, hashes)
+        rtpm(*(self.wrap(k, c, lambda a, p=p: vec_norm(a[0], p))
+               for k, c, p in zip(k_or, c_or, (2, 3))), I, R,
+             n_inits=L, n_iters=T_iters, inits=inits, device=dev)
+        return (f"{self.calls} oracle calls of a card run repeated on the "
+                f"CPU within tol (worst {self.worst:.3f} of tol)")
+
+
+def vec_norm(u, power):
+    """max over the rows of u of ||u_row||^power."""
+    return u.norm(dim=-1).max().item() ** power
+
+
+def whole_run(what, card_l, card_res, cpu_l, cpu_res):
+    """A plain run, card vs CPU from the same inits: lambdas within
+    1e-3 x max|lambda|, residuals within 1e-3."""
+    tol = 1e-3 * cpu_l.abs().max().item()
+    dl = (card_l.cpu() - cpu_l).abs().max().item()
+    dr = max(abs(a - b) for a, b in zip(card_res, cpu_res))
+    if not (dl <= tol and dr <= 1e-3):
+        fail(f"{what}: card vs CPU max|dlambda| {dl} (tol {tol}), max "
+             f"|dresidual| {dr} (tol 1e-3)")
+    return (f"whole run card vs CPU max|dlambda| {dl:.3e}, max|dresidual| "
+            f"{dr:.3e} (tol 1e-3 x max|lambda| / 1e-3)")
+
+
+def phase_cpd(dev):
+    from repro_torch.core import (fcs_contraction_compress,
+                                  fcs_contraction_decompress,
+                                  fcs_kron_compress, fcs_kron_decompress,
+                                  fcs_sketch_len, make_tensor_hashes,
+                                  storage_bytes_cs_long,
+                                  storage_bytes_tabulated)
+    from repro_torch.cpd import als
+    from repro_torch.cpd.rtpm import make_oracle, rtpm_hashes
+    from repro_torch.kernels.count_sketch import count_sketch, unsketch
+    from repro_torch.launch.cpd import (FIG1, decompose, hash_bytes,
+                                        residuals, symmetric_tensor)
+    t_phase = time.perf_counter()
+    launches = dict(count_sketch=0, unsketch=0)
+    line = dict(launches)
+
+    def path(fn):
+        """One run of the cpd path under ``traced``.  The counts go to 0
+        just before it and are added up just after, so the checks' own
+        launches between the path's runs are not counted."""
+        count_sketch.launches = unsketch.launches = 0
+        out = traced(fn)
+        for name, n in (("count_sketch", count_sketch.launches),
+                        ("unsketch", unsketch.launches)):
+            launches[name] += n
+            line[name] += n
+        return out
+
+    def line_launches():
+        """The path's launches since the last call, for a line."""
+        text = (f"path launches count_sketch {line['count_sketch']}, "
+                f"unsketch {line['unsketch']}")
+        line.update(count_sketch=0, unsketch=0)
+        return text
+
+    gen = torch.Generator().manual_seed(SEED + 60)
+    I, R, D, L, T = (FIG1[k] for k in ("I", "R", "D", "L", "T"))
+    Tn_cpu, Tc_cpu = symmetric_tensor(I, R, FIG1["sigma"], gen, "cpu")
+    Tn, Tc = Tn_cpu.to(dev), Tc_cpu.to(dev)
+    finite = []
+    for method, J in FIG1["runs"]:
+        t_block = time.perf_counter()
+        hashes = rtpm_hashes(I, method, J, D, gen, "cpu")
+        inits = torch.randn((R, L, I), generator=gen)
+        hc = None if hashes is None else on_card(hashes, dev)
+        (lams, U, _), wall, busy = path(lambda: decompose(
+            Tn, R, method, J, D, L, T, gen, hashes=hc, inits=inits))
+        res = residuals(Tn, Tc, lams, U)
+        finite.append(torch.isfinite(lams).all() and torch.isfinite(U).all())
+        if method == "plain":
+            lc, Uc, sec_c = decompose(Tn_cpu, R, method, J, D, L, T, gen,
+                                      inits=inits)
+            note = (whole_run(f"fig1 {method}", lams, res, lc,
+                              residuals(Tn_cpu, Tc_cpu, lc, Uc))
+                    + f"; CPU run {sec_c:.2f}s")
+        elif method in ("ts", "fcs"):
+            note = Shadow(f"fig1 {method} J={J}", Tn_cpu.norm().item()).rtpm(
+                Tn, Tn_cpu, method, hc, hashes, I, R, L, T, inits, dev)
+        else:
+            k_tiuu, k_tuuu = make_oracle(Tn, "cs", hc)
+            p_tiuu, p_tuuu = make_oracle(Tn, "cs", hc, use_kernel=False)
+            worst, T_norm = 0.0, Tn.norm().item()
+            for k in range(3):
+                u = torch.randn(I, generator=gen).to(dev)
+                u = u / u.norm()
+                for kf, pf in ((k_tiuu, p_tiuu), (k_tuuu, p_tuuu)):
+                    got, want = kf(u), pf(u)
+                    e = (got - want).abs().max().item()
+                    # as in Shadow: unit u, so ||T||_F is the sums' scale
+                    tol = 1e-4 * want.abs().max().item() + 1e-6 * T_norm
+                    if not e <= tol:
+                        fail(f"fig1 cs oracle call {k}: kernel vs plain max "
+                             f"err {e} (tol {tol})")
+                    worst = max(worst, e / tol)
+            note = (f"3 tiuu + 3 tuuu calls kernel vs use_kernel=False on "
+                    f"the card within 1e-4 x max + 1e-6 x ||T|| (worst "
+                    f"{worst:.3f} of tol)")
+        print(f"[cpd] fig1 rtpm {method} J={J} (I={I}, R={R}, D={D}, L={L}, "
+              f"T={T}): residual {res[0]:.4f} observed, {res[1]:.4f} clean; "
+              f"lambda {lams.min().item():.4f}..{lams.max().item():.4f}; "
+              f"hash bytes {hash_bytes(method, I, J, D)}; {wall:.3f}s, device "
+              f"busy {busy:.3f}s ({100 * (1 - busy / wall):.1f}% idle); "
+              f"{line_launches()}; {note}; line's work "
+              f"{time.perf_counter() - t_block:.2f}s")
+        del hashes, hc
+        torch.cuda.empty_cache()
+    # Table 2: HCS vs FCS at matched sketched dimension, I = 50
+    Tn2_cpu, Tc2_cpu = symmetric_tensor(50, R, FIG1["sigma"], gen, "cpu")
+    Tn2, Tc2 = Tn2_cpu.to(dev), Tc2_cpu.to(dev)
+    for J2, D2 in ((300, 10), (300, 20)):
+        J1 = max(4, round((3 * J2 - 2) ** (1 / 3)))
+        for method, J in (("hcs", J1), ("fcs", J2)):
+            t_block = time.perf_counter()
+            hashes = rtpm_hashes(50, method, J, D2, gen, "cpu")
+            inits = torch.randn((R, L, 50), generator=gen)
+            hc = on_card(hashes, dev)
+            (lams, U, _), wall, busy = path(lambda: decompose(
+                Tn2, R, method, J, D2, L, T, gen, hashes=hc, inits=inits))
+            res = residuals(Tn2, Tc2, lams, U)
+            finite.append(torch.isfinite(lams).all())
+            note = Shadow(f"table2 {method} J={J} D={D2}",
+                          Tn2_cpu.norm().item()).rtpm(
+                Tn2, Tn2_cpu, method, hc, hashes, 50, R, L, T, inits, dev)
+            print(f"[cpd] table2 rtpm {method} J={J} D={D2} (I=50, R={R}): "
+                  f"residual {res[0]:.4f} observed, {res[1]:.4f} clean; "
+                  f"hash bytes {hash_bytes(method, 50, J, D2)}; {wall:.3f}s, "
+                  f"device busy {busy:.3f}s ({100 * (1 - busy / wall):.1f}% "
+                  f"idle); {line_launches()}; {note}; line's work "
+                  f"{time.perf_counter() - t_block:.2f}s")
+    # ALS (benchmarks/bench_als.py defaults): I 80, R 10, D 10, 30 sweeps
+    Ia, Da, iters = 80, 10, 30
+    F0 = [torch.linalg.qr(torch.randn((Ia, Ia), generator=gen))[0][:, :R]
+          for _ in range(3)]
+    Tc3 = torch.einsum("ar,br,cr->abc", *F0)
+    Tn3 = Tc3 + FIG1["sigma"] * torch.randn((Ia,) * 3, generator=gen)
+
+    def als_res(T_obs, T_clean, lam, F):
+        Rm = torch.einsum("r,ar,br,cr->abc", lam, *F)
+        return tuple(float((Tx - Rm).norm() / Tx.norm())
+                     for Tx in (T_obs, T_clean))
+    for method, J in (("plain", 0), ("ts", 1500), ("ts", 3000),
+                      ("fcs", 1500), ("fcs", 3000)):
+        t_block = time.perf_counter()
+        inits = als.als_inits(Tn3, R, gen)
+        hashes = (None if method == "plain" else make_tensor_hashes(
+            Tn3.shape, J, Da, gen, "cpu"))
+        on = dict(method=method, n_iters=iters)
+        Tg, Tcg = Tn3.to(dev), Tc3.to(dev)
+        hg = None if hashes is None else on_card(hashes, dev)
+        ig = [tuple(f.to(dev) for f in i) for i in inits]
+        (lam, F), wall, busy = path(lambda: als.als_decompose(
+            Tg, R, inits=ig, hashes=hg, **on))
+        res = als_res(Tg, Tcg, lam, F)
+        shadow = Shadow(f"als {method} J={J}", Tn3.norm().item())
+        als.als_fit(Tg, R, shadow.wrap(
+            als.make_mttkrp(Tg, method, hg),
+            als.make_mttkrp(Tn3, method, hashes),
+            lambda a: vec_norm(a[0].T, 1) * vec_norm(a[1].T, 1)), ig, iters)
+        note = ""
+        if method == "plain":
+            t0 = time.perf_counter()
+            lc, Fc = als.als_decompose(Tn3, R, inits=inits, **on)
+            note = ("; " + whole_run(f"als {method}", lam, res, lc,
+                                     als_res(Tn3, Tc3, lc, Fc))
+                    + f"; CPU run {time.perf_counter() - t0:.2f}s")
+        finite.append(torch.isfinite(lam).all())
+        print(f"[cpd] als {method} J={J} (I={Ia}, R={R}, D={Da}, {iters} "
+              f"sweeps, 3 inits probed): residual {res[0]:.4f} observed, "
+              f"{res[1]:.4f} clean; hash bytes "
+              f"{0 if hashes is None else storage_bytes_tabulated(hashes)}; "
+              f"{wall:.3f}s, device busy {busy:.3f}s "
+              f"({100 * (1 - busy / wall):.1f}% idle); {line_launches()}; "
+              f"{shadow.calls} mttkrp "
+              f"calls of a card run repeated on the CPU within tol (worst "
+              f"{shadow.worst:.3f} of it){note}; line's work "
+              f"{time.perf_counter() - t_block:.2f}s")
+    # Figs. 5 and 6: Kronecker-product and mode-contraction codecs, D = 20
+    for fig, shA, shB, lo, hi in (("fig5 kron", (30, 40), (40, 50), -5.0,
+                                   5.0),
+                                  ("fig6 contraction", (30, 40, 50),
+                                   (50, 40, 30), 0.0, 10.0)):
+        kron = fig.startswith("fig5")
+        A = (lo + (hi - lo) * torch.rand(shA, generator=gen)).to(dev)
+        B = (lo + (hi - lo) * torch.rand(shB, generator=gen)).to(dev)
+        full = (torch.kron(A, B) if kron
+                else torch.einsum("abl,lcd->abcd", A, B))
+        dims = shA + shB if kron else (30, 40, 40, 30)
+        errs = {}
+        for cr in (2, 4, 8, 16):
+            t_block = time.perf_counter()
+            Jt = max(8, full.numel() // cr)
+            J = max(2, (Jt + 3) // 4)
+            Jt = fcs_sketch_len([J] * 4)
+            hashes = make_tensor_hashes(dims, J, 20, gen, dev)
+            comp = fcs_kron_compress if kron else fcs_contraction_compress
+            sk, c_wall, c_busy = path(lambda: comp(A, B, hashes))
+
+            def dec(use_kernel=None):
+                if kron:
+                    return fcs_kron_decompress(sk, hashes, shA, shB,
+                                               use_kernel)
+                return fcs_contraction_decompress(sk, hashes, dims,
+                                                  use_kernel)
+            est, d_wall, d_busy = path(dec)
+            plain = dec(use_kernel=False)
+            e = (est - plain).abs().max().item()
+            tol = 1e-6 * plain.abs().max().item()
+            if not e <= tol or not torch.isfinite(est).all():
+                fail(f"{fig} cr {cr}: decompress kernel vs plain max err "
+                     f"{e} (tol {tol})")
+            errs[cr] = float((est - full).norm() / full.norm())
+            print(f"[cpd] {fig} cr {cr} (J={J}, J~={Jt}, D=20): rel err "
+                  f"{errs[cr]:.4f}; hash bytes "
+                  f"{storage_bytes_tabulated(hashes)} (CS on the "
+                  f"{full.numel()}-entry result: "
+                  f"{storage_bytes_cs_long(dims, 20)}); compress "
+                  f"{c_wall:.4f}s ({100 * (1 - c_busy / c_wall):.1f}% idle), "
+                  f"decompress {d_wall:.4f}s "
+                  f"({100 * (1 - d_busy / d_wall):.1f}% idle), kernel vs "
+                  f"use_kernel=False max err {e:.3e} (tol 1e-6 x max); "
+                  f"{line_launches()}; "
+                  f"line's work {time.perf_counter() - t_block:.2f}s")
+            del sk, est, plain, hashes
+            torch.cuda.empty_cache()
+        if not errs[2] < errs[16]:
+            fail(f"{fig}: rel err at cr 2 {errs[2]} not below cr 16 "
+                 f"{errs[16]}")
+    if not all(bool(f) for f in finite) or min(launches.values()) <= 0:
+        fail(f"cpd: finite {all(bool(f) for f in finite)}, launches "
+             f"{launches}")
+    print(f"[cpd] launches on the cpd path {launches}; phase "
+          f"{time.perf_counter() - t_phase:.2f}s; {card()}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -982,6 +1466,8 @@ def main() -> None:
     rows = phase_kernel(flush)
     sk_rows = phase_sketch_kernel(flush)
     fold_rows, score_rows = phase_kv_kernels(flush)
+    cs_rows, un_rows = phase_cs_kernels(flush)
+    cpd_launches = phase_cpd(dev)
 
     cfg = get_config("gemma-2b")
     params = tf.init_params(cfg, seed=SEED, device=dev)
@@ -1024,6 +1510,20 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/kv_sketch.cu",
             "replaces": replaces, "launches": long_launches[name],
+            "max_abs_err": max(g["max_abs_err"] for g in geo.values()),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    for name, main, geo, replaces in (
+            ("count_sketch", CS_MAIN, cs_rows,
+             "src/repro/kernels/count_sketch.py:43"),
+            ("unsketch", UNSKETCH_MAIN, un_rows,
+             "src/repro/kernels/unsketch.py:35")):
+        r = geo[main]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/count_sketch.cu",
+            "replaces": replaces, "launches": cpd_launches[name],
             "max_abs_err": max(g["max_abs_err"] for g in geo.values()),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"paged_attention": "paged_attention.cu",
            "sketch_update": "sketch_update.cu",
-           "kv_sketch": "kv_sketch.cu"}
+           "kv_sketch": "kv_sketch.cu",
+           "count_sketch": "count_sketch.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,6 +11,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.count_sketch import Index, count_sketch, unsketch
 from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.sketch_update import sketch_update
@@ -91,3 +92,27 @@ def tail_scores_op(q: torch.Tensor, tail_k: torch.Tensor,
     if _resolve(use_kernel, q.device, "use_kernel"):
         return tail_scores(q, tail_k, coeffs, T)
     return ref.tail_scores_ref(q, tail_k, coeffs, T)
+
+
+def count_sketch_op(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor,
+                    J: int, index: Optional[Index] = None,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Count sketch of the rows of x (B, I) under D stacked hash rows
+    (h, s) (D, I) -> (D, B, J), or (B, J) for 1-D tables
+    (kernels/count_sketch.py).  ``index`` is the hash's inverse index,
+    which only the kernel reads.  ``use_kernel`` as for
+    ``paged_attention_op``."""
+    if _resolve(use_kernel, x.device, "use_kernel"):
+        return count_sketch(x, h, s, J, index)
+    return ref.count_sketch_ref(x, h, s, J)
+
+
+def unsketch_op(y: torch.Tensor, h: torch.Tensor, s: torch.Tensor,
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Signed lookup ``s_d(i) * y[d, b, h_d(i)]`` of y (B, J) or
+    (D, B, J) -> (D, B, I), or (B, I) for 1-D tables and a 2-D y
+    (kernels/count_sketch.py:unsketch).  ``use_kernel`` as for
+    ``paged_attention_op``."""
+    if _resolve(use_kernel, y.device, "use_kernel"):
+        return unsketch(y, h, s)
+    return ref.unsketch_ref(y, h, s)

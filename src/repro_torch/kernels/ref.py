@@ -24,6 +24,12 @@ take them: the fold is the signed bucket-accumulate of
 zero delta, then the delta added to the tables), the scores the bucket
 products gathered through the signed position hashes and combined with
 ``median_rows``.
+
+``count_sketch_ref`` and ``unsketch_ref`` are ``repro/kernels/ref.py:
+count_sketch_ref`` / ``unsketch_ref`` over D stacked hash rows, as the
+CUDA kernels take them: the count sketch is one ``index_add_`` of the
+signed rows per repetition, accumulated in f32 (as the TPU kernel
+accumulates), the decompress one signed gather.
 """
 from __future__ import annotations
 
@@ -35,9 +41,10 @@ import torch
 from repro_torch.sketch.csvec import CSVec, accumulate, median_rows, query
 from repro_torch.sketch.hashing import row_buckets_signs
 
-__all__ = ["paged_attention_ref", "median_rows", "sketch_accumulate_ref",
-           "sketch_retrieve_ref", "sketch_update_ref", "tail_fold_ref",
-           "tail_scores_ref"]
+__all__ = ["count_sketch_ref", "paged_attention_ref", "median_rows",
+           "sketch_accumulate_ref", "sketch_retrieve_ref",
+           "sketch_update_ref", "tail_fold_ref", "tail_scores_ref",
+           "unsketch_ref"]
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -180,3 +187,31 @@ def tail_scores_ref(q: torch.Tensor, tail_k: torch.Tensor,
     est = torch.stack([qa[z][..., bk[z].long()] * sg[z]
                        for z in range(qa.shape[0])])            # (Z,B,K,N,T)
     return median_rows(est)
+
+
+def count_sketch_ref(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor,
+                     J: int) -> torch.Tensor:
+    """x (B, I); h, s (D, I) or (I,) with 0 <= h < J -> (D, B, J), or
+    (B, J) for 1-D tables, in x's type: ``out[d, b, j] = sum_{h_d(i) = j}
+    s_d(i) x[b, i]``, accumulated in f32."""
+    h2, s2 = h.reshape(-1, h.shape[-1]), s.reshape(-1, s.shape[-1])
+    xf = x.to(torch.float32)
+    out = torch.zeros((h2.shape[0], x.shape[0], int(J)), dtype=torch.float32,
+                      device=x.device)
+    for d in range(h2.shape[0]):
+        out[d].index_add_(1, h2[d].long(), xf * s2[d].to(torch.float32))
+    out = out.to(x.dtype)
+    return out[0] if h.ndim == 1 else out
+
+
+def unsketch_ref(y: torch.Tensor, h: torch.Tensor,
+                 s: torch.Tensor) -> torch.Tensor:
+    """y (B, J) shared by every repetition, or (D, B, J); h, s (D, I) or
+    (I,) -> (D, B, I), or (B, I) for 1-D tables and a 2-D y, in y's type:
+    ``out[d, b, i] = y[d, b, h_d(i)] * s_d(i)``."""
+    h2, s2 = h.reshape(-1, h.shape[-1]), s.reshape(-1, s.shape[-1])
+    D, I = h2.shape
+    y3 = y.expand(D, *y.shape) if y.ndim == 2 else y
+    idx = h2.long()[:, None, :].expand(D, y3.shape[1], I)
+    out = torch.gather(y3, 2, idx) * s2[:, None, :].to(y.dtype)
+    return out[0] if h.ndim == 1 and y.ndim == 2 else out

@@ -16,15 +16,21 @@ the port's, so a run of the reference can be continued by the port.
 ``tail_from_reference`` carries a sketched engine's tail tables
 (the reference's ``cache["tail"]``, {"k", "v"} of (L, B, Z, C, K, hd))
 into the port's stacked (2, L, B, Z, C, K, hd) layout.
+
+``mode_hashes_from_reference`` carries the reference's ``ModeHash``
+tuple (``repro.core.hashes``) into the port's, tables rebuilt from the
+same coefficients (equal bitwise), so both packages sketch with the same
+hashes.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.hashes import ModeHash, mode_hash_from_coeffs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import Params, _check_family
 from repro_torch.sketch.csvec import CSVec
@@ -122,3 +128,25 @@ def tail_from_reference(tail: Any, device: DeviceLike = None
     (2, L, B, Z, C, K, hd) f32 tensor (serve/kv_sketch.py), exactly."""
     dev = resolve_device(device)
     return torch.stack([to_torch(tail["k"], dev), to_torch(tail["v"], dev)])
+
+
+def mode_hashes_from_reference(hashes: Any, device: DeviceLike = None
+                               ) -> Tuple[ModeHash, ...]:
+    """Reference ``ModeHash`` tuple (or one ``ModeHash``) -> the port's,
+    on ``device``.  Each is rebuilt from its (D, 4) coefficients, which
+    the reference stores modulo 2^31 (the identity below the prime), and
+    its tables are checked against the reference's bitwise."""
+    dev = resolve_device(device)
+    single = hasattr(hashes, "coeffs")
+    out = []
+    for mh in ([hashes] if single else hashes):
+        h = np.asarray(mh.h)
+        port = mode_hash_from_coeffs(
+            torch.from_numpy(np.asarray(mh.coeffs).astype(np.int64)),
+            h.shape[1], int(mh.J), dev)
+        if not (np.array_equal(port.h.cpu().numpy(), h) and np.array_equal(
+                port.s.cpu().numpy(), np.asarray(mh.s))):
+            raise ValueError("the reference's tables do not follow from "
+                             "its coefficients")
+        out.append(port)
+    return out[0] if single else tuple(out)

@@ -1,8 +1,9 @@
 """The port on the card: the sm_90a paged-attention, sketch_update,
-tail_fold and tail_scores kernels against their plain versions, the
-model's kernel path against its plain path, the slot engine launching
-the paged-attention kernel (and, sketched, the tail kernels), and the
-sketched optimizer launching sketch_update.  Every test carries the
+tail_fold, tail_scores, count_sketch and unsketch kernels against their
+plain versions, the model's kernel path against its plain path, the slot
+engine launching the paged-attention kernel (and, sketched, the tail
+kernels), the sketched optimizer launching sketch_update, and sketched
+RTPM launching count_sketch and unsketch.  Every test carries the
 ``cuda`` marker and skips without a card; the file imports nothing of
 JAX, so it runs on the card's machine:
 
@@ -15,10 +16,15 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import reduced_config
+from repro_torch.core import make_tensor_hashes, mode_hash_from_coeffs
+from repro_torch.cpd.rtpm import rtpm_decompose
+from repro_torch.kernels.count_sketch import (count_sketch, inverse_index,
+                                              unsketch)
 from repro_torch.kernels import ref
 from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
-from repro_torch.kernels.ops import (sketch_update_op, tail_fold_op,
-                                     tail_scores_op)
+from repro_torch.kernels.ops import (count_sketch_op, sketch_update_op,
+                                     tail_fold_op, tail_scores_op,
+                                     unsketch_op)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.sketch_update import sketch_update
 from repro_torch.models import transformer as tf
@@ -333,3 +339,117 @@ def test_tail_ops_send_cuda_tensors_to_the_kernels(card):
     assert (tail_fold.launches, tail_scores.launches) == (f0 + 1, s0 + 2)
     with pytest.raises(ValueError, match="float32"):
         tail_fold(rows, pos, counts, tail.double(), cf)
+
+
+# (D, B, I, J): D = 0 is one 1-D table, the reference's call.  The six
+# shapes of tests/test_kernels.py, then the cpd path's: the FCS tiuu's
+# count sketch of 15 inits at Fig. 1 and a reduced CS-oracle shape
+CS_SHAPES = [(0, 1, 64, 32), (0, 4, 1000, 256), (0, 2, 300, 64),
+             (0, 8, 4096, 512), (0, 1, 50, 300), (0, 3, 128, 128),
+             (2, 15, 100, 10_000), (2, 25, 64_000, 1000)]
+
+
+def _cs_inputs(D, B, I, J, dev, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    shape = (I,) if D == 0 else (D, I)
+    x = torch.randn((B, I), generator=gen, device=dev)
+    h = torch.randint(0, J, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    s = 1.0 - 2.0 * torch.randint(0, 2, shape, generator=gen, device=dev,
+                                  dtype=torch.int32).float()
+    return x, h, s
+
+
+@pytest.mark.parametrize("shape", CS_SHAPES)
+def test_count_sketch_kernel_matches_plain_version(card, shape):
+    """Within 1e-5 x max|out| (f32 sums in another order: the plain
+    version's atomics against the kernel's bucket walk in increasing i);
+    two launches agree bitwise (no atomics)."""
+    D, B, I, J = shape
+    x, h, s = _cs_inputs(D, B, I, J, card)
+    before = count_sketch.launches
+    got = count_sketch(x, h, s, J)
+    again = count_sketch(x, h, s, J, inverse_index(h, J))
+    torch.cuda.synchronize()
+    assert count_sketch.launches == before + 2
+    want = ref.count_sketch_ref(x, h, s, J)
+    assert got.shape == want.shape == ((B, J) if D == 0 else (D, B, J))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+def test_count_sketch_kernel_bf16(card):
+    """bf16 x accumulates in f32 and is written in bf16: within one bf16
+    rounding (2^-7 x max|out|) of the plain version."""
+    x, h, s = _cs_inputs(0, 4, 512, 128, card, seed=1)
+    xb = x.to(torch.bfloat16)
+    got = count_sketch(xb, h, s, 128)
+    assert got.dtype == torch.bfloat16
+    want = ref.count_sketch_ref(xb, h, s, 128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 ** -7 * want.float().abs().max().item())
+
+
+# (D, B, I, J, y per repetition): the six reference shapes, the FCS
+# tiuu's lookup at Fig. 1 and a reduced Fig. 5 decompress
+UNSKETCH_SHAPES = [(0, 1, 64, 32, False), (0, 4, 1000, 256, False),
+                   (0, 2, 300, 64, False), (0, 8, 4096, 512, False),
+                   (0, 1, 50, 300, False), (0, 3, 128, 128, False),
+                   (2, 15, 100, 29_998, True), (20, 1, 120_000, 60_000, True),
+                   (3, 2, 500, 70, False)]
+
+
+@pytest.mark.parametrize("shape", UNSKETCH_SHAPES)
+def test_unsketch_kernel_equals_plain_version_bitwise(card, shape):
+    D, B, I, J, per_row = shape
+    _, h, s = _cs_inputs(D, B, I, J, card, seed=2)
+    gen = torch.Generator(card).manual_seed(3)
+    y = torch.randn(((D,) if per_row else ()) + (B, J), generator=gen,
+                    device=card)
+    before = unsketch.launches
+    got = unsketch(y, h, s)
+    torch.cuda.synchronize()
+    assert unsketch.launches == before + 1
+    want = ref.unsketch_ref(y, h, s)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_stacked_rows_equal_separate_launches(card):
+    """D stacked hash rows in one launch equal D one-row launches bitwise
+    (each output is the same sum in the same order)."""
+    x, h, s = _cs_inputs(3, 5, 2000, 300, card, seed=4)
+    stacked = count_sketch_op(x, h, s, 300)
+    y = stacked.contiguous()
+    looked = unsketch_op(y, h, s)
+    for d in range(3):
+        assert torch.equal(stacked[d], count_sketch_op(x, h[d], s[d], 300))
+        assert torch.equal(looked[d], unsketch_op(y[d], h[d], s[d]))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        count_sketch(x.double(), h, s, 300)
+    with pytest.raises(ValueError, match="int32"):
+        unsketch(y, h.long(), s)
+
+
+def test_sketched_rtpm_launches_both_kernels(card):
+    """FCS RTPM on the card (I = 20, rank 2, D = 3) goes through
+    count_sketch and unsketch and agrees with the same run on the CPU:
+    lambdas within 1e-3 x max|lambda|."""
+    gen = torch.Generator().manual_seed(5)
+    Q = torch.linalg.qr(torch.randn((20, 20), generator=gen))[0][:, :2]
+    T = torch.einsum("r,ar,br,cr->abc", torch.tensor([2.0, 1.0]), Q, Q, Q)
+    hashes = make_tensor_hashes(T.shape, 500, 3, generator=gen,
+                                device="cpu")
+    inits = torch.randn((2, 6, 20), generator=gen)
+    on_card = tuple(mode_hash_from_coeffs(mh.coeffs, mh.I, mh.J, card)
+                    for mh in hashes)
+    before = (count_sketch.launches, unsketch.launches)
+    lk, _ = rtpm_decompose(T.to(card), 2, method="fcs", n_inits=6,
+                           n_iters=10, hashes=on_card, inits=inits)
+    assert count_sketch.launches > before[0]
+    assert unsketch.launches > before[1]
+    lc, _ = rtpm_decompose(T, 2, method="fcs", n_inits=6, n_iters=10,
+                           hashes=hashes, inits=inits)
+    torch.testing.assert_close(lk.cpu(), lc, rtol=0,
+                               atol=1e-3 * lc.abs().max().item())
