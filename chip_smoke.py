@@ -9,10 +9,12 @@ yi-9b through the port's main paths.
 
 Phases (one line each; any failure exits non-zero):
   1. build     — nvcc for sm_90a, one process per source, all at once
-  2. kernel    — paged attention vs its plain version at the decode,
-                 chunked-prefill and a reduced (hd=16) geometry, with
-                 kernel / plain / library (SDPA yardstick) times and the
-                 bandwidth bound; sketch_update vs its plain version at
+  2. kernel    — paged attention vs its plain version at the decode and
+                 chunked-prefill geometries at max_seq 512 and 8192 and a
+                 reduced (hd=16) one, with its split plan (blocks,
+                 splits), two launches held bitwise equal, kernel / plain
+                 / library (SDPA yardstick) times and the bandwidth
+                 bound; sketch_update vs its plain version at
                  the reference's four kernel shapes and one yi-9b w_gate
                  layer piece whose indices pass 2^31, with kernel / plain
                  times and the bandwidth bound
@@ -20,7 +22,9 @@ Phases (one line each; any failure exits non-zero):
                  8k serve shapes (decode-chunk fold, prefill fold-through,
                  decode and chunked-prefill scores) and reduced shapes
                  with 2 and 4 hash rows, with kernel / plain / library
-                 (index_add_ for the fold) times and the bound
+                 (index_add_ for the fold) times and the bound; the fold
+                 also held bitwise to a row-by-row fold and to a second
+                 launch, with its grid
      cs        — count_sketch and unsketch vs their plain versions at the
                  reference's six shapes, a bf16 case and the cpd path's
                  shapes (the CS oracle's 100 x 1,000,000 sketch, Fig. 5's
@@ -98,30 +102,39 @@ def device_ms(fn, n: int, flush: torch.Tensor):
     flushed before each call (the decode path reaches each layer's pool
     after other layers' weights have passed through the cache).  The
     flush's own kernel is left out by name.  Returns (ms per call,
-    {kernel name: ms per call}, host wall ms per call)."""
+    {kernel name: ms per call}, host wall ms per call).  A window in
+    which the profiler delivered no kernel record at all (seen once on
+    an H100, a 2-microsecond kernel after some 150 windows) is profiled
+    once more, and a ``[profiler]`` line says so; a second empty window
+    fails."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    by_name = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or "bitwise_not" in e.name:
-            continue
-        ms = e.time_range.elapsed_us() / 1e3 / n
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    total = sum(by_name.values())
-    if total <= 0:
-        fail("the profiler recorded no device time")
-    return total, by_name, wall
+    for window in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        by_name = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or "bitwise_not" in e.name:
+                continue
+            ms = e.time_range.elapsed_us() / 1e3 / n
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        total = sum(by_name.values())
+        if total > 0:
+            if window:
+                print(f"[profiler] the first window recorded no kernel; "
+                      f"{total:.5f} ms from the second "
+                      f"({', '.join(sorted(by_name))})")
+            return total, by_name, wall
+    fail("the profiler recorded no device time in two windows")
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +142,14 @@ def device_ms(fn, n: int, flush: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 # name: (B, Sq, K, R, hd, NB, bs, nb)
+# decode and chunk prefill of the 512-token serve (nb 32) and of the 8k
+# sketched serve (nb 512, starts drawn up to 8191), and a reduced one
 GEOMETRIES = {
     "decode": (8, 1, 1, 8, 256, 256, 16, 32),
     "chunk_prefill": (1, 32, 1, 8, 256, 256, 16, 32),
     "reduced_hd16": (4, 1, 1, 4, 16, 24, 16, 6),
+    "decode_8k": (8, 1, 1, 8, 256, 4096, 16, 512),
+    "chunk_prefill_8k": (1, 256, 1, 8, 256, 4096, 16, 512),
 }
 
 
@@ -191,29 +208,48 @@ def sdpa_yardstick(q, kp, vp, tables, start, fb):
 
 def phase_kernel(flush):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import (paged_attention, plan,
+                                                     sm_count)
     rows = {}
     for gi, (name, g) in enumerate(GEOMETRIES.items()):
         B, Sq, K, R, hd, NB, bs, nb = g
         args = paged_inputs(*g, seed=gi)
         m, l, acc = paged_attention(*args)
+        again = paged_attention(*args)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((m, l, acc), again)):
+            fail(f"paged_attention {name}: two launches differ")
+        del again
+        sms = sm_count(flush.device.index)
+        pl = plan(B, K, R * Sq, nb, bs, sms)
+        if name.startswith("decode") and pl.blocks < sms:
+            fail(f"paged_attention {name}: {pl.blocks} blocks on {sms} SMs")
         mr, lr, ar = ref.paged_attention_ref(*args)
         ok_m = torch.allclose(m, mr, rtol=1e-5, atol=1e-6)
         ok_l = torch.allclose(l, lr, rtol=1e-4, atol=1e-6)
         out = acc / l.clamp(min=1e-30)[..., None]
         want = ar / lr.clamp(min=1e-30)[..., None]
         err = (out - want).abs().max().item()
-        if not (ok_m and ok_l and err <= 2e-2) or not torch.isfinite(
+        # p rounded to bf16 at another running max moves acc/l by a part
+        # of its own size, and |acc/l| shrinks as more keys are visible
+        # (about 0.02 at 8k): the limit scales with max|want|, capped at
+        # 2e-2
+        want_max = want.abs().max().item()
+        want_mean = want.abs().mean().item()
+        acc_tol = 2e-2 * min(1.0, want_max)
+        if not (ok_m and ok_l and err <= acc_tol) or not torch.isfinite(
                 out).all():
             fail(f"paged_attention {name}: m ok {ok_m}, l ok {ok_l}, "
-                 f"acc/l max err {err}")
+                 f"acc/l max err {err} (tol {acc_tol})")
         kernel_ms, parts, _ = device_ms(lambda: paged_attention(*args), 50,
                                         flush)
-        kernel_only = sum(v for k, v in parts.items()
-                          if "paged_attention_kernel" in k)
-        plain_ms = device_ms(lambda: ref.paged_attention_ref(*args), 5,
-                             flush)[0]
+        others = [k for k in parts if "paged_attention" not in k]
+        if others:
+            fail(f"paged_attention {name} launched other kernels: {others}")
+        split_ms = sum(v for k, v in parts.items()
+                       if "paged_attention_kernel" in k)
+        plain_ms = device_ms(lambda: ref.paged_attention_ref(*args),
+                             5 if nb <= 64 else 1, flush)[0]
         library_ms = device_ms(sdpa_yardstick(*args), 50, flush)[0]
         keys, pairs = live_keys(args[3], args[4], args[5], Sq, NB, bs)
         NQ = R * Sq
@@ -229,10 +265,16 @@ def phase_kernel(flush):
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             max_abs_err=err, bytes=nbytes, flops=flops)
-        print(f"[kernel] paged_attention {name} {g}: max|acc/l err| "
-              f"{err:.3e} (tol 2e-2; m rtol 1e-5, l rtol 1e-4 ok) "
-              f"kernel_ms={kernel_ms:.5f} (kernel alone {kernel_only:.5f}, "
-              f"the rest is the q transpose) plain_ms={plain_ms:.5f} "
+        print(f"[kernel] paged_attention {name} {g}: grid {pl.blocks} "
+              f"blocks ({pl.splits} splits of {pl.per_split} blocks, "
+              f"{pl.tiles} tiles of {pl.tile_rows} rows); two launches "
+              f"bitwise equal; max|acc/l err| "
+              f"{err:.3e} (tol {acc_tol:.3e} = 2e-2 x min(1, max|acc/l| "
+              f"{want_max:.4f}); mean|acc/l| {want_mean:.4f}; m rtol 1e-5, "
+              f"l rtol 1e-4 ok) "
+              f"kernel_ms={kernel_ms:.5f} (split kernel {split_ms:.5f}, "
+              f"merge {kernel_ms - split_ms:.5f}; no other kernel) "
+              f"plain_ms={plain_ms:.5f} "
               f"library_ms={library_ms:.5f} bound_ms={max(t_bytes, t_ops):.6f}"
               f" ({nbytes} B live, {flops} flop)")
     return rows
@@ -374,16 +416,23 @@ def fold_inputs(G, N, Z, C, D, dev, seed, ragged):
 
 def phase_kv_kernels(flush):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
+    from repro_torch.kernels.kv_sketch import FOLD_COLS, tail_fold, tail_scores
     from repro_torch.sketch.hashing import row_buckets_signs
     dev = flush.device
     fold_rows, score_rows = {}, {}
     for gi, (name, (G, N, Z, C, D)) in enumerate(FOLD_GEOMETRIES.items()):
         rows, pos, counts, tail, cf = fold_inputs(
             G, N, Z, C, D, dev, SEED + 20 + gi, name.startswith("reduced"))
-        got, want = tail.clone(), tail.clone()
+        got, again, rowwise = tail.clone(), tail.clone(), tail.clone()
         tail_fold(rows, pos, counts, got, cf)
+        tail_fold(rows, pos, counts, again, cf)
         torch.cuda.synchronize()
+        ref.tail_fold_rowwise_ref(rows, pos, counts, rowwise, cf)
+        if not (torch.equal(got, again) and torch.equal(got, rowwise)):
+            fail(f"tail_fold {name}: not bitwise the row-by-row fold, or two "
+                 f"launches differ")
+        del again, rowwise
+        want = tail.clone()
         ref.tail_fold_ref(rows, pos, counts, want, cf)
         err = (got - want).abs().max().item()
         tol = 1e-5 * want.abs().max().item()
@@ -424,7 +473,10 @@ def phase_kv_kernels(flush):
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             max_abs_err=err)
         print(f"[kernel] tail_fold {name} (G={G}, N={N}, Z={Z}, C={C}, "
-              f"D={D}, {n_valid} valid rows): max|err| {err:.3e} (tol "
+              f"D={D}, {n_valid} valid rows): grid "
+              f"{G * Z * -(-D // FOLD_COLS)} "
+              f"blocks; bitwise the row-by-row fold and a second launch; "
+              f"max|err| {err:.3e} (tol "
               f"1e-5 x max|table| = {tol:.3e}) kernel_ms={kernel_ms:.5f} "
               f"(kernel alone {kernel_only:.5f}) plain_ms={plain_ms:.5f} "
               f"library_ms={library_ms:.5f} (index_add_) bound_ms="

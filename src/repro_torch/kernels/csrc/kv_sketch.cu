@@ -11,17 +11,28 @@
 // the serve path): tail[g, z, h_z(p), :] += s_z(p) * rows[g, n, :] for the
 // first counts[g] rows n, p = positions[g, n]; rows past the count add
 // nothing.  The TPU contracts signed one-hot tiles on the MXU because it
-// has no scatter.  Here one thread block owns one (g, z) table and walks
-// its rows in order, threads across the feature axis D, each doing a
-// read-modify-write of its columns of table row h_z(p): no atomics, and
-// the same order of additions on every run.
+// has no scatter.  Here one thread block owns one (g, z) table and one
+// slice of kFoldCols columns (so the 8k prefill fold-through, 36 tables x
+// 3 rows x D 256, is 432 blocks) and walks its rows in tiles of kFoldTile:
+//   1. the tile's positions (read a tile ahead) are hashed by one warp,
+//      a row a lane, and its rows' slice was copied into shared memory
+//      by cp.async a tile ahead;
+//   2. each row finds, with __match_any_sync, the next row of the tile
+//      with the same bucket and whether it is the first of its bucket;
+//   3. for every first row, the table row's slice is gathered into
+//      shared memory by cp.async, every copy of the tile in flight at
+//      once and no register held for them;
+//   4. each (first row, column) adds the rows of its bucket's chain in
+//      increasing n and writes the table element back once.
+// Each table element thus receives the same additions in the same order
+// as a row-by-row sequential fold: the result is bitwise that fold, and
+// the same on every run (no atomics).  The plain model of the tiling is
+// tests/test_torch_kv_sketch.py:tail_fold_tiled_ref.
 //   Bound: bytes.  Each valid row read once (D x 2 B for bf16) and each
 //   touched table row read and written once (D x 4 B each way); about one
-//   flop per byte.  The row loop is a chain of dependent global loads and
-//   stores per thread, so a block runs at the latency of ~N round trips;
-//   many (g, z) blocks in flight (864 at the decode fold) hide part of it.
-//   Staging rows and table rows through shared memory is later work.
-//
+//   flop per byte.  A tile costs one dependent round trip (the gather);
+//   the next tile's position and row copies overlap it.
+
 // tail_scores.  out[g, n, t] = median_z s_z(t) * (q[g, n] . tail_k[g, z,
 // h_z(t)]) for every position t < T (unscaled, unmasked; the caller
 // applies the softmax scale and the live mask).  Two passes, one launch
@@ -56,11 +67,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "hashing.cuh"
 
 namespace {
 
-constexpr int kFoldThreads = 256;
+constexpr int kFoldThreads = 128;
+constexpr int kFoldTile = 32;         // rows staged per step: a warp
+constexpr int kFoldCols = 64;         // table columns per block
 
 // pass 1 tiling: BM query rows x BN buckets per block, BK features a step
 constexpr int BM = 32;
@@ -76,6 +90,22 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// Copies tile rows [n0, n0 + kFoldTile) of this block's column slice of
+// one (N, D) row block into xs (row r at xs + r * kFoldCols), 16 bytes at
+// a time; rows past N are left as they were (they are never read).
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ x, int n0,
+                                           int N, int D, int c0, T* xs) {
+  constexpr int per = 16 / sizeof(T);            // elements per copy
+  constexpr int units = kFoldCols / per;          // copies per row
+  for (int e = threadIdx.x; e < kFoldTile * units; e += kFoldThreads) {
+    const int r = e / units, c = (e - r * units) * per;
+    const int n = n0 + r, d = c0 + c;
+    if (n < N && d < D)
+      async_copy::copy16(xs + r * kFoldCols + c, x + (size_t)n * D + d);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kFoldThreads)
 tail_fold_kernel(const T* __restrict__ rows, const int32_t* __restrict__ pos,
@@ -83,24 +113,75 @@ tail_fold_kernel(const T* __restrict__ rows, const int32_t* __restrict__ pos,
                  float* __restrict__ tail, long long tail_stride,
                  const uint32_t* __restrict__ coeffs, int N, uint32_t C,
                  int D) {
+  __shared__ uint32_t bk[kFoldTile];
+  __shared__ bool neg[kFoldTile];
+  __shared__ bool first[kFoldTile];
+  __shared__ int next[kFoldTile];
+  __shared__ __align__(16) float tb[kFoldTile][kFoldCols];  // table rows
+  __shared__ __align__(16) T xs[2][kFoldTile * kFoldCols];  // rows, 2 tiles
   const int g = blockIdx.x;
   const int z = blockIdx.y;
-  const int n_valid = min(counts[g], N);
+  const int c0 = blockIdx.z * kFoldCols;
+  const int tid = threadIdx.x, lane = tid & 31;
   const uint32_t a = coeffs[4 * z], b = coeffs[4 * z + 1];
   const uint32_t as = coeffs[4 * z + 2], bs = coeffs[4 * z + 3];
   const T* x = rows + (size_t)g * N * D;
   const int32_t* p = pos + (size_t)g * N;
   float* t = tail + (size_t)g * tail_stride + (size_t)z * C * D;
-  for (int n = 0; n < n_valid; ++n) {
-    const uint32_t u = (uint32_t)p[n];
-    float* row = t + (size_t)sketch::bucket(a, b, u, C) * D;
-    const bool neg = sketch::negative(as, bs, u);
-    const T* xr = x + (size_t)n * D;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      const float v = widen(xr[d]);
-      row[d] += neg ? -v : v;
+  // tile 0's positions (warp 0, one row a lane) and rows are requested
+  // with the count: rows past it lie inside the (N, D) block and are
+  // never added
+  int p_tile = tid < kFoldTile && tid < N ? p[tid] : 0;
+  stage_rows(x, 0, N, D, c0, xs[0]);
+  async_copy::commit();
+  const int n_valid = min(counts[g], N);
+  for (int n0 = 0, buf = 0; n0 < n_valid; n0 += kFoldTile, buf ^= 1) {
+    const int nt = min(kFoldTile, n_valid - n0);
+    if (tid < kFoldTile) {
+      // buckets; rows past the count get distinct values >= 2^31 (C <
+      // 2^31) so they match nothing; then each row's bucket-mates
+      const uint32_t u = (uint32_t)p_tile;
+      const uint32_t bkt = lane < nt ? sketch::bucket(a, b, u, C)
+                                     : 0x80000000u | lane;
+      const uint32_t same = __match_any_sync(0xffffffffu, bkt);
+      const uint32_t later = same & ~((2u << lane) - 1u);
+      bk[lane] = bkt;
+      neg[lane] = sketch::negative(as, bs, u);
+      first[lane] = __ffs(same) - 1 == lane;
+      next[lane] = later ? __ffs(later) - 1 : -1;
+      const int n1 = n0 + kFoldTile + lane;      // next tile's position
+      if (n1 < N) p_tile = p[n1];
     }
+    __syncthreads();
+    // each bucket's first row gathers its table row's slice: every copy
+    // of the tile in flight at once, then the next tile's rows behind it
+    for (int e = tid; e < kFoldTile * kFoldCols / 4; e += kFoldThreads) {
+      const int r = e / (kFoldCols / 4), c = e % (kFoldCols / 4) * 4;
+      const int d = c0 + c;
+      if (r < nt && first[r] && d < D)
+        async_copy::copy16(&tb[r][c], t + (size_t)bk[r] * D + d);
+    }
+    async_copy::commit();
+    if (n0 + kFoldTile < n_valid)
+      stage_rows(x, n0 + kFoldTile, N, D, c0, xs[buf ^ 1]);
+    async_copy::commit();
+    async_copy::wait<1>();          // this tile's rows and gather landed
+    __syncthreads();
+    // add each bucket's rows in increasing n, write the element back once
+    const T* xt = xs[buf];
+    for (int e = tid; e < kFoldTile * kFoldCols; e += kFoldThreads) {
+      const int r = e / kFoldCols, c = e % kFoldCols, d = c0 + c;
+      if (!(r < nt && first[r] && d < D)) continue;
+      float acc = tb[r][c];
+      for (int m = r; m >= 0; m = next[m]) {
+        const float xv = widen(xt[m * kFoldCols + c]);
+        acc += neg[m] ? -xv : xv;
+      }
+      t[(size_t)bk[r] * D + d] = acc;
+    }
+    __syncthreads();              // smem reused; written rows visible
   }
+  async_copy::wait<0>();
 }
 
 // q: (B, K, N, hd); tk: (B, Z, C, K, hd); P: (B*K, Z, N, C).  Block
@@ -197,14 +278,16 @@ scores_select_kernel(const float* __restrict__ P,
 
 // tail_fold: rows (G, N, D) bf16 (rows_bf16 = 1) or f32, positions (G, N)
 // int32, counts (G,) int32, tail (G, Z, C, D) f32 whose g-th table starts
-// tail_stride floats after the (g-1)-th, coefficients (Z, 4) uint32.
+// tail_stride floats after the (g-1)-th, coefficients (Z, 4) uint32.  The
+// 16-byte copies need rows and tail 16-byte aligned, D a multiple of 8
+// (bf16 rows) or 4 (f32), and tail_stride a multiple of 4.
 extern "C" int tail_fold_launch(const void* rows, int rows_bf16,
                                 const void* positions, const void* counts,
                                 void* tail, long long tail_stride,
                                 const void* coeffs, int G, int N, int Z,
                                 long long C, int D, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid(G, Z);
+  const dim3 grid(G, Z, (D + kFoldCols - 1) / kFoldCols);
   const int32_t* p = static_cast<const int32_t*>(positions);
   const int32_t* cnt = static_cast<const int32_t*>(counts);
   float* t = static_cast<float*>(tail);

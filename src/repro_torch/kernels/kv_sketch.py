@@ -5,7 +5,9 @@ ports of the TPU kernels ``repro/kernels/kv_sketch.py:tail_fold`` and
 ``tail_fold(rows, positions, counts, tail, coeffs)`` folds, for each batch
 element g, the first ``counts[g]`` rows of ``rows[g]`` (N, D) at absolute
 ``positions[g]`` into the (Z, C, D) f32 table ``tail[g]``, in place:
-``tail[g, z, h_z(p)] += s_z(p) * row``.  ``tail`` may be a strided view
+``tail[g, z, h_z(p)] += s_z(p) * row``, bitwise as a row-by-row fold
+(``ref.tail_fold_rowwise_ref``) with one block per table, hash row and
+slice of ``FOLD_COLS`` columns.  ``tail`` may be a strided view
 (the serve path folds one slot's tables out of the stacked per-slot
 tensor): its last three axes must be contiguous, its batch stride is free.
 
@@ -32,6 +34,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.sketch_update import _u32_bits
 
 MAX_ROWS = 8                # Z instantiated in the select pass
+FOLD_COLS = 64              # kFoldCols: table columns per fold block
 
 _c_int, _c_ll, _c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -103,6 +106,12 @@ def tail_fold(rows: torch.Tensor, positions: torch.Tensor,
         raise ValueError("tail's (Z, C, D) axes must be contiguous")
     if not rows.is_contiguous():
         raise ValueError("rows must be contiguous")
+    vec = 16 // rows.element_size()             # elements per 16-byte copy
+    if D % vec or rows.data_ptr() % 16 or tail.data_ptr() % 16 \
+            or tail.stride(0) % 4:
+        raise ValueError(f"the fold copies 16 bytes at a time: D ({D}) must "
+                         f"be a multiple of {vec}, rows and tail 16-byte "
+                         f"aligned and tail's batch stride a multiple of 4")
     for name, t, shape in (("positions", positions, (G, N)),
                            ("counts", counts, (G,))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape \

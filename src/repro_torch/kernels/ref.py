@@ -25,6 +25,10 @@ zero delta, then the delta added to the tables), the scores the bucket
 products gathered through the signed position hashes and combined with
 ``median_rows``.
 
+``tail_fold_rowwise_ref`` is the fold done row by row in increasing n, each
+table element receiving its additions one at a time, as the CUDA kernel
+adds them: the kernel equals it bitwise.
+
 ``count_sketch_ref`` and ``unsketch_ref`` are ``repro/kernels/ref.py:
 count_sketch_ref`` / ``unsketch_ref`` over D stacked hash rows, as the
 CUDA kernels take them: the count sketch is one ``index_add_`` of the
@@ -43,8 +47,8 @@ from repro_torch.sketch.hashing import row_buckets_signs
 
 __all__ = ["count_sketch_ref", "paged_attention_ref", "median_rows",
            "sketch_accumulate_ref", "sketch_retrieve_ref",
-           "sketch_update_ref", "tail_fold_ref", "tail_scores_ref",
-           "unsketch_ref"]
+           "sketch_update_ref", "tail_fold_ref", "tail_fold_rowwise_ref",
+           "tail_scores_ref", "unsketch_ref"]
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -171,6 +175,30 @@ def tail_fold_ref(rows: torch.Tensor, positions: torch.Tensor,
                         device=rows.device)
     delta.index_add_(0, flat, vals.reshape(-1, D))
     tail.add_(delta.view(G, Z, C, D))
+    return tail
+
+
+def tail_fold_rowwise_ref(rows: torch.Tensor, positions: torch.Tensor,
+                          counts: torch.Tensor, tail: torch.Tensor,
+                          coeffs: torch.Tensor) -> torch.Tensor:
+    """``tail_fold_ref`` row by row: for n = 0, 1, ... every table that
+    row n of its batch element reaches gets ``+= s_z(p) * row`` in f32,
+    one addition per element (no two (g, z) tables share an element, so
+    each step is one indexed update).  In place; returns ``tail``."""
+    G, N, D = rows.shape
+    _, Z, C, _ = tail.shape
+    bk, sg = row_buckets_signs(coeffs, positions.reshape(-1), C,
+                               signed=True)
+    bk, sg = bk.reshape(Z, G, N).long(), sg.reshape(Z, G, N)
+    z = torch.arange(Z, device=tail.device)[None, :]
+    for n in range(N):
+        g = torch.nonzero(n < counts.to(tail.device))[:, 0]
+        if g.numel() == 0:
+            break
+        x = rows[g, n].float()[:, None, :]                   # (Gn, 1, D)
+        neg = (sg[:, g, n] < 0).T[..., None]                 # (Gn, Z, 1)
+        idx = (g[:, None], z, bk[:, g, n].T)
+        tail[idx] = tail[idx] + torch.where(neg, -x, x)
     return tail
 
 

@@ -36,7 +36,8 @@ from repro_torch.sketch.optimizer import (sketched_adamw_init,
 pytestmark = pytest.mark.cuda
 
 # (B, Sq, K, R, hd, NB, bs, nb): decode, multi-query, chunked prefill,
-# R == 1, and gemma-2b's serve geometry (decode and prefill chunk)
+# R == 1, gemma-2b's serve geometry (decode and prefill chunk) and its 8k
+# geometry (decode over 512 blocks a slot, a 256-token prefill chunk)
 SHAPES = [
     (3, 1, 2, 3, 16, 12, 8, 4),
     (2, 4, 2, 2, 32, 10, 4, 5),
@@ -44,6 +45,8 @@ SHAPES = [
     (4, 3, 3, 1, 8, 20, 16, 3),
     (8, 1, 1, 8, 256, 256, 16, 32),
     (1, 32, 1, 8, 256, 256, 16, 32),
+    (8, 1, 1, 8, 256, 4096, 16, 512),
+    (1, 256, 1, 8, 256, 4096, 16, 512),
 ]
 
 
@@ -72,7 +75,9 @@ def _inputs(B, Sq, K, R, hd, NB, bs, nb, dev, seed=0):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_plain_version(card, shape):
     """m at rtol 1e-5 and l at rtol 1e-4 (f32 sums in another order);
-    acc/l at atol 2e-2, since one bf16 rounding of p may differ."""
+    acc/l at atol 2e-2 x min(1, max|acc/l|), since one bf16 rounding of p
+    may differ, and that moves acc/l by a part of its own size (|acc/l|
+    is about 0.02 at 8k context)."""
     args = _inputs(*shape, card, seed=9)
     before = paged_attention.launches
     m, l, acc = paged_attention(*args)
@@ -81,9 +86,43 @@ def test_kernel_matches_plain_version(card, shape):
     mr, lr, ar = ref.paged_attention_ref(*args)
     torch.testing.assert_close(m, mr, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(l, lr, rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(acc / l.clamp(min=1e-30)[..., None],
-                               ar / lr.clamp(min=1e-30)[..., None],
-                               rtol=0, atol=2e-2)
+    want = ar / lr.clamp(min=1e-30)[..., None]
+    torch.testing.assert_close(acc / l.clamp(min=1e-30)[..., None], want,
+                               rtol=0, atol=2e-2 * min(
+                                   1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1] + SHAPES[4:])
+def test_kernel_launches_agree_bitwise(card, shape):
+    """No atomics: two launches on the same inputs give the same bits; a
+    slot's output is bitwise unchanged when other slots' start and
+    fold_base move (the split plan reads shapes only)."""
+    args = _inputs(*shape, card, seed=2)
+    first = paged_attention(*args)
+    again = paged_attention(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    other = list(args)
+    other[4] = args[4].flip(0).clone()
+    other[4][0] = args[4][0]
+    other[5] = torch.zeros_like(args[5])
+    other[5][0] = args[5][0]
+    moved = paged_attention(*other)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(first, moved))
+
+
+def test_kernel_reads_q_through_its_strides(card):
+    """q as the model hands it, a view with padded strides: equal to the
+    same values made contiguous."""
+    args = _inputs(*SHAPES[1], card, seed=6)
+    wide = torch.zeros(args[0].shape[:-1] + (48,), dtype=torch.bfloat16,
+                       device=card)
+    wide[..., :32] = args[0]
+    view = wide[..., :32]
+    assert not view.is_contiguous()
+    got = paged_attention(view, *args[1:])
+    want = paged_attention(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
@@ -262,6 +301,26 @@ def _fold_inputs(G, N, Z, C, D, dtype, dev, seed=0):
 
 
 @pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_tail_fold_kernel_is_the_rowwise_fold_bitwise(card, shape):
+    """Each table element receives the same additions in the same order
+    as the row-by-row fold, so the kernel equals it bitwise, and two
+    launches agree.  Positions drawn from 40 values (C 32 or 48) make
+    rows collide inside a tile at the reduced shapes."""
+    rows, pos, counts, tail, cf = _fold_inputs(*shape, card, seed=4)
+    if shape[3] < 100:
+        pos = torch.randint(0, 40, pos.shape, dtype=torch.int32,
+                            device=card,
+                            generator=torch.Generator(card).manual_seed(1))
+    got, again, want = tail.clone(), tail.clone(), tail.clone()
+    tail_fold(rows, pos, counts, got, cf)
+    tail_fold(rows, pos, counts, again, cf)
+    ref.tail_fold_rowwise_ref(rows, pos, counts, want, cf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
 def test_tail_fold_kernel_matches_plain_version(card, shape):
     """Tables within 1e-5 x max|table|: f32 sums in another order (the
     kernel adds row by row, the plain version adds the summed delta)."""
@@ -339,6 +398,9 @@ def test_tail_ops_send_cuda_tensors_to_the_kernels(card):
     assert (tail_fold.launches, tail_scores.launches) == (f0 + 1, s0 + 2)
     with pytest.raises(ValueError, match="float32"):
         tail_fold(rows, pos, counts, tail.double(), cf)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tail_fold(rows[..., :10].contiguous(), pos, counts,
+                  tail[..., :10].contiguous(), cf)
 
 
 # (D, B, I, J): D = 0 is one 1-D table, the reference's call.  The six

@@ -14,7 +14,10 @@ and a softmax-weighted sum of a few hundred terms: within 1e-5 relative
 (-1e30, 0, 0).  The model-level check carries the reference's weights,
 pool and tail tables across and holds logits to the model tolerance of
 tests/test_torch_model.py (3% of max |logit|); slots that folded nothing
-must equal the port's sketch-free step bitwise."""
+must equal the port's sketch-free step bitwise.  The CUDA fold's tiled
+model (``tail_fold_tiled_ref``, defined here) equals the row-by-row fold
+bitwise: each table element receives the same f32 additions in the same
+order."""
 import dataclasses
 
 import jax
@@ -34,7 +37,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import bridge
 from repro_torch.models import transformer as tf
 from repro_torch.serve import kv_sketch as kvs
-from repro_torch.sketch.hashing import cached_coeffs
+from repro_torch.sketch.hashing import cached_coeffs, row_buckets_signs
 
 torch.set_num_threads(1)
 
@@ -110,6 +113,82 @@ def test_tail_fold_ref_matches_reference(Z):
         jnp.asarray(rows[:100]), jnp.asarray(pos[:100]), jnp.asarray(tail),
         jc))
     _close(got[1], want100, 1e-6)
+
+
+def tail_fold_tiled_ref(rows: torch.Tensor, positions: torch.Tensor,
+                        counts: torch.Tensor, tail: torch.Tensor,
+                        coeffs: torch.Tensor, tile: int = 32
+                        ) -> torch.Tensor:
+    """The CUDA kernel's tiling of the fold: per (g, z) table, rows in
+    tiles of ``tile``; in a tile each bucket's first row gathers the
+    table row, adds the tile's rows of that bucket in increasing n and
+    writes it back once.  In place; returns ``tail``."""
+    G, N, D = rows.shape
+    _, Z, C, _ = tail.shape
+    bk, sg = row_buckets_signs(coeffs, positions.reshape(-1), C,
+                               signed=True)
+    bk, sg = bk.reshape(Z, G, N).tolist(), sg.reshape(Z, G, N)
+    for g in range(G):
+        n_valid = min(int(counts[g]), N)
+        x = rows[g].float()
+        for z in range(Z):
+            for n0 in range(0, n_valid, tile):
+                chain = {}                   # bucket -> rows, in order
+                for n in range(n0, min(n0 + tile, n_valid)):
+                    chain.setdefault(bk[z][g][n], []).append(n)
+                for b, ns in chain.items():
+                    v = tail[g, z, b].clone()
+                    for n in ns:
+                        v = v + (-x[n] if sg[z, g, n] < 0 else x[n])
+                    tail[g, z, b] = v
+    return tail
+
+
+def _fold_inputs(G, N, Z, C, D, span, seed):
+    """Positions drawn from ``span`` values, so rows repeat positions and
+    every hash row collides inside a tile."""
+    rng = np.random.RandomState(seed)
+    rows = torch.tensor(rng.randn(G, N, D), dtype=torch.bfloat16)
+    pos = torch.tensor(rng.randint(0, span, (G, N)), dtype=torch.int32)
+    counts = torch.tensor(rng.randint(0, N + 1, G), dtype=torch.int32)
+    counts[0] = N
+    tail = torch.tensor(rng.randn(G, Z, C, D), dtype=torch.float32)
+    return rows, pos, counts, tail
+
+
+@pytest.mark.parametrize("Z,N,span", [(2, 70, 40), (3, 100, 500),
+                                      (4, 33, 10)])
+def test_tiled_fold_equals_rowwise_fold_bitwise(Z, N, span):
+    G, C, D = 4, 64, 24
+    rows, pos, counts, tail = _fold_inputs(G, N, Z, C, D, span, seed=Z)
+    cf = cached_coeffs(Z + 5, Z)
+    bk, _ = row_buckets_signs(cf, pos[0, :32].reshape(-1), C, signed=True)
+    assert all(len(set(r)) < 32 for r in bk.tolist())   # collisions
+    got = tail_fold_tiled_ref(rows, pos, counts, tail.clone(), cf)
+    want = ref.tail_fold_rowwise_ref(rows, pos, counts, tail.clone(), cf)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(
+        got.numpy(), ref.tail_fold_ref(rows, pos, counts, tail.clone(),
+                                       cf).numpy(),
+        rtol=0, atol=1e-6 * float(got.abs().max()))
+
+
+@pytest.mark.parametrize("Z", [2, 3])
+def test_tiled_fold_matches_reference_kernel(Z):
+    """Against the TPU kernel in interpret mode, one table at a time."""
+    G, N, C, D = 2, 70, 64, 32
+    rows, pos, counts, tail = _fold_inputs(G, N, Z, C, D, 90, seed=10 + Z)
+    rows, counts[1] = rows.float(), 45
+    jc = ref_coeffs(7, Z)
+    got = tail_fold_tiled_ref(rows, pos, counts, tail.clone(),
+                                  cached_coeffs(7, Z))
+    for g in range(G):
+        n = int(counts[g])
+        want = np.asarray(rkk.tail_fold(
+            jnp.asarray(rows[g, :n].numpy()), jnp.asarray(pos[g, :n].numpy()),
+            jnp.asarray(tail[g].numpy()), jc, bN=32, bC=32))
+        np.testing.assert_allclose(got[g].numpy(), want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("Z", ROWS)
