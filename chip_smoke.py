@@ -27,10 +27,13 @@ Phases (one line each; any failure exits non-zero):
                  launch, with its grid
      cs        — count_sketch and unsketch vs their plain versions at the
                  reference's six shapes, a bf16 case and the cpd path's
-                 shapes (the CS oracle's 100 x 1,000,000 sketch, Fig. 5's
-                 2,400,000-entry decompress, the FCS tiuu), with kernel /
-                 plain / library (index_add_, index_select) times, the
-                 bound and the inverse-index build time
+                 shapes (the CS oracle's 100 x 1,000,000 sketch and its
+                 1 x 1,000,000 sketch of vec(T), Fig. 5's 2,400,000-entry
+                 decompress, the FCS tiuu) and a J past the shared-memory
+                 accumulators, with the branch each took, kernel / plain
+                 / library (index_add_, index_select) times, the bound
+                 and the bucket-link build time; count_sketch also held
+                 bitwise to its tiled model and to a second launch
      cpd       — the paper core and CPD at the paper's sizes: Fig. 1 RTPM
                  (I 100, rank 10, D 2; plain held against the same run
                  on the CPU; TS and FCS at J 1000 / 4000 / 10000 with
@@ -41,7 +44,8 @@ Phases (one line each; any failure exits non-zero):
                  30 sweeps; every MTTKRP call repeated on the CPU, plain
                  also as a whole run) and the Fig. 5 / 6 codecs at cr 2-16
                  (decompress kernel vs plain, error falling with cr); both
-                 kernels launched, counted over the path's runs alone
+                 kernels launched, counted over the path's runs alone,
+                 with their device time inside each run
   3. model     — full-width gemma-2b decode_step logits, kernel vs plain;
                  then sketched: a populated tail on most slots, kernel vs
                  plain, and slots that folded nothing equal to the
@@ -537,7 +541,9 @@ F32, BF16 = torch.float32, torch.bfloat16
 # name: (D, B, I, J, x dtype); D = 0 is one 1-D table (the reference's
 # call).  The six shapes of tests/test_kernels.py and its bf16 case, then
 # the cpd path's: the CS oracle's tiuu at Fig. 1 (the 100 rows of the
-# (I, I^3) matrix, J 10000, D 2) and the FCS tiuu's CS of 15 inits
+# (I, I^3) matrix, J 10000, D 2), its sketch of vec(T) (B 1,
+# cpd/rtpm.py:cs_oracle) and the FCS tiuu's CS of 15 inits; last a J past
+# the shared-memory accumulators (J-slabs)
 CS_GEOMETRIES = {
     "ref_1x64_J32": (0, 1, 64, 32, F32),
     "ref_4x1000_J256": (0, 4, 1000, 256, F32),
@@ -547,7 +553,9 @@ CS_GEOMETRIES = {
     "ref_3x128_J128": (0, 3, 128, 128, F32),
     "ref_bf16_4x512_J128": (0, 4, 512, 128, BF16),
     "cs_tiuu_fig1": (2, 100, 1_000_000, 10_000, F32),
+    "cs_vecT_fig1": (2, 1, 1_000_000, 10_000, F32),
     "fcs_tiuu_fig1": (2, 15, 100, 10_000, F32),
+    "slabs_8x300000_J200000": (2, 8, 300_000, 200_000, F32),
 }
 CS_MAIN = "cs_tiuu_fig1"
 # name: (D, B, I, J, y per repetition): the six reference shapes, then
@@ -583,15 +591,17 @@ def bound(nbytes, flops):
 
 def phase_cs_kernels(flush):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.count_sketch import (count_sketch,
-                                                  inverse_index, unsketch)
+    from repro_torch.kernels.count_sketch import (bucket_links, count_sketch,
+                                                  plan, unsketch)
     dev = flush.device
     cs_rows, un_rows = {}, {}
     for gi, (name, (D, B, I, J, dt)) in enumerate(CS_GEOMETRIES.items()):
         gen = torch.Generator(dev).manual_seed(SEED + 40 + gi)
         x = torch.randn((B, I), generator=gen, device=dev).to(dt)
         h, s = cs_tables(D, I, J, dev, gen)
-        idx = inverse_index(h, J)
+        idx = bucket_links(h, s, J)
+        Dn = max(D, 1)
+        branch = plan(Dn, B, I, J, x.element_size()).branch
         got = count_sketch(x, h, s, J, idx)
         torch.cuda.synchronize()
         want = ref.count_sketch_ref(x, h, s, J)
@@ -602,16 +612,17 @@ def phase_cs_kernels(flush):
                 or not torch.equal(got, count_sketch(x, h, s, J, idx)):
             fail(f"count_sketch {name}: max err {err} (tol {tol}), or two "
                  f"launches differ")
+        if not torch.equal(got, ref.count_sketch_tiled_ref(x, h, s, J)):
+            fail(f"count_sketch {name}: not bitwise its tiled model")
         del got, want
         big = I * B > 1 << 24
-        index_ms = device_ms(lambda: inverse_index(h, J), 10, flush)[0]
+        index_ms = device_ms(lambda: bucket_links(h, s, J), 10, flush)[0]
         kernel_ms = device_ms(lambda: count_sketch(x, h, s, J, idx),
                               10 if big else 50, flush)[0]
         plain_ms = device_ms(lambda: ref.count_sketch_ref(x, h, s, J),
                              3 if big else 10, flush)[0]
         # yardstick: one index_add_ of precomputed s.x at the flat bucket
         # of every (repetition, i) into a zeroed (B, D J)
-        Dn = max(D, 1)
         h2, s2 = h.reshape(Dn, I), s.reshape(Dn, I)
         flat = (h2.long() + J * torch.arange(Dn, device=dev)[:, None]
                 ).reshape(-1)
@@ -621,20 +632,20 @@ def phase_cs_kernels(flush):
                                10 if big else 50, flush)[0]
         del sx, table, flat
         esize = x.element_size()
-        # bytes: x, the inverse index and signs read once, the output
-        # written once; f32 operations: one add per element and repetition
-        nbytes = (B * I * esize + Dn * I * 8 + Dn * (J + 1) * 4
-                  + Dn * B * J * esize)
+        # bytes: x, h and s read once, the output written once; f32
+        # operations: one add per element and repetition
+        nbytes = B * I * esize + Dn * I * 8 + Dn * B * J * esize
         bms, by = bound(nbytes, Dn * B * I)
         cs_rows[name] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bms,
                              bound_by=by, max_abs_err=err)
         print(f"[cs] count_sketch {name} (D={D}, B={B}, I={I}, J={J}, x "
-              f"{str(dt)[6:]}): max|err| {err:.3e} (tol {rel:g} x max|out| "
-              f"= {tol:.3e}; two launches bitwise equal) kernel_ms="
-              f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms="
-              f"{library_ms:.5f} (index_add_) bound_ms={bms:.6f} ({by}, "
-              f"{nbytes} B) inverse index build {index_ms:.5f} ms")
+              f"{str(dt)[6:]}; {branch}): max|err| {err:.3e} (tol {rel:g} x "
+              f"max|out| = {tol:.3e}; bitwise its tiled model and a second "
+              f"launch) kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={library_ms:.5f} (index_add_) bound_ms="
+              f"{bms:.6f} ({by}, {nbytes} B) bucket links build "
+              f"{index_ms:.5f} ms")
         del x, h, s, idx
         torch.cuda.empty_cache()
     for gi, (name, (D, B, I, J, per_row)) in enumerate(
@@ -676,7 +687,8 @@ def phase_cs_kernels(flush):
                              library_ms=library_ms, bound_ms=bms,
                              bound_by=by, max_abs_err=0.0)
         print(f"[cs] unsketch {name} (D={D}, B={B}, I={I}, J={J}, y "
-              f"{'per repetition' if per_row else 'shared'}): bitwise equal "
+              f"{'per repetition' if per_row else 'shared'}; "
+              f"{'vector' if I % 4 == 0 else 'scalar'} loads): bitwise equal "
               f"to the plain version kernel_ms={kernel_ms:.5f} plain_ms="
               f"{plain_ms:.5f} library_ms={library_ms:.5f} (index_select) "
               f"bound_ms={bms:.6f} ({by}, {nbytes} B)")
@@ -690,12 +702,17 @@ def phase_cs_kernels(flush):
 # ---------------------------------------------------------------------------
 
 
+CS_KERNELS = ("count_sketch_kernel", "combine_kernel", "unsketch_kernel")
+
+
 def traced(fn):
     """Run ``fn`` once under a CUDA-only profiler (CUPTI kernel records):
-    (result, wall s ending in a synchronize, device busy s).  The kernel
-    durations are summed from the raw records: building the profiler's
-    event tree costs tens of microseconds of host time per record, and a
-    CS decomposition launches tens of thousands of kernels."""
+    (result, wall s ending in a synchronize, device busy s, {kernel:
+    (device s, records)} for the count-sketch source's kernels).  The
+    kernel durations are summed from the raw records: building the
+    profiler's event tree costs tens of microseconds of host time per
+    record, and a CS decomposition launches tens of thousands of
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -703,11 +720,26 @@ def traced(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e9
+    busy, mine = 0.0, {k: [0.0, 0] for k in CS_KERNELS}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        sec = e.duration_ns() / 1e9
+        busy += sec
+        for k in CS_KERNELS:
+            if k in e.name():
+                mine[k][0] += sec
+                mine[k][1] += 1
     if busy <= 0:
         fail("the profiler recorded no device time in a cpd run")
-    return out, wall, busy
+    return out, wall, busy, mine
+
+
+def kernel_time(mine):
+    """The count-sketch source's device time in one traced run."""
+    return ", ".join(f"{k} {sec:.4f}s in {n}" + (
+        f" ({1e3 * sec / n:.5f} ms each)" if n else "")
+        for k, (sec, n) in mine.items())
 
 
 def on_card(hashes, dev):
@@ -795,24 +827,30 @@ def phase_cpd(dev):
     t_phase = time.perf_counter()
     launches = dict(count_sketch=0, unsketch=0)
     line = dict(launches)
+    line_dev = {k: [0.0, 0] for k in CS_KERNELS}
 
     def path(fn):
         """One run of the cpd path under ``traced``.  The counts go to 0
         just before it and are added up just after, so the checks' own
         launches between the path's runs are not counted."""
         count_sketch.launches = unsketch.launches = 0
-        out = traced(fn)
+        *out, mine = traced(fn)
         for name, n in (("count_sketch", count_sketch.launches),
                         ("unsketch", unsketch.launches)):
             launches[name] += n
             line[name] += n
-        return out
+        for k, (sec, n) in mine.items():
+            line_dev[k][0] += sec
+            line_dev[k][1] += n
+        return tuple(out)
 
     def line_launches():
         """The path's launches since the last call, for a line."""
         text = (f"path launches count_sketch {line['count_sketch']}, "
-                f"unsketch {line['unsketch']}")
+                f"unsketch {line['unsketch']}; in-run device time "
+                f"{kernel_time(line_dev)}")
         line.update(count_sketch=0, unsketch=0)
+        line_dev.update({k: [0.0, 0] for k in CS_KERNELS})
         return text
 
     gen = torch.Generator().manual_seed(SEED + 60)

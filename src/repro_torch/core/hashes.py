@@ -15,9 +15,10 @@ coefficients, bitwise the reference's for the same coefficients
 hashes across).  Tables are evaluated in int64: a < 2^31 and i < 2^31,
 so a i + b < 2^62 and nothing overflows.
 
-A ``ModeHash`` also holds the inverse index of its tables (each row's
-stable sort and bucket offsets), which the count-sketch kernel buckets
-through; it is built once, with the tables, on their device.
+A ``ModeHash`` also holds the bucket links of its tables (each entry's
+next entry of its tile in the same bucket, and its sign), the
+count-sketch kernel's order of additions; they are built once, with the
+tables, on their device.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.count_sketch import Index, inverse_index
+from repro_torch.kernels.count_sketch import Index, bucket_links
 
 PRIME = 2_147_483_647  # 2^31 - 1
 
@@ -39,8 +40,7 @@ class ModeHash:
     s: torch.Tensor        # (D, I) float32 in {+1, -1}
     coeffs: torch.Tensor   # (D, 4) int64: (ah, bh, as_, bs), each < 2^31
     J: int
-    perm: torch.Tensor     # (D, I) int32: each row's stable sort
-    offsets: torch.Tensor  # (D, J + 1) int32: bucket j = perm[off[j]:off[j+1]]
+    links: torch.Tensor    # (D, I) int16: kernels/count_sketch.py:bucket_links
 
     @property
     def D(self) -> int:
@@ -52,7 +52,7 @@ class ModeHash:
 
     @property
     def index(self) -> Index:
-        return self.perm, self.offsets
+        return self.links
 
 
 def mode_hash_from_coeffs(coeffs: torch.Tensor, I: int, J: int,
@@ -71,9 +71,8 @@ def mode_hash_from_coeffs(coeffs: torch.Tensor, I: int, J: int,
     s = 1.0 - 2.0 * (((c[:, 2:3] * idx + c[:, 3:4]) % PRIME) % 2).to(
         torch.float32)
     h = h.to(torch.int32)
-    perm, offsets = inverse_index(h, J)
-    return ModeHash(h=h, s=s, coeffs=c, J=int(J), perm=perm,
-                    offsets=offsets)
+    return ModeHash(h=h, s=s, coeffs=c, J=int(J),
+                    links=bucket_links(h, s, J))
 
 
 def make_mode_hash(I: int, J: int, D: int = 1,

@@ -99,7 +99,7 @@ def count_sketch_op(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor,
                     use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Count sketch of the rows of x (B, I) under D stacked hash rows
     (h, s) (D, I) -> (D, B, J), or (B, J) for 1-D tables
-    (kernels/count_sketch.py).  ``index`` is the hash's inverse index,
+    (kernels/count_sketch.py).  ``index`` is the hash's bucket links,
     which only the kernel reads.  ``use_kernel`` as for
     ``paged_attention_op``."""
     if _resolve(use_kernel, x.device, "use_kernel"):

@@ -34,6 +34,11 @@ count_sketch_ref`` / ``unsketch_ref`` over D stacked hash rows, as the
 CUDA kernels take them: the count sketch is one ``index_add_`` of the
 signed rows per repetition, accumulated in f32 (as the TPU kernel
 accumulates), the decompress one signed gather.
+
+``count_sketch_tiled_ref`` is the count sketch in the CUDA kernel's order
+of additions (chunks of I from ``kernels/count_sketch.py:plan``, tiles of
+``TILE`` entries, each bucket's entries of a tile summed in order and
+added once): the kernel equals it bitwise.
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ import torch
 from repro_torch.sketch.csvec import CSVec, accumulate, median_rows, query
 from repro_torch.sketch.hashing import row_buckets_signs
 
-__all__ = ["count_sketch_ref", "paged_attention_ref", "median_rows",
+__all__ = ["count_sketch_ref", "count_sketch_tiled_ref",
+           "paged_attention_ref", "median_rows",
            "sketch_accumulate_ref", "sketch_retrieve_ref",
            "sketch_update_ref", "tail_fold_ref", "tail_fold_rowwise_ref",
            "tail_scores_ref", "unsketch_ref"]
@@ -228,6 +234,42 @@ def count_sketch_ref(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor,
                       device=x.device)
     for d in range(h2.shape[0]):
         out[d].index_add_(1, h2[d].long(), xf * s2[d].to(torch.float32))
+    out = out.to(x.dtype)
+    return out[0] if h.ndim == 1 else out
+
+
+def count_sketch_tiled_ref(x: torch.Tensor, h: torch.Tensor,
+                           s: torch.Tensor, J: int) -> torch.Tensor:
+    """``count_sketch_ref`` summed as the CUDA kernel sums: each chunk of
+    ``plan``'s split of I from zero and its tiles in order; within a tile
+    each bucket's entries summed in increasing i and the sum added to the
+    bucket once.  The chunks' partials are then added in increasing
+    order."""
+    from repro_torch.kernels.count_sketch import TILE, plan
+    h2, s2 = h.reshape(-1, h.shape[-1]), s.reshape(-1, s.shape[-1])
+    D, I = h2.shape
+    B, J = x.shape[0], int(J)
+    v = x.to(torch.float32)[None] * s2[:, None, :]               # (D, B, I)
+    tiles = max(1, -(-I // TILE))
+    per = plan(D, max(B, 1), I, J, x.element_size()).tiles_per_chunk
+    out = None
+    for t0 in range(0, tiles, per):
+        acc = torch.zeros((D, B, J), dtype=torch.float32, device=x.device)
+        for t in range(t0, min(tiles, t0 + per)):
+            lo, hi = t * TILE, min(I, (t + 1) * TILE)
+            for d in range(D):
+                hv = h2[d, lo:hi].long()
+                ok = (hv >= 0) & (hv < J)
+                # the k-th entry of each bucket in the tile, k = 0, 1, ...
+                same = hv[:, None] == hv[None, :]
+                k = torch.tril(same, diagonal=-1).sum(1)
+                tile_sum = torch.zeros((B, J), dtype=torch.float32,
+                                       device=x.device)
+                for kk in range(int(k[ok].max()) + 1 if bool(ok.any()) else 0):
+                    sel = ok & (k == kk)
+                    tile_sum.index_add_(1, hv[sel], v[d][:, lo:hi][:, sel])
+                acc[d] += tile_sum
+        out = acc if out is None else out + acc
     out = out.to(x.dtype)
     return out[0] if h.ndim == 1 else out
 

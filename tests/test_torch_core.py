@@ -69,13 +69,18 @@ def test_mode_hash_tables_bitwise(I, J, D, seed):
     np.testing.assert_array_equal(port.s.numpy(), np.asarray(ref.s))
     np.testing.assert_array_equal(port.coeffs.numpy(), np.asarray(ref.coeffs))
     assert (port.J, port.D, port.I) == (ref.J, ref.D, ref.I)
-    # the inverse index lists each bucket's members in increasing i
+    # the bucket links chain each bucket's entries in increasing i (one
+    # tile at these I), bit 15 the sign
+    lk = port.links.numpy().astype(np.int64) & 0xffff
+    h, s = np.asarray(ref.h), np.asarray(ref.s)
     for d in range(D):
-        k = port.offsets[d].numpy()
-        for j in range(J):
-            np.testing.assert_array_equal(
-                port.perm[d, k[j]:k[j + 1]].numpy(),
-                np.flatnonzero(np.asarray(ref.h)[d] == j))
+        for i in range(I):
+            later = np.flatnonzero(h[d, i + 1:] == h[d, i])
+            assert bool(lk[d, i] & 0x800) == (later.size > 0)
+            if later.size:
+                assert lk[d, i] & 0x7ff == i + 1 + later[0]
+            assert bool(lk[d, i] & 0x1000) == bool(np.any(h[d, :i] == h[d, i]))
+            assert (lk[d, i] >> 15) == (s[d, i] < 0)
 
 
 def test_port_draws_hashes_in_range_from_a_generator():

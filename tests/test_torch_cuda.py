@@ -18,8 +18,8 @@ import torch
 from repro_torch.configs.registry import reduced_config
 from repro_torch.core import make_tensor_hashes, mode_hash_from_coeffs
 from repro_torch.cpd.rtpm import rtpm_decompose
-from repro_torch.kernels.count_sketch import (count_sketch, inverse_index,
-                                              unsketch)
+from repro_torch.kernels.count_sketch import (bucket_links, count_sketch,
+                                              plan, unsketch)
 from repro_torch.kernels import ref
 from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
 from repro_torch.kernels.ops import (count_sketch_op, sketch_update_op,
@@ -405,10 +405,14 @@ def test_tail_ops_send_cuda_tensors_to_the_kernels(card):
 
 # (D, B, I, J): D = 0 is one 1-D table, the reference's call.  The six
 # shapes of tests/test_kernels.py, then the cpd path's: the FCS tiuu's
-# count sketch of 15 inits at Fig. 1 and a reduced CS-oracle shape
+# count sketch of 15 inits at Fig. 1 and reduced CS-oracle shapes (B 25 in
+# 8 chunks, B 1 in many); a J past the shared-memory accumulators
+# (J-slabs); I neither a multiple of the tile nor of 4 (scalar loads)
 CS_SHAPES = [(0, 1, 64, 32), (0, 4, 1000, 256), (0, 2, 300, 64),
              (0, 8, 4096, 512), (0, 1, 50, 300), (0, 3, 128, 128),
-             (2, 15, 100, 10_000), (2, 25, 64_000, 1000)]
+             (2, 15, 100, 10_000), (2, 25, 64_000, 1000),
+             (2, 1, 200_000, 10_000), (2, 8, 60_000, 100_000),
+             (2, 3, 5001, 300)]
 
 
 def _cs_inputs(D, B, I, J, dev, seed=0):
@@ -425,13 +429,14 @@ def _cs_inputs(D, B, I, J, dev, seed=0):
 @pytest.mark.parametrize("shape", CS_SHAPES)
 def test_count_sketch_kernel_matches_plain_version(card, shape):
     """Within 1e-5 x max|out| (f32 sums in another order: the plain
-    version's atomics against the kernel's bucket walk in increasing i);
-    two launches agree bitwise (no atomics)."""
+    version's atomics against the kernel's chains); bitwise the plain
+    model of the kernel's order (``ref.count_sketch_tiled_ref``); two
+    launches agree bitwise (no atomics)."""
     D, B, I, J = shape
     x, h, s = _cs_inputs(D, B, I, J, card)
     before = count_sketch.launches
     got = count_sketch(x, h, s, J)
-    again = count_sketch(x, h, s, J, inverse_index(h, J))
+    again = count_sketch(x, h, s, J, bucket_links(h, s, J))
     torch.cuda.synchronize()
     assert count_sketch.launches == before + 2
     want = ref.count_sketch_ref(x, h, s, J)
@@ -439,27 +444,49 @@ def test_count_sketch_kernel_matches_plain_version(card, shape):
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
     assert torch.equal(got, again)
+    assert torch.equal(got, ref.count_sketch_tiled_ref(x, h, s, J))
 
 
-def test_count_sketch_kernel_bf16(card):
+@pytest.mark.parametrize("shape", [(0, 4, 512, 128), (2, 25, 64_000, 1000),
+                                   (2, 3, 5001, 300)])
+def test_count_sketch_kernel_bf16(card, shape):
     """bf16 x accumulates in f32 and is written in bf16: within one bf16
-    rounding (2^-7 x max|out|) of the plain version."""
-    x, h, s = _cs_inputs(0, 4, 512, 128, card, seed=1)
+    rounding (2^-7 x max|out|) of the plain version, and bitwise its
+    tiled model (the same f32 sums, rounded once)."""
+    D, B, I, J = shape
+    x, h, s = _cs_inputs(D, B, I, J, card, seed=1)
     xb = x.to(torch.bfloat16)
-    got = count_sketch(xb, h, s, 128)
+    got = count_sketch(xb, h, s, J)
     assert got.dtype == torch.bfloat16
-    want = ref.count_sketch_ref(xb, h, s, 128)
+    want = ref.count_sketch_ref(xb, h, s, J)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=2 ** -7 * want.float().abs().max().item())
+    assert torch.equal(got, ref.count_sketch_tiled_ref(xb, h, s, J))
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 9000, 300), (2, 8, 60_000, 100_000)])
+def test_count_sketch_kernel_ignores_entries_past_J(card, shape):
+    """Entries with h >= J (in both branches) contribute nothing: the same
+    as the plain version with those entries' x zeroed."""
+    D, B, I, J = shape
+    x, h, s = _cs_inputs(D, B, I, J, card, seed=7)
+    h[:, ::7] = J + torch.arange(0, I, 7, device=card, dtype=torch.int32)
+    got = count_sketch(x, h, s, J)
+    keep = h < J
+    want = torch.stack([ref.count_sketch_ref(x * keep[d], h[d].clamp(max=J - 1),
+                                             s[d], J) for d in range(D)])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, ref.count_sketch_tiled_ref(x, h, s, J))
 
 
 # (D, B, I, J, y per repetition): the six reference shapes, the FCS
-# tiuu's lookup at Fig. 1 and a reduced Fig. 5 decompress
+# tiuu's lookup at Fig. 1, a reduced Fig. 5 decompress, ragged I
 UNSKETCH_SHAPES = [(0, 1, 64, 32, False), (0, 4, 1000, 256, False),
                    (0, 2, 300, 64, False), (0, 8, 4096, 512, False),
                    (0, 1, 50, 300, False), (0, 3, 128, 128, False),
                    (2, 15, 100, 29_998, True), (20, 1, 120_000, 60_000, True),
-                   (3, 2, 500, 70, False)]
+                   (3, 2, 500, 70, False), (3, 5, 1001, 70, True)]
 
 
 @pytest.mark.parametrize("shape", UNSKETCH_SHAPES)
@@ -478,18 +505,40 @@ def test_unsketch_kernel_equals_plain_version_bitwise(card, shape):
     assert torch.equal(got, want)
 
 
-def test_stacked_rows_equal_separate_launches(card):
+def test_unsketch_kernel_bf16_and_misaligned_tables(card):
+    """bf16 y (vector stores of 4 bf16) and tables at an offset that is
+    not 16-byte aligned (scalar loads): bitwise the plain version, for
+    B > 1 rows read from one set of tables."""
+    _, h, s = _cs_inputs(3, 6, 4097, 500, card, seed=8)
+    y = torch.randn((3, 6, 500), device=card).to(torch.bfloat16)
+    got = unsketch(y, h[:, :4096].contiguous(), s[:, :4096].contiguous())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ref.unsketch_ref(y, h[:, :4096], s[:, :4096]))
+    hv, sv = h.reshape(-1)[1:4097], s.reshape(-1)[1:4097]    # offset 4 B
+    y2 = y[0].float().contiguous()
+    assert torch.equal(unsketch(y2, hv, sv), ref.unsketch_ref(y2, hv, sv))
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 2000, 300), (2, 25, 64_000, 1000),
+                                   (2, 1, 200_000, 10_000),
+                                   (2, 8, 60_000, 100_000)])
+def test_stacked_rows_equal_separate_launches(card, shape):
     """D stacked hash rows in one launch equal D one-row launches bitwise
-    (each output is the same sum in the same order)."""
-    x, h, s = _cs_inputs(3, 5, 2000, 300, card, seed=4)
-    stacked = count_sketch_op(x, h, s, 300)
+    (each output is the same sum in the same order: the chunks of I
+    depend on B, I and J only)."""
+    D, B, I, J = shape
+    x, h, s = _cs_inputs(D, B, I, J, card, seed=4)
+    stacked = count_sketch_op(x, h, s, J)
     y = stacked.contiguous()
     looked = unsketch_op(y, h, s)
-    for d in range(3):
-        assert torch.equal(stacked[d], count_sketch_op(x, h[d], s[d], 300))
+    for d in range(D):
+        assert torch.equal(stacked[d], count_sketch_op(x, h[d], s[d], J))
         assert torch.equal(looked[d], unsketch_op(y[d], h[d], s[d]))
+    assert plan(D, B, I, J, 4).chunks == plan(1, B, I, J, 4).chunks
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        count_sketch(x.double(), h, s, 300)
+        count_sketch(x.double(), h, s, J)
+    with pytest.raises(ValueError, match="int16 bucket links"):
+        count_sketch(x, h, s, J, bucket_links(h, s, J).int())
     with pytest.raises(ValueError, match="int32"):
         unsketch(y, h.long(), s)
 
