@@ -15,9 +15,13 @@ Phases (one line each; any failure exits non-zero):
                  splits), two launches held bitwise equal, kernel / plain
                  / library (SDPA yardstick) times and the bandwidth
                  bound; sketch_update vs its plain version at
-                 the reference's four kernel shapes and one yi-9b w_gate
-                 layer piece whose indices pass 2^31, with kernel / plain
-                 times and the bandwidth bound
+                 the reference's four kernel shapes, one yi-9b w_gate
+                 layer piece whose indices pass 2^31 and the whole
+                 48-piece w_gate leaf in one call: the estimates form's
+                 tables and estimates, the fused form's tables, and its
+                 params bitwise the plain path's from the same tables,
+                 with both forms' times by kernel, the plain time and
+                 the bounds
      kv        — tail_fold and tail_scores vs their plain versions at the
                  8k serve shapes (decode-chunk fold, prefill fold-through,
                  decode and chunked-prefill scores) and reduced shapes
@@ -62,7 +66,10 @@ Phases (one line each; any failure exits non-zero):
                  tokens with sketched AdamW (ratio 4, rows 3) through
                  train/loop.py; losses finite, sketch_update launched,
                  step 1's norm1 tables and params checked in situ against
-                 the plain version from the step's own gradient
+                 the plain version from the step's own gradient (the
+                 params bitwise from the kernel's tables); one profiled
+                 step split by kernel, sketch_update's per step against
+                 its bound
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -84,6 +91,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor rate
 F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor rate
 SEED = 0
 
 
@@ -284,10 +292,12 @@ def phase_kernel(flush):
     return rows
 
 
-# name: (n, C, R, offset, gradient dtype).  The reference's four kernel
-# shapes (tests/test_sketch_opt.py), then one layer piece of yi-9b's
+# name: (n, C, R, offset, gradient dtype[, pieces]).  The reference's four
+# kernel shapes (tests/test_sketch_opt.py), then one layer piece of yi-9b's
 # w_gate leaf (48 x 4096 x 11008; ratio 4, rows 3 -> C = 180,355,072):
-# layer 47 at offset 47 * n, so its indices run to 2,164,260,863 > 2^31
+# layer 47 at offset 47 * n, so its indices run to 2,164,260,863 > 2^31;
+# last the whole leaf, its 48 layer pieces in one call (13 groups of the
+# accumulate), as the train step makes it
 SKETCH_GEOMETRIES = {
     "ref_1000": (1000, 300, 3, 0, torch.float32),
     "ref_4096": (4096, 512, 3, 0, torch.float32),
@@ -295,14 +305,39 @@ SKETCH_GEOMETRIES = {
     "ref_8192": (8192, 640, 2, 0, torch.float32),
     "yi9b_w_gate_layer47": (45_088_768, 180_355_072, 3, 47 * 45_088_768,
                             torch.bfloat16),
+    "yi9b_w_gate_leaf": (45_088_768, 180_355_072, 3, 0, torch.bfloat16, 48),
 }
 SKETCH_MAIN = "yi9b_w_gate_layer47"
 B1, B2 = 0.9, 0.95
+ADAMW = dict(lr=3e-4, eps=1e-8, weight_decay=0.01, bc1=0.1, bc2=0.05)
+# the kernels of csrc/sketch_update.cu
+SKETCH_KERNELS = ("bin_count_kernel", "bin_scan_kernel", "bin_offsets_kernel",
+                  "bin_scatter_kernel", "slab_add_kernel", "apply_kernel",
+                  "retrieve_kernel")
+
+
+def sketch_kernel(name):
+    """The sketch_update kernel a profiler record names, or None."""
+    for k in SKETCH_KERNELS:
+        if f"::{k}<" in name or f"::{k}(" in name:
+            return k
+    return None
+
+
+def sketch_split(parts):
+    """{sketch_update kernel: ms} of a device_ms parts dict."""
+    out = {}
+    for name, ms in parts.items():
+        k = sketch_kernel(name)
+        if k is not None:
+            out[k] = out.get(k, 0.0) + ms
+    return out
 
 
 def close_to(got, want, what):
-    """rtol 1e-5 and atol 1e-5 x max|want| (f32 atomics add in a varying
-    order; see csrc/sketch_update.cu).  Returns max |got - want|."""
+    """rtol 1e-5 and atol 1e-5 x max|want| (f32 shared-memory atomics add
+    in a varying order; see csrc/sketch_update.cu).  Returns max |got -
+    want|."""
     err = (got - want).abs().max().item()
     tol = 1e-5 * want.abs().max().item()
     bad = ((got - want).abs() > tol + 1e-5 * want.abs()).sum().item()
@@ -311,68 +346,134 @@ def close_to(got, want, what):
     return err
 
 
-def phase_sketch_kernel(flush):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.sketch_update import sketch_update
+def sketch_inputs(geo, dev, seed):
+    """Pieces (g, offset), tables and coefficients of one geometry."""
+    n, C, R, off, dt = geo[:5]
+    npieces = geo[5] if len(geo) > 5 else 1
+    gen = torch.Generator(dev).manual_seed(seed)
+    pieces = [(torch.randn(n, generator=gen, device=dev).to(dt),
+               off + k * n) for k in range(npieces)]
+    m0 = torch.randn((R, C), generator=gen, device=dev)
+    v0 = torch.randn((R, C), generator=gen, device=dev).abs_()
     from repro_torch.sketch.hashing import cached_coeffs
+    cm = cached_coeffs(n + 3, R, device=dev)
+    cv = cached_coeffs(n + 4, R, device=dev)
+    return pieces, m0, v0, cm, cv
+
+
+def phase_sketch_kernel(flush):
+    """sketch_update at each geometry: the estimates form (tables and
+    every piece's estimates vs the plain version) and the fused form
+    (tables vs the plain version; from the tables it made, params bitwise
+    the plain path's), then both forms timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sketch_update import (entry_bytes, plan_groups,
+                                                   sketch_apply,
+                                                   sketch_update)
     dev = flush.device
     rows = {}
-    for gi, (name, (n, C, R, off, dt)) in enumerate(
-            SKETCH_GEOMETRIES.items()):
-        gen = torch.Generator(dev).manual_seed(SEED + gi)
-        g = torch.randn(n, generator=gen, device=dev).to(dt)
-        m0 = torch.randn((R, C), generator=gen, device=dev)
-        v0 = torch.randn((R, C), generator=gen, device=dev).abs_()
-        cm = cached_coeffs(n + 3, R, device=dev)
-        cv = cached_coeffs(n + 4, R, device=dev)
+    for gi, (name, geo) in enumerate(SKETCH_GEOMETRIES.items()):
+        n, C, R, off, dt = geo[:5]
+        pieces, m0, v0, cm, cv = sketch_inputs(geo, dev, SEED + gi)
+        P = len(pieces)
+        groups = len(plan_groups([n] * P, R, entry_bytes(dt)))
+        # estimates form
         km, kv = m0.clone(), v0.clone()
-        [(mh, vh)] = sketch_update([(g, off)], km, kv, cm, cv, b1=B1, b2=B2)
-        torch.cuda.synchronize()
-        rm, rv, rmh, rvh = ref.sketch_update_ref(g, m0, v0, cm, cv, B1, B2,
-                                                 offset=off)
+        est = sketch_update(pieces, km, kv, cm, cv, b1=B1, b2=B2)
+        rm, rv = ref.sketch_accumulate_ref(pieces, m0, v0, cm, cv, B1, B2)
         err = max(close_to(km, rm, f"sketch_update {name} new_m"),
                   close_to(kv, rv, f"sketch_update {name} new_v"))
+        for (g, o), (mh, vh) in zip(pieces, est):
+            rmh, rvh = ref.sketch_retrieve_ref(n, o, rm, rv, cm, cv)
+            err = max(err, close_to(mh, rmh, f"sketch_update {name} m_hat"),
+                      close_to(vh, rvh, f"sketch_update {name} v_hat"))
+            del mh, vh, rmh, rvh
+        del km, kv
+        torch.cuda.empty_cache()
+        # fused form: tables as above, params bitwise the plain path's
+        # from the tables the kernel made
+        gen = torch.Generator(dev).manual_seed(SEED + 40 + gi)
+        params = [torch.randn(n, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(P)]
+        start = [p.clone() for p in params]
+        fm, fv = m0.clone(), v0.clone()
+        sketch_apply(pieces, params, fm, fv, cm, cv, b1=B1, b2=B2, **ADAMW)
+        err = max(err, close_to(fm, rm, f"sketch_apply {name} new_m"),
+                  close_to(fv, rv, f"sketch_apply {name} new_v"))
         del rm, rv
-        err = max(err, close_to(mh, rmh, f"sketch_update {name} m_hat"),
-                  close_to(vh, rvh, f"sketch_update {name} v_hat"))
-        del rmh, rvh, mh, vh
+        for (g, o), p, want in zip(pieces, params, start):
+            mh, vh = ref.sketch_retrieve_ref(n, o, fm, fv, cm, cv)
+            ref.sketched_leaf_update(want, mh, vh, **ADAMW)
+            if not torch.equal(p, want):
+                fail(f"sketch_apply {name}: params at offset {o} differ "
+                     f"from the plain path's given the same tables, max "
+                     f"{(p.float() - want.float()).abs().max().item()}")
+            del mh, vh
+        del start, fm, fv
         torch.cuda.empty_cache()
-        reps = 5 if n > 1 << 20 else 50
+        reps = 2 if P > 1 else 5 if n > 1 << 20 else 50
+        km, kv = m0.clone(), v0.clone()
         kernel_ms, parts, _ = device_ms(
-            lambda: list(sketch_update([(g, off)], km, kv, cm, cv, b1=B1,
-                                       b2=B2)), reps, flush)
-        kernel_only = sum(v for k, v in parts.items() if any(
-            f in k for f in ("scale_kernel", "accumulate_kernel",
-                             "retrieve_kernel")))
-        plain_ms = device_ms(lambda: ref.sketch_update_ref(
-            g, m0, v0, cm, cv, B1, B2, offset=off), 3 if reps == 5 else 10,
-            flush)[0]
+            lambda: [None for _ in sketch_update(pieces, km, kv, cm, cv,
+                                                 b1=B1, b2=B2)], reps, flush)
+        apply_ms, aparts, _ = device_ms(
+            lambda: sketch_apply(pieces, params, km, kv, cm, cv, b1=B1,
+                                 b2=B2, **ADAMW), reps, flush)
+        del km, kv
         torch.cuda.empty_cache()
-        # bytes: g once, each table read and written once, m_hat and
-        # v_hat written once, the coefficients read once
-        nbytes = (n * g.element_size() + 2 * 2 * R * C * 4 + 2 * n * 4
+        split = sketch_split(parts)
+        asplit = sketch_split(aparts)
+        if P == 1:
+            g, o = pieces[0]
+            plain_ms = device_ms(lambda: ref.sketch_update_ref(
+                g, m0, v0, cm, cv, B1, B2, offset=o), 3 if reps == 5 else 10,
+                flush)[0]
+            plain_what = "sketch_update_ref"
+        else:
+            plain_ms = device_ms(lambda: ref.sketch_apply_ref(
+                pieces, params, m0, v0, cm, cv, b1=B1, b2=B2, **ADAMW), 1,
+                flush)[0]
+            plain_what = "sketch_apply_ref, in place"
+        del params
+        torch.cuda.empty_cache()
+        # bytes of the estimates form: g once, each table read and written
+        # once (the scale counted once for the leaf), m_hat and v_hat
+        # written once, the coefficients read once; of the fused form: g
+        # once, the tables read and written once, the bf16 params read
+        # and written once
+        N = n * P
+        nbytes = (N * dt.itemsize + 2 * 2 * R * C * 4 + 2 * N * 4
                   + 2 * R * 4 * 4)
+        abytes = N * dt.itemsize + 2 * 2 * R * C * 4 + 2 * N * 2
         # f32 operations on these inputs: (1-b1)g, g^2, (1-b2)g^2; R adds
         # per table into the tables; 2 R C table scalings; the median
         # network's R(R-1)/2 compare pairs and the min's R-1 (the hashes
         # are integer work, for which the table of peaks has no rate)
-        flops = n * (3 + 2 * R + R * (R - 1) + (R - 1)) + 2 * R * C
+        flops = N * (3 + 2 * R + R * (R - 1) + (R - 1)) + 2 * R * C
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
+        a_bound = max(abytes / HBM_BYTES_PER_S * 1e3, t_ops)
         rows[name] = dict(
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
+            apply_ms=apply_ms, apply_bound_ms=a_bound,
             max_abs_err=err, bytes=nbytes, flops=flops)
-        print(f"[kernel] sketch_update {name} (n={n}, C={C}, R={R}, "
-              f"offset={off}, g {str(dt)[6:]}): max|err| {err:.3e} "
-              f"(tol 1e-5 x max|ref| + 1e-5 rel; tables and estimates) "
-              f"kernel_ms={kernel_ms:.5f} (kernels alone "
-              f"{kernel_only:.5f}, the rest is the coefficient cast) "
-              f"plain_ms={plain_ms:.5f} library_ms=null (no single "
-              f"PyTorch call computes it) bound_ms={max(t_bytes, t_ops):.6f}"
-              f" ({nbytes} B, {flops} f32 flop)")
-        del g, m0, v0, km, kv
+        print(f"[kernel] sketch_update {name} (n={n} x {P} pieces, C={C}, "
+              f"R={R}, offset={off}, g {str(dt)[6:]}, {groups} groups): "
+              f"max|err| {err:.3e} (tol 1e-5 x max|ref| + 1e-5 rel; tables "
+              f"and estimates); fused params bitwise the plain path's from "
+              f"the same tables; estimates form kernel_ms={kernel_ms:.5f} ("
+              + ", ".join(f"{k} {v:.5f}" for k, v in split.items())
+              + f"; the rest {max(0.0, kernel_ms - sum(split.values())):.5f})"
+              f" "
+              f"bound_ms={max(t_bytes, t_ops):.6f} ({nbytes} B, {flops} f32 "
+              f"flop); fused form apply_ms={apply_ms:.5f} ("
+              + ", ".join(f"{k} {v:.5f}" for k, v in asplit.items())
+              + f") bound_ms={a_bound:.6f} ({abytes} B); plain_ms="
+              f"{plain_ms:.5f} ({plain_what}) library_ms=null (no single "
+              f"PyTorch call computes it)")
+        del pieces, m0, v0
         torch.cuda.empty_cache()
     return rows
 
@@ -509,13 +610,14 @@ def phase_kv_kernels(flush):
         sel = sum(v for k, v in parts.items() if "select" in k)
         plain_ms = device_ms(lambda: ref.tail_scores_ref(q, tk, cf, T), 10,
                              flush)[0]
-        # bytes: q and tail_k read once, the estimates written once; f32
-        # operations: the bucket products (the gathers and medians are
-        # compares and moves)
+        # bytes: q and tail_k read once, the estimates written once;
+        # operations: the bucket products on the tensor cores in 3xTF32,
+        # three TF32 products for each f32 one (the gathers and medians
+        # are compares and moves)
         nbytes = (q.numel() + tk.numel() + B * K * N * T) * 4 + Z * 16
         flops = 2 * B * K * Z * N * C * hd
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
+        t_ops = 3 * flops / TF32_FLOPS * 1e3
         score_rows[name] = dict(
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
             bound_ms=max(t_bytes, t_ops),
@@ -524,10 +626,13 @@ def phase_kv_kernels(flush):
         print(f"[kernel] tail_scores {name} (B={B}, K={K}, N={N}, hd={hd}, "
               f"Z={Z}, C={C}, T={T}): max|err| {err:.3e} (tol 1e-4 x "
               f"max|est| = {tol:.3e}) kernel_ms={kernel_ms:.5f} (products "
-              f"{prod:.5f}, select {sel:.5f}, the rest is the coefficient "
-              f"cast) plain_ms={plain_ms:.5f} library_ms=null (no single "
+              f"{prod:.5f}, select {sel:.5f}, other kernels "
+              f"{max(0.0, kernel_ms - prod - sel):.5f}) plain_ms="
+              f"{plain_ms:.5f} "
+              f"library_ms=null (no single "
               f"PyTorch call computes it) bound_ms={max(t_bytes, t_ops):.6f}"
-              f" ({nbytes} B, {flops} f32 flop)")
+              f" ({nbytes} B, {flops} flop in 3xTF32 at "
+              f"{TF32_FLOPS:.3g}/s)")
         del q, tk
         torch.cuda.empty_cache()
     return fold_rows, score_rows
@@ -1374,17 +1479,19 @@ def phase_long_serve(cfg, params, dev):
 # ---------------------------------------------------------------------------
 
 
-SKETCH_KERNELS = ("scale_kernel", "accumulate_kernel", "retrieve_kernel")
-
-
 class TrainProbe:
     """``train(on_grads=...)`` hook.  In-situ check: at step 0 it copies
     the stacked ``blocks/norm1`` leaf's gradient, params and pre-step
     tables; at step 1, before that step's update, it holds the tables and
     params the kernel path produced against the plain version run on the
-    copies.  Breakdown: from the hook of step 2 to the hook of step 3 (one
-    step's work: step 2's optimizer, then step 3's batch, forward and
-    backward) it runs the profiler and sums device time by kernel."""
+    copies, and the params bitwise against the plain path's from the
+    tables the kernel made.  Breakdown: from the hook of step 2 to the hook
+    of step 3 (one step's work: step 2's optimizer, then step 3's batch,
+    forward and backward) it runs the profiler and sums device time by
+    kernel, the sketch_update kernels by name.  ``bound`` is the
+    optimizer's least time a step for its sketched leaves: g, the tables
+    read and written, and the params read and written (the fused form) or
+    the estimates written (the estimates form), each once."""
 
     def __init__(self):
         self.saved = None
@@ -1392,9 +1499,14 @@ class TrainProbe:
         self.moment_bytes = None
         self.prof = None
         self.breakdown = None
+        self.bound = None
+        self.sketch_ms = None
+        self.mem = []           # (allocated, peak so far) at each hook
 
     def __call__(self, step, params, grads, opt):
         from torch.profiler import ProfilerActivity, profile
+        self.mem.append((torch.cuda.memory_allocated(),
+                         torch.cuda.max_memory_allocated()))
         if step == 2:
             torch.cuda.synchronize()
             self.prof = profile(activities=[ProfilerActivity.CPU,
@@ -1405,41 +1517,70 @@ class TrainProbe:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - self.t0) * 1e3
             self.prof.__exit__(None, None, None)
-            by_name = {}
-            for e in self.prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    by_name[e.name] = (by_name.get(e.name, 0.0)
-                                       + e.time_range.elapsed_us() / 1e3)
+            events = sorted(
+                (e for e in self.prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
             self.prof = None
+            by_name = {}
+            for e in events:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3)
             busy = sum(by_name.values())
             if busy <= 0:
                 fail("the profiler recorded no device time in the train "
                      "step")
-            sk = sum(v for k, v in by_name.items()
-                     if any(f in k for f in SKETCH_KERNELS))
+            split = sketch_split(by_name)
+            sk = sum(split.values())
             gemm = sum(v for k, v in by_name.items()
                        if any(f in k.lower() for f in (
                            "gemm", "xmma", "cutlass", "nvjet")))
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            # the optimizer's span: from the window's start (step 2's
+            # update follows the hook) to the end of the last
+            # sketch_update kernel; what else runs in it is the dense
+            # leaves' and (per-piece form) the elementwise AdamW math and
+            # the coefficient casts
+            last = max((i for i, e in enumerate(events)
+                        if sketch_kernel(e.name)), default=-1)
+            span = events[:last + 1]
+            opt_ms = sum(e.time_range.elapsed_us() for e in span) / 1e3
+            self.sketch_ms = sk
             self.breakdown = (
                 f"one step under the profiler (step 2's optimizer + step "
                 f"3's forward/backward): wall {wall:.3f} ms, device busy "
                 f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle); "
                 f"sketch_update kernels {sk:.3f} ms "
-                f"({100 * sk / busy:.1f}% of busy), GEMMs {gemm:.3f} ms "
+                f"({100 * sk / busy:.1f}% of busy: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"), GEMMs {gemm:.3f} ms "
                 f"({100 * gemm / busy:.1f}%), other {busy - sk - gemm:.3f} "
-                f"ms; top kernels "
+                f"ms; the optimizer's span {opt_ms:.3f} ms on the device "
+                f"({len(span)} kernels), of which not sketch_update "
+                f"{opt_ms - sk:.3f} ms; top kernels "
                 + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
         from repro_torch.kernels import ref
         from repro_torch.models.transformer import param_leaves
-        from repro_torch.sketch.optimizer import (moment_state_bytes,
-                                                  sketched_leaf_update)
+        from repro_torch.sketch.optimizer import moment_state_bytes
         from repro_torch.train.optimizer import bias_corrections
         names = [n for n, _ in param_leaves(params)]
         i = names.index("blocks/norm1")
         mo = opt.moments[i]
         if step == 0:
             self.moment_bytes = moment_state_bytes(opt)
+            fused = est = 0
+            for (_, ps), (_, gs), m in zip(param_leaves(params),
+                                           param_leaves(grads), opt.moments):
+                if not hasattr(m.m, "table"):
+                    continue
+                n = sum(p.numel() for p in ps)
+                common = (sum(g.numel() * g.element_size() for g in gs)
+                          + 2 * 2 * m.m.table.numel() * 4)
+                fused += common + 2 * sum(p.numel() * p.element_size()
+                                          for p in ps)
+                est += common + 2 * n * 4
+            self.bound = (fused / HBM_BYTES_PER_S * 1e3,
+                          est / HBM_BYTES_PER_S * 1e3)
             self.saved = dict(
                 g=[t.clone() for t in param_leaves(grads)[i][1]],
                 p=[t.clone() for t in param_leaves(params)[i][1]],
@@ -1453,12 +1594,27 @@ class TrainProbe:
         new_m, new_v = ref.sketch_accumulate_ref(
             pieces, sv["m"], sv["v"], mo.m.coeffs, mo.v.coeffs, B1, B2)
         bc1, bc2 = bias_corrections(B1, B2, 1)
+        # from the tables the kernel made, the plain path's params bitwise
+        # (before the loop below updates the saved params in place)
+        same = []
+        for p, now, (g, o) in zip(sv["p"], param_leaves(params)[i][1],
+                                  pieces):
+            mh, vh = ref.sketch_retrieve_ref(g.numel(), o, mo.m.table,
+                                             mo.v.table, mo.m.coeffs,
+                                             mo.v.coeffs)
+            q = p.clone()
+            ref.sketched_leaf_update(q, mh, vh, lr=TRAIN["lr"], eps=1e-8,
+                                     weight_decay=0.01, bc1=bc1, bc2=bc2)
+            same.append(torch.equal(q, now))
+        if not all(same):
+            fail(f"in-situ norm1 params: {same.count(False)} pieces differ "
+                 f"from the plain path's given the kernel's tables")
         want_p = []
         for p, (g, o) in zip(sv["p"], pieces):
             mh, vh = ref.sketch_retrieve_ref(g.numel(), o, new_m, new_v,
                                              mo.m.coeffs, mo.v.coeffs)
-            sketched_leaf_update(p, mh, vh, lr=TRAIN["lr"], eps=1e-8,
-                                 weight_decay=0.01, bc1=bc1, bc2=bc2)
+            ref.sketched_leaf_update(p, mh, vh, lr=TRAIN["lr"], eps=1e-8,
+                                     weight_decay=0.01, bc1=bc1, bc2=bc2)
             want_p.append(p)
         err_t = max(close_to(mo.m.table, new_m, "in-situ norm1 m table"),
                     close_to(mo.v.table, new_v, "in-situ norm1 v table"))
@@ -1472,7 +1628,9 @@ class TrainProbe:
         self.report = (f"in-situ step-1 norm1 ({len(pieces)} pieces of "
                        f"{sv['g'][0].numel()}, tables {tuple(new_m.shape)})"
                        f" kernel vs plain: tables max|err| {err_t:.3e}, "
-                       f"params max|err| {err_p:.3e} (one bf16 ulp allowed)")
+                       f"params max|err| {err_p:.3e} (one bf16 ulp allowed);"
+                       f" from the kernel's tables the params bitwise the "
+                       f"plain path's")
         self.saved = None
 
 
@@ -1495,6 +1653,7 @@ def phase_train(dev):
     probe = TrainProbe()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     sketch_update.launches = 0              # count the main path alone
     paged_attention.launches = 0
     t0 = time.perf_counter()
@@ -1521,14 +1680,21 @@ def phase_train(dev):
           + ", ".join(f"{t * 1e3:.1f}" for t in hist.step_times)
           + f"; {wall:.2f}s for the run incl. init; [opt] sketched moments "
           f"{b['sketched']} B + {b['dense']} B dense leaves vs dense AdamW "
-          f"{8 * n_params} B; peak allocated {peak} B "
-          f"({peak / 2 ** 30:.2f} GiB) of the card's "
+          f"{8 * n_params} B; {start} B allocated at the start; peak "
+          f"allocated {peak} B ({peak / 2 ** 30:.2f} GiB; at the hook of "
+          f"step k, allocated / peak so far: "
+          + ", ".join(f"{a} / {p}" for a, p in probe.mem)
+          + f") of the card's "
           f"{torch.cuda.get_device_properties(0).total_memory} B; "
           f"sketch_update launches {launches} "
           f"({launches // TRAIN['steps']} per step), paged_attention "
           f"launches {paged_attention.launches}; {card()}")
     print(f"[train] {probe.report}")
     print(f"[train] {probe.breakdown}")
+    print(f"[train] sketch_update per step: {probe.sketch_ms:.3f} ms on the "
+          f"device in the profiled step, {launches // TRAIN['steps']} "
+          f"launches; bound {probe.bound[0]:.3f} ms (fused form; "
+          f"{probe.bound[1]:.3f} ms with the estimates written); {card()}")
     return launches
 
 
@@ -1553,11 +1719,19 @@ def main() -> None:
           f"{card()}")
 
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    def held(after):
+        before = torch.cuda.memory_allocated()
+        gc.collect()
+        print(f"[mem] after {after}: {before} B allocated, "
+              f"{torch.cuda.memory_allocated()} B after gc.collect()")
+
     rows = phase_kernel(flush)
     sk_rows = phase_sketch_kernel(flush)
     fold_rows, score_rows = phase_kv_kernels(flush)
     cs_rows, un_rows = phase_cs_kernels(flush)
+    held("the kernel phases (the 256 MB flush buffer held)")
     cpd_launches = phase_cpd(dev)
+    held("cpd")
 
     cfg = get_config("gemma-2b")
     params = tf.init_params(cfg, seed=SEED, device=dev)
@@ -1567,8 +1741,8 @@ def main() -> None:
     launches = phase_serve(cfg, params, dev, gap)
     long_launches = phase_long_serve(cfg, params, dev)
     del params                               # free gemma-2b for training
-    gc.collect()
     torch.cuda.empty_cache()
+    held("serve and long, gemma-2b freed")
     sk_launches = phase_train(dev)
 
     d = rows["decode"]
@@ -1589,7 +1763,10 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in sk_rows.values()),
         "ms": sk["kernel_ms"], "plain_ms": sk["plain_ms"],
         "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None,
+        # ms, plain_ms and bound_ms are the estimates form's (the plain
+        # version's contract); the train path runs the fused form
+        "apply_ms": sk["apply_ms"], "apply_bound_ms": sk["apply_bound_ms"]}]}
     for name, main, geo, replaces in (
             ("tail_fold", "decode_fold", fold_rows,
              "src/repro/kernels/kv_sketch.py:90"),

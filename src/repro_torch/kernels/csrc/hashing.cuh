@@ -28,6 +28,39 @@ __device__ __forceinline__ uint32_t bucket(uint32_t a, uint32_t b,
   return mix32(a * u + b) % C;
 }
 
+// Division by an invariant 32-bit divisor d >= 1 as a multiply-high and
+// shifts (Granlund and Montgomery, "Division by invariant integers using
+// multiplication", 1994, fig. 4.1): exact for every 32-bit n.  A
+// variable % compiles to a ~20-instruction sequence; the sketch kernels
+// take a bucket modulo the table width for every element and row.
+struct Divisor {
+  uint32_t d, m;
+  int s1, s2;
+};
+
+__host__ __device__ inline Divisor make_divisor(uint32_t d) {
+  int l = 0;
+  while (l < 32 && (1ull << l) < d) ++l;          // ceil(log2 d)
+  Divisor D;
+  D.d = d;
+  D.m = (uint32_t)((((1ull << l) - d) << 32) / d + 1);
+  D.s1 = l < 1 ? l : 1;
+  D.s2 = l > 1 ? l - 1 : 0;
+  return D;
+}
+
+__device__ __forceinline__ uint32_t mod(uint32_t n, const Divisor& D) {
+  const uint32_t t = __umulhi(D.m, n);
+  const uint32_t q = (t + ((n - t) >> D.s1)) >> D.s2;
+  return n - q * D.d;
+}
+
+// bucket() with the width as a Divisor.
+__device__ __forceinline__ uint32_t bucket(uint32_t a, uint32_t b,
+                                           uint32_t u, const Divisor& C) {
+  return mod(mix32(a * u + b), C);
+}
+
 // True when the sign of index u under coefficients (a, b) is -1.
 __device__ __forceinline__ bool negative(uint32_t a, uint32_t b,
                                          uint32_t u) {

@@ -15,7 +15,10 @@ tensor): its last three axes must be contiguous, its batch stride is free.
 estimates (B, K, N, T) f32 for queries q (B, K, N, hd) f32 against the
 key tables tail_k (B, Z, C, K, hd) f32, one kv head's tables for each of
 its query rows: ``out[b, k, n, t] = median_z s_z(t) * q[b, k, n] .
-tail_k[b, z, h_z(t), k]``.
+tail_k[b, z, h_z(t), k]``.  The bucket products run on the tensor cores
+in 3xTF32 (f32-level error), in decode tiles of 16 query rows x 64
+buckets when N <= 16 and 64 x 64 tiles otherwise; hd must be a multiple
+of 4.
 
 Both check what the kernels take and raise on anything else, allocate
 outputs and scratch, launch on the current stream and raise if a launch
@@ -31,10 +34,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sketch_update import _u32_bits
+from repro_torch.sketch.hashing import coeff_bits
 
 MAX_ROWS = 8                # Z instantiated in the select pass
 FOLD_COLS = 64              # kFoldCols: table columns per fold block
+SELECT_SMEM = 200 * 1024    # kSelSmem: a select block's staged products
 
 _c_int, _c_ll, _c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -120,7 +124,7 @@ def tail_fold(rows: torch.Tensor, positions: torch.Tensor,
     _rows_ok(Z, C, coeffs)
     if G == 0 or N == 0:
         return tail
-    cf = _u32_bits(coeffs)
+    cf = coeff_bits(coeffs)
     err = _lib().tail_fold_launch(
         rows.data_ptr(), int(rows.dtype == torch.bfloat16),
         positions.data_ptr(), counts.data_ptr(), tail.data_ptr(),
@@ -150,15 +154,23 @@ def tail_scores(q: torch.Tensor, tail_k: torch.Tensor, coeffs: torch.Tensor,
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
     _rows_ok(Z, C, coeffs)
+    if hd % 4 or q.data_ptr() % 16 or tail_k.data_ptr() % 16:
+        raise ValueError(f"the products copy 16 bytes at a time: hd ({hd}) "
+                         f"must be a multiple of 4 and q and tail_k 16-byte "
+                         f"aligned")
     T = int(T)
-    if B * K * Z > 65535 or -(-N // 16) > 65535 or T < 1:
+    if Z * C * 4 > SELECT_SMEM:
+        raise ValueError(f"the select stages a query row's {Z} x {C} "
+                         f"products in shared memory: at most "
+                         f"{SELECT_SMEM} bytes")
+    if B * K * Z > 65535 or -(-N // 8) > 65535 or T < 1:
         raise ValueError(f"grid out of range for B*K*Z={B * K * Z}, N={N}, "
                          f"T={T}")
     out = torch.empty((B, K, N, T), dtype=torch.float32, device=dev)
     if B * K * N == 0:
         return out
     prod = torch.empty((B * K, Z, N, C), dtype=torch.float32, device=dev)
-    cf = _u32_bits(coeffs)
+    cf = coeff_bits(coeffs)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on(lib.tail_scores_products_launch(

@@ -14,7 +14,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.count_sketch import Index, count_sketch, unsketch
 from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.sketch_update import sketch_update
+from repro_torch.kernels.sketch_update import sketch_apply, sketch_update
 
 
 def _resolve(use_kernel: Optional[bool], dev: torch.device,
@@ -67,6 +67,28 @@ def sketch_update_op(pieces: Sequence[Tuple[torch.Tensor, int]],
     return (ref.sketch_retrieve_ref(g.numel(), off, m_table, v_table,
                                     coeffs_m, coeffs_v)
             for g, off in pieces)
+
+
+def sketch_apply_op(pieces: Sequence[Tuple[torch.Tensor, int]],
+                    params: Sequence[torch.Tensor], m_table: torch.Tensor,
+                    v_table: torch.Tensor, coeffs_m: torch.Tensor,
+                    coeffs_v: torch.Tensor, *, b1: float, b2: float,
+                    lr: float, eps: float, weight_decay: float, bc1: float,
+                    bc2: float, use_kernel: Optional[bool] = None) -> None:
+    """The fused form of ``sketch_update_op``: updates both tables, then
+    takes the AdamW step of each param piece (``params[k]`` for
+    ``pieces[k]``) from its estimates, all in place
+    (kernels/sketch_update.py:sketch_apply; plain version
+    ``ref.sketch_apply_ref``).  ``use_kernel`` as for
+    ``paged_attention_op``, decided by the tables' device."""
+    kw = dict(b1=b1, b2=b2, lr=lr, eps=eps, weight_decay=weight_decay,
+              bc1=bc1, bc2=bc2)
+    if _resolve(use_kernel, m_table.device, "use_kernel"):
+        sketch_apply(pieces, params, m_table, v_table, coeffs_m, coeffs_v,
+                     **kw)
+    else:
+        ref.sketch_apply_ref(pieces, params, m_table, v_table, coeffs_m,
+                             coeffs_v, **kw)
 
 
 def tail_fold_op(rows: torch.Tensor, positions: torch.Tensor,

@@ -15,6 +15,9 @@ and count-min ``CSVec`` (sketch/csvec.py), whose median is the plain
 are its two halves over the pieces of one flat vector (element j of a
 piece at ``offset`` is coordinate ``offset + j``); they are what
 ``kernels/ops.py:sketch_update_op`` runs on CPU tensors.
+``sketch_apply_ref`` is the fused form's plain version: the two halves,
+then ``sketched_leaf_update`` (the AdamW step of one param piece from its
+estimates, the sketched optimizer's math) piece by piece.
 
 ``tail_fold_ref`` and ``tail_scores_ref`` are the sketched-KV tail fold
 and score estimates of ``repro/kernels/ref.py:kv_tail_fold_ref`` /
@@ -52,7 +55,8 @@ from repro_torch.sketch.hashing import row_buckets_signs
 
 __all__ = ["count_sketch_ref", "count_sketch_tiled_ref",
            "paged_attention_ref", "median_rows",
-           "sketch_accumulate_ref", "sketch_retrieve_ref",
+           "sketch_accumulate_ref", "sketch_apply_ref",
+           "sketch_retrieve_ref", "sketched_leaf_update",
            "sketch_update_ref", "tail_fold_ref", "tail_fold_rowwise_ref",
            "tail_scores_ref", "unsketch_ref"]
 
@@ -156,6 +160,43 @@ def sketch_update_ref(g: torch.Tensor, m_table: torch.Tensor,
     m_hat, v_hat = sketch_retrieve_ref(g.numel(), offset, new_m, new_v,
                                        coeffs_m, coeffs_v)
     return new_m, new_v, m_hat, v_hat
+
+
+def sketched_leaf_update(p: torch.Tensor, m_hat: torch.Tensor,
+                         v_hat: torch.Tensor, *, lr: float, eps: float,
+                         weight_decay: float, bc1: float,
+                         bc2: float) -> None:
+    """The AdamW step of one param (piece) from its moment estimates,
+    in place on p (the sketched optimizer's math)."""
+    mh = (m_hat / bc1).reshape(p.shape)
+    vh = (torch.clamp(v_hat, min=0.0) / bc2).reshape(p.shape)
+    delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(torch.float32)
+    del mh, vh
+    p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+
+
+def sketch_apply_ref(pieces: Iterable[Tuple[torch.Tensor, int]],
+                     params: Iterable[torch.Tensor], m_table: torch.Tensor,
+                     v_table: torch.Tensor, coeffs_m: torch.Tensor,
+                     coeffs_v: torch.Tensor, *, b1: float, b2: float,
+                     lr: float, eps: float, weight_decay: float, bc1: float,
+                     bc2: float) -> None:
+    """The fused form's plain version, in place on the tables and params:
+    ``sketch_accumulate_ref``, then per piece ``sketch_retrieve_ref`` and
+    ``sketched_leaf_update`` (each piece's estimates freed before the
+    next's are made)."""
+    pieces = list(pieces)
+    new_m, new_v = sketch_accumulate_ref(pieces, m_table, v_table, coeffs_m,
+                                         coeffs_v, b1, b2)
+    m_table.copy_(new_m)
+    v_table.copy_(new_v)
+    del new_m, new_v
+    for p, (g, off) in zip(params, pieces):
+        m_hat, v_hat = sketch_retrieve_ref(g.numel(), off, m_table, v_table,
+                                           coeffs_m, coeffs_v)
+        sketched_leaf_update(p, m_hat, v_hat, lr=lr, eps=eps,
+                             weight_decay=weight_decay, bc1=bc1, bc2=bc2)
+        del m_hat, v_hat
 
 
 def tail_fold_ref(rows: torch.Tensor, positions: torch.Tensor,

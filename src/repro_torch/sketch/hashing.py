@@ -79,7 +79,30 @@ def _cached_coeffs_np(seed: int, rows: int) -> np.ndarray:
     return make_coeffs(seed, rows)
 
 
+def coeff_bits(c: torch.Tensor) -> torch.Tensor:
+    """The int32 bits of (R, 4) uint32 coefficients, the form the CUDA
+    kernels read.  ``c`` holds them as int64 values in [0, 2^32) or is
+    already int32.  The bits are cast once and kept on the int64 tensor
+    (``_u32_bits``, with the tensor's version, so an in-place write such
+    as a checkpoint restore casts again): a table's coefficients are not
+    cast on each kernel call."""
+    if c.dtype == torch.int32:
+        return c.contiguous()
+    if c.dtype != torch.int64:
+        raise ValueError(f"coefficients must be int64 or int32, got "
+                         f"{c.dtype}")
+    version, bits = getattr(c, "_u32_bits", (None, None))
+    if version != c._version:
+        bits = torch.where(c >= 2 ** 31, c - 2 ** 32, c).to(
+            torch.int32).contiguous()
+        c._u32_bits = (c._version, bits)
+    return bits
+
+
 def cached_coeffs(seed: int, rows: int, device=None) -> torch.Tensor:
-    """Coefficients for (seed, rows) as an int64 tensor (cached host-side)."""
-    return torch.as_tensor(_cached_coeffs_np(int(seed), int(rows)).astype(
+    """Coefficients for (seed, rows) as an int64 tensor (cached host-side),
+    with their int32 bits beside them (``coeff_bits``)."""
+    c = torch.as_tensor(_cached_coeffs_np(int(seed), int(rows)).astype(
         np.int64), device=device)
+    coeff_bits(c)
+    return c

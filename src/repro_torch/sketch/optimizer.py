@@ -21,10 +21,13 @@ is coordinate ``l * numel_layer + j``).  Whether a leaf is sketched, its
 columns (``_cols_for``) and its hash seeds (``_leaf_seed(seed, 2i)`` and
 ``2i + 1``) come from the stacked leaf, so the port's tables equal the
 reference's for the same gradients.  Per leaf and step the update is one
-``sketch_update_op`` call (the CUDA kernel on the card): every piece is
-accumulated before any is estimated, and each piece's estimates are
-applied and freed before the next piece's are made; the stacked gradient
-is never concatenated.
+``sketch_apply_op`` call: every piece is accumulated before any is
+estimated, and the stacked gradient is never concatenated.  On the card
+that is the fused form of the ``sketch_update`` kernels (the tables
+updated slab by slab, then one launch that gathers each element's
+estimates and takes its AdamW step, m_hat and v_hat never in memory); on
+the CPU the plain version applies and frees each piece's estimates
+before the next piece's are made.
 
 Params and moments are updated in place (the reference returned new
 pytrees).  Sketched Adagrad is not reached by ``make_optimizer`` and is
@@ -37,7 +40,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels.ops import sketch_update_op
+from repro_torch.kernels.ops import sketch_apply_op
 from repro_torch.models.transformer import Params, param_leaves
 from repro_torch.sketch.csvec import CSVec, csvec_zeros, state_bytes
 from repro_torch.train.optimizer import adamw_leaf_update, bias_corrections
@@ -122,28 +125,11 @@ def sketched_adamw_update(grads: Params, state: SketchedAdamWState,
         for g in gs:
             pieces.append((g.reshape(-1), off))
             off += g.numel()
-        est = sketch_update_op(pieces, mo.m.table, mo.v.table, mo.m.coeffs,
-                               mo.v.coeffs, b1=b1, b2=b2,
-                               use_kernel=use_kernel)
-        for p, (m_hat, v_hat) in zip(ps, est):
-            sketched_leaf_update(p, m_hat, v_hat, lr=lr, eps=eps,
-                                 weight_decay=weight_decay, bc1=bc1,
-                                 bc2=bc2)
-            del m_hat, v_hat    # before the next piece's are made
+        sketch_apply_op(pieces, ps, mo.m.table, mo.v.table, mo.m.coeffs,
+                        mo.v.coeffs, b1=b1, b2=b2, lr=lr, eps=eps,
+                        weight_decay=weight_decay, bc1=bc1, bc2=bc2,
+                        use_kernel=use_kernel)
     return params, state
-
-
-def sketched_leaf_update(p: torch.Tensor, m_hat: torch.Tensor,
-                         v_hat: torch.Tensor, *, lr: float, eps: float,
-                         weight_decay: float, bc1: float,
-                         bc2: float) -> None:
-    """The AdamW step of one param (piece) from its moment estimates,
-    in place on p."""
-    mh = (m_hat / bc1).reshape(p.shape)
-    vh = (torch.clamp(v_hat, min=0.0) / bc2).reshape(p.shape)
-    delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(torch.float32)
-    del mh, vh
-    p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
 
 
 def moment_state_bytes(state) -> dict:

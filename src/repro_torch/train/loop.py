@@ -3,8 +3,9 @@
   * checkpoint cadence with atomic writes and resume from LATEST (the data
     is stateless-seeded by step and the optimizer state is saved, so a
     resumed run on the CPU continues bit for bit; on the card the
-    ``sketch_update`` kernel's f32 atomics add in a varying order, so a
-    resumed sketched run agrees within that rounding);
+    ``sketch_update`` kernel's shared-memory f32 atomics add a slab's
+    entries in a varying order, so a resumed sketched run agrees within
+    that rounding);
   * a straggler monitor: steps slower than ``straggler_factor`` x the
     EMA of step wall time are logged and listed;
   * a loss-spike record: steps whose loss is above ``spike_factor`` x the

@@ -26,7 +26,9 @@ from repro_torch.kernels.ops import (count_sketch_op, sketch_update_op,
                                      tail_fold_op, tail_scores_op,
                                      unsketch_op)
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.sketch_update import sketch_update
+from repro_torch.kernels.sketch_update import (accumulate, entry_bytes,
+                                               plan_groups, sketch_apply,
+                                               sketch_update)
 from repro_torch.models import transformer as tf
 from repro_torch.serve.scheduler import Request, SlotScheduler
 from repro_torch.sketch.hashing import cached_coeffs
@@ -199,7 +201,8 @@ def _sketch_inputs(n, C, R, offset, dtype, dev, pieces=1):
 
 # (n, C, R, offset, dtype, pieces): the reference's four kernel shapes
 # (tests/test_sketch_opt.py), a bf16 gradient at an offset past 2^31
-# (a yi-9b FFN leaf's last layers), and three pieces of one vector
+# (a yi-9b FFN leaf's last layers), three pieces of one vector, and a
+# table row of several slabs (C past 2^15) in ragged pieces
 SKETCH_SHAPES = [
     (1000, 300, 3, 0, torch.float32, 1),
     (4096, 512, 3, 0, torch.float32, 1),
@@ -207,14 +210,22 @@ SKETCH_SHAPES = [
     (8192, 640, 2, 0, torch.float32, 1),
     (50_000, 4096, 3, 2_119_172_096, torch.bfloat16, 1),
     (30_000, 2048, 3, 7, torch.float32, 3),
+    (600_000, 100_000, 3, 5, torch.bfloat16, 5),
 ]
+
+
+def _groups(parts, R):
+    return plan_groups([g.numel() for g, _ in parts], R,
+                       entry_bytes(parts[0][0].dtype))
 
 
 @pytest.mark.parametrize("shape", SKETCH_SHAPES)
 def test_sketch_update_kernel_matches_plain_version(card, shape):
     """Tables and estimates within rtol 1e-5 and atol 1e-5 x max|table|:
-    f32 atomics add in a varying order, and the kernel scales each term
-    where the plain version scales the sum."""
+    shared-memory f32 atomics add a slab's entries in a varying order,
+    and the kernel scales each term where the plain version scales the
+    sum.  Launches: five a group of the accumulate, one retrieve a
+    piece."""
     n, C, R, offset, dtype, npieces = shape
     g, parts, mt, vt, cm, cv = _sketch_inputs(n, C, R, offset, dtype, card,
                                               npieces)
@@ -222,7 +233,8 @@ def test_sketch_update_kernel_matches_plain_version(card, shape):
     before = sketch_update.launches
     est = list(sketch_update(parts, km, kv, cm, cv, b1=0.9, b2=0.95))
     torch.cuda.synchronize()
-    assert sketch_update.launches == before + 1 + 2 * npieces
+    assert sketch_update.launches == before + 5 * len(_groups(parts, R)) \
+        + npieces
     new_m, new_v = ref.sketch_accumulate_ref(parts, mt, vt, cm, cv, 0.9,
                                              0.95)
     for got, want in ((km, new_m), (kv, new_v)):
@@ -235,6 +247,72 @@ def test_sketch_update_kernel_matches_plain_version(card, shape):
                                    atol=1e-5 * new_m.abs().max().item())
         torch.testing.assert_close(v_hat, rv, rtol=1e-5,
                                    atol=1e-5 * new_v.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", SKETCH_SHAPES)
+def test_sketch_apply_is_the_plain_path_given_equal_tables(card, shape):
+    """The fused apply: tables as the estimates form's (same tolerance),
+    and, from the tables it produced, params bitwise the plain path's
+    (sketch_retrieve_ref, then sketched_leaf_update) on the card."""
+    n, C, R, offset, dtype, npieces = shape
+    g, parts, mt, vt, cm, cv = _sketch_inputs(n, C, R, offset, dtype, card,
+                                              npieces)
+    rng = np.random.RandomState(7)
+    params = [torch.tensor(rng.randn(gp.numel()), dtype=torch.bfloat16,
+                           device=card) for gp, _ in parts]
+    want = [p.clone() for p in params]
+    km, kv = mt.clone(), vt.clone()
+    hyper = dict(lr=1e-2, eps=1e-8, weight_decay=0.01, bc1=0.1, bc2=0.05)
+    before = sketch_update.launches
+    sketch_apply(parts, params, km, kv, cm, cv, b1=0.9, b2=0.95, **hyper)
+    torch.cuda.synchronize()
+    assert sketch_update.launches == before + 5 * len(_groups(parts, R)) + 1
+    new_m, new_v = ref.sketch_accumulate_ref(parts, mt, vt, cm, cv, 0.9,
+                                             0.95)
+    for got, table in ((km, new_m), (kv, new_v)):
+        torch.testing.assert_close(got, table, rtol=1e-5,
+                                   atol=1e-5 * table.abs().max().item())
+    for p, (gp, off) in zip(want, parts):
+        mh, vh = ref.sketch_retrieve_ref(gp.numel(), off, km, kv, cm, cv)
+        ref.sketched_leaf_update(p, mh, vh, **hyper)
+    for got, p in zip(params, want):
+        assert torch.equal(got, p)
+
+
+def test_multi_piece_accumulate_equals_one_piece(card):
+    """Five ragged pieces in one accumulate (one group of five segments)
+    give the tables of the same vector as one piece, within the tables'
+    tolerance (the slab adds vary in order)."""
+    g, parts, mt, vt, cm, cv = _sketch_inputs(400_000, 70_000, 3, 9,
+                                              torch.bfloat16, card, 5)
+    am, av, bm, bv = mt.clone(), vt.clone(), mt.clone(), vt.clone()
+    accumulate(parts, am, av, cm, cv, b1=0.9, b2=0.95)
+    accumulate([(g, 9)], bm, bv, cm, cv, b1=0.9, b2=0.95)
+    for x, y in ((am, bm), (av, bv)):
+        torch.testing.assert_close(x, y, rtol=1e-5,
+                                   atol=1e-5 * y.abs().max().item())
+
+
+def test_accumulate_in_several_groups(card, monkeypatch):
+    """A work space too small for the vector: the groups (pieces cut
+    across them) give the plain version's tables, and the launches count
+    five a group."""
+    from repro_torch.kernels import sketch_update as su
+    g, parts, mt, vt, cm, cv = _sketch_inputs(90_000, 40_000, 3, 0,
+                                              torch.bfloat16, card, 2)
+    monkeypatch.setattr(su, "WORKSPACE_BYTES", 20_000 * 6 * 4)
+    groups = plan_groups([gp.numel() for gp, _ in parts], 3, 4,
+                         su.WORKSPACE_BYTES)
+    assert len(groups) == 5
+    km, kv = mt.clone(), vt.clone()
+    before = sketch_update.launches
+    accumulate(parts, km, kv, cm, cv, b1=0.9, b2=0.95)
+    assert sketch_update.launches == before + 5 * len(groups)
+    new_m, new_v = ref.sketch_accumulate_ref(parts, mt, vt, cm, cv, 0.9,
+                                             0.95)
+    for got, want in ((km, new_m), (kv, new_v)):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
 
 
 def test_sketched_optimizer_launches_the_kernel(card):
@@ -270,7 +348,7 @@ def test_sketch_update_op_sends_cuda_tensors_to_the_kernel(card):
                                               card)
     before = sketch_update.launches
     list(sketch_update_op(parts, mt, vt, cm, cv, b1=0.9, b2=0.95))
-    assert sketch_update.launches == before + 3
+    assert sketch_update.launches == before + 5 + 1
     with pytest.raises(ValueError, match="float32"):
         sketch_update(parts, mt.double(), vt, cm, cv, b1=0.9, b2=0.95)
 
@@ -366,6 +444,8 @@ SCORE_SHAPES = [
     (3, 1, 5, 40, 4, 32, 130),
     (8, 1, 8, 256, 3, 1024, 8192),
     (1, 1, 2048, 256, 3, 1024, 8192),
+    (2, 1, 16, 72, 3, 100, 300),        # the decode tile, full
+    (1, 2, 17, 36, 3, 70, 300),         # the prefill tile, ragged edges
 ]
 
 
