@@ -2,16 +2,19 @@
 the sources in this checkout, holds each against its plain version, runs
 the paper's sketched CP decompositions and codecs at the paper's sizes,
 checks the full-width model against its plain path, serves full-width
-gemma-2b (at 512 and, sketched, at 8k context) and trains full-width
-yi-9b through the port's main paths.
+gemma-2b (at 512, speculatively, and, sketched, at 8k context, plainly
+and speculatively) and trains full-width yi-9b through the port's main
+paths.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero):
   1. build     — nvcc for sm_90a, one process per source, all at once
   2. kernel    — paged attention vs its plain version at the decode and
-                 chunked-prefill geometries at max_seq 512 and 8192 and a
-                 reduced (hd=16) one, with its split plan (blocks,
+                 chunked-prefill geometries at max_seq 512 and 8192, a
+                 reduced (hd=16) one and the verify step at spec_k 4 and
+                 8 (each verify row also bitwise the Sq = 1 call at its
+                 position), with its split plan (blocks,
                  splits), two launches held bitwise equal, kernel / plain
                  / library (SDPA yardstick) times and the bandwidth
                  bound; sketch_update vs its plain version at
@@ -33,8 +36,12 @@ Phases (one line each; any failure exits non-zero):
                  reference's six shapes, a bf16 case and the cpd path's
                  shapes (the CS oracle's 100 x 1,000,000 sketch and its
                  1 x 1,000,000 sketch of vec(T), Fig. 5's 2,400,000-entry
-                 decompress, the FCS tiuu) and a J past the shared-memory
-                 accumulators, with the branch each took, kernel / plain
+                 decompress, the FCS tiuu), a J past the shared-memory
+                 accumulators and the speculative path's (the compressed
+                 draft's weight sketches and reconstructions at gemma-2b's
+                 leaf shapes, the sketched head's activation sketch, the
+                 one-chunk sketch of the tail span's softmax weights),
+                 with the branch each took, kernel / plain
                  / library (index_add_, index_select) times, the bound
                  and the bucket-link build time; count_sketch also held
                  bitwise to its tiled model and to a second launch
@@ -57,11 +64,26 @@ Phases (one line each; any failure exits non-zero):
   4. serve     — 16 requests through the async engine (the path
                  ServeEngine.generate wraps), launches counted, greedy
                  output checked against a teacher-forced recompute
+     spec      — full-width verify_step at spec_k 4 bitwise 5 decode
+                 steps; then the serve stream (and two whole-prompt
+                 prefix hits) through a plain engine and three spec
+                 engines (truncated draft of depth 2; that draft
+                 count-sketch-compressed at ratio 4 with the sketched
+                 head; per-request spec_k 0 / 4), each timed and rerun
+                 under the profiler for its idle share: greedy tokens
+                 bitwise the plain engine's, no leaks, copy-on-write
+                 forks, acceptance reported, the paged-attention,
+                 count_sketch and unsketch kernels launched
      long      — gemma-2b at max_seq 8192 with sketched KV (window 1024,
                  ratio 8, rows 3): 8 requests of 512 to 6144 prompt
                  tokens and 64 new each through a pool of half their
                  rows; every request completes, no block leaks, rows
-                 fold, and the tail kernels are launched on the path
+                 fold, and the tail kernels and the count sketch of the
+                 tail span's weights are launched on the path
+     long-spec — two of those prompts (2048, 4096 tokens) through a
+                 sketched plain engine and a sketched spec engine
+                 (spec_k 2): tokens bitwise equal, both pools fold, both
+                 tail kernels launched on the spec path
   5. train     — yi-9b at full width and depth, 4 steps of batch 8 x 128
                  tokens with sketched AdamW (ratio 4, rows 3) through
                  train/loop.py; losses finite, sketch_update launched,
@@ -155,13 +177,19 @@ def device_ms(fn, n: int, flush: torch.Tensor):
 
 # name: (B, Sq, K, R, hd, NB, bs, nb)
 # decode and chunk prefill of the 512-token serve (nb 32) and of the 8k
-# sketched serve (nb 512, starts drawn up to 8191), and a reduced one
+# sketched serve (nb 512, starts drawn up to 8191), a reduced one, and the
+# speculative verify step of the 512-token serve at spec_k 4 and 8 and of
+# the 8k sketched spec run at spec_k 2 (Sq = spec_k + 1; each verify row
+# is also held bitwise to the Sq = 1 call at its position)
 GEOMETRIES = {
     "decode": (8, 1, 1, 8, 256, 256, 16, 32),
     "chunk_prefill": (1, 32, 1, 8, 256, 256, 16, 32),
     "reduced_hd16": (4, 1, 1, 4, 16, 24, 16, 6),
     "decode_8k": (8, 1, 1, 8, 256, 4096, 16, 512),
     "chunk_prefill_8k": (1, 256, 1, 8, 256, 4096, 16, 512),
+    "verify_k4": (8, 5, 1, 8, 256, 256, 16, 32),
+    "verify_k8": (8, 9, 1, 8, 256, 256, 16, 32),
+    "verify_k2_8k": (8, 3, 1, 8, 256, 4096, 16, 512),
 }
 
 
@@ -232,6 +260,20 @@ def phase_kernel(flush):
         if not all(torch.equal(a, b) for a, b in zip((m, l, acc), again)):
             fail(f"paged_attention {name}: two launches differ")
         del again
+        rows_note = ""
+        if name.startswith("verify"):
+            # each verify row is the decode call's at its position
+            q, kp, vp, tables, start, fb = args
+            for i in range(Sq):
+                one = paged_attention(q[:, i:i + 1].contiguous(), kp, vp,
+                                      tables, start + i, fb)
+                if not (torch.equal(m[..., i], one[0][..., 0])
+                        and torch.equal(l[..., i], one[1][..., 0])
+                        and torch.equal(acc[..., i, :], one[2][..., 0, :])):
+                    fail(f"paged_attention {name}: verify row {i} differs "
+                         f"from the Sq = 1 call at start + {i}")
+            rows_note = (f"; each of the {Sq} verify rows bitwise the Sq = 1 "
+                         f"call at its position")
         sms = sm_count(flush.device.index)
         pl = plan(B, K, R * Sq, nb, bs, sms)
         if name.startswith("decode") and pl.blocks < sms:
@@ -280,7 +322,7 @@ def phase_kernel(flush):
         print(f"[kernel] paged_attention {name} {g}: grid {pl.blocks} "
               f"blocks ({pl.splits} splits of {pl.per_split} blocks, "
               f"{pl.tiles} tiles of {pl.tile_rows} rows); two launches "
-              f"bitwise equal; max|acc/l err| "
+              f"bitwise equal{rows_note}; max|acc/l err| "
               f"{err:.3e} (tol {acc_tol:.3e} = 2e-2 x min(1, max|acc/l| "
               f"{want_max:.4f}); mean|acc/l| {want_mean:.4f}; m rtol 1e-5, "
               f"l rtol 1e-4 ok) "
@@ -485,19 +527,27 @@ def phase_sketch_kernel(flush):
 # name: (G, N, Z, C, D).  The 8k serve shapes: the decode chunk folds
 # fold_cap = 32 rows of 18 layers x 8 slots x k/v = 288 tables at its
 # head; a slot's prefill fold-through folds prefill_fold_cap = 272 rows
-# of 18 x k/v = 36 tables.  Then reduced shapes with even and odd Z, the
-# counts ragged.
+# of 18 x k/v = 36 tables.  The 8k spec run at spec_k 2 (a chunk advances
+# up to 8 x 3 = 24 rows, so fold_cap is 48) folds the target's 288
+# tables and its depth-2 draft's 2 x 8 x k/v = 32, and the draft's
+# prefill fold-through 2 x k/v = 4 tables.  Then reduced shapes with even
+# and odd Z, the counts ragged.
 FOLD_GEOMETRIES = {
     "decode_fold": (288, 32, 3, 1024, 256),
     "prefill_fold": (36, 272, 3, 1024, 256),
+    "spec_decode_fold": (288, 48, 3, 1024, 256),
+    "spec_draft_decode_fold": (32, 48, 3, 1024, 256),
+    "spec_draft_prefill_fold": (4, 272, 3, 1024, 256),
     "reduced_z2": (12, 40, 2, 64, 32),
     "reduced_z4": (12, 40, 4, 64, 32),
 }
 # name: (B, K, N, hd, Z, C, T).  8k decode: 8 slots x 8 query heads of one
-# kv head; chunked prefill: one slot's 256-token chunk x 8 heads.
+# kv head; chunked prefill: one slot's 256-token chunk x 8 heads; the 8k
+# spec run's verify step at spec_k 2: 3 rows x 8 heads a slot.
 SCORE_GEOMETRIES = {
     "decode_scores": (8, 1, 8, 256, 3, 1024, 8192),
     "chunk_scores": (1, 1, 2048, 256, 3, 1024, 8192),
+    "verify_scores_k2": (8, 1, 24, 256, 3, 1024, 8192),
     "reduced_z2": (2, 2, 6, 32, 2, 64, 512),
     "reduced_z4": (2, 1, 5, 32, 4, 64, 512),
 }
@@ -647,8 +697,12 @@ F32, BF16 = torch.float32, torch.bfloat16
 # call).  The six shapes of tests/test_kernels.py and its bf16 case, then
 # the cpd path's: the CS oracle's tiuu at Fig. 1 (the 100 rows of the
 # (I, I^3) matrix, J 10000, D 2), its sketch of vec(T) (B 1,
-# cpd/rtpm.py:cs_oracle) and the FCS tiuu's CS of 15 inits; last a J past
-# the shared-memory accumulators (J-slabs)
+# cpd/rtpm.py:cs_oracle) and the FCS tiuu's CS of 15 inits; a J past
+# the shared-memory accumulators (J-slabs); then the speculative path's:
+# the compressed draft's weight sketches at gemma-2b's leaf shapes (W^T's
+# d_out rows over d_in, 3 hash rows, ratio 4), its sketched head (the
+# tied embedding's 256,000 rows over d_model, bf16) and the head's
+# activation sketch of the 8 rows of a draft micro-step
 CS_GEOMETRIES = {
     "ref_1x64_J32": (0, 1, 64, 32, F32),
     "ref_4x1000_J256": (0, 4, 1000, 256, F32),
@@ -661,11 +715,18 @@ CS_GEOMETRIES = {
     "cs_vecT_fig1": (2, 1, 1_000_000, 10_000, F32),
     "fcs_tiuu_fig1": (2, 15, 100, 10_000, F32),
     "slabs_8x300000_J200000": (2, 8, 300_000, 200_000, F32),
+    "draft_w_gate_up": (3, 16384, 2048, 512, F32),
+    "draft_w_down": (3, 2048, 16384, 4096, F32),
+    "draft_wq_wo": (3, 2048, 2048, 512, F32),
+    "draft_wk_wv": (3, 256, 2048, 512, F32),
+    "head_weights": (0, 256_000, 2048, 512, BF16),
+    "head_sketch_decode": (0, 8, 2048, 512, BF16),
 }
 CS_MAIN = "cs_tiuu_fig1"
 # name: (D, B, I, J, y per repetition): the six reference shapes, then
 # Fig. 5's decompress at cr 2 (the 2,400,000 entries of A (x) B read from
-# 20 sketches of 1,199,997) and the FCS tiuu's lookup at Fig. 1
+# 20 sketches of 1,199,997), the FCS tiuu's lookup at Fig. 1 and the
+# compressed draft's reconstructions at gemma-2b's leaf shapes
 UNSKETCH_GEOMETRIES = {
     "ref_1x64_J32": (0, 1, 64, 32, False),
     "ref_4x1000_J256": (0, 4, 1000, 256, False),
@@ -675,8 +736,23 @@ UNSKETCH_GEOMETRIES = {
     "ref_3x128_J128": (0, 3, 128, 128, False),
     "kron_fig5_cr2": (20, 1, 2_400_000, 1_199_997, True),
     "fcs_tiuu_fig1": (2, 15, 100, 29_998, True),
+    "draft_w_gate_up": (3, 16384, 2048, 512, True),
+    "draft_w_down": (3, 2048, 16384, 4096, True),
+    "draft_wq_wo": (3, 2048, 2048, 512, True),
+    "draft_wk_wv": (3, 256, 2048, 512, True),
 }
 UNSKETCH_MAIN = "kron_fig5_cr2"
+# name: (D, B, I, J) of the one-chunk count sketch (``chunks=1``, the
+# order of additions fixed by the hash and (I, J)) that the sketched tail
+# span makes of its softmax weights (serve/kv_sketch.py:tail_attend): the
+# 8k decode step's 8 slots x 8 query heads, a verify step's at spec_k 2
+# and a 256-token prefill chunk's 8 heads, over the T 8192 positions into
+# C 1024 buckets, 3 hash rows
+CS_ONE_CHUNK = {
+    "tail_weights_decode": (3, 64, 8192, 1024),
+    "tail_weights_verify_k2": (3, 192, 8192, 1024),
+    "tail_weights_prefill": (3, 2048, 8192, 1024),
+}
 
 
 def cs_tables(D, I, J, dev, gen):
@@ -799,6 +875,42 @@ def phase_cs_kernels(flush):
               f"bound_ms={bms:.6f} ({by}, {nbytes} B)")
         del y, h, s
         torch.cuda.empty_cache()
+    for gi, (name, (D, B, I, J)) in enumerate(CS_ONE_CHUNK.items()):
+        gen = torch.Generator(dev).manual_seed(SEED + 60 + gi)
+        x = torch.rand((B, I), generator=gen, device=dev)
+        h, s = cs_tables(D, I, J, dev, gen)
+        idx = bucket_links(h, s, J)
+        got = count_sketch(x, h, s, J, idx, chunks=1)
+        torch.cuda.synchronize()
+        want = ref.count_sketch_ref(x, h, s, J)
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item()
+        if not err <= tol or not torch.equal(
+                got, ref.count_sketch_tiled_ref(x, h, s, J, chunks=1)):
+            fail(f"count_sketch {name}: max err {err} (tol {tol}) or not "
+                 f"bitwise its one-chunk tiled model")
+        kernel_ms = device_ms(lambda: count_sketch(x, h, s, J, idx,
+                                                   chunks=1), 50, flush)[0]
+        plain_ms = device_ms(lambda: ref.count_sketch_ref(x, h, s, J), 10,
+                             flush)[0]
+        flat = (h.long() + J * torch.arange(D, device=dev)[:, None]
+                ).reshape(-1)
+        sx = torch.cat([x * s[d] for d in range(D)], dim=1)
+        table = torch.zeros((B, D * J), device=dev)
+        library_ms = device_ms(lambda: table.index_add_(1, flat, sx), 50,
+                               flush)[0]
+        nbytes = B * I * 4 + D * I * 8 + D * B * J * 4
+        bms, by = bound(nbytes, D * B * I)
+        cs_rows[name] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bms,
+                             bound_by=by, max_abs_err=err)
+        print(f"[cs] count_sketch {name} (D={D}, B={B}, I={I}, J={J}, x "
+              f"float32; one chunk, {plan(D, B, I, J, 4, 1).branch}): "
+              f"max|err| {err:.3e} (tol 1e-5 x max|out| = {tol:.3e}; "
+              f"bitwise its one-chunk tiled model) kernel_ms={kernel_ms:.5f}"
+              f" plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+              f"(index_add_) bound_ms={bms:.6f} ({by}, {nbytes} B)")
+        del x, h, s, idx, sx, table, flat
     return cs_rows, un_rows
 
 
@@ -1186,16 +1298,22 @@ def phase_model(cfg, params, dev, flush):
     print(f"[model] gemma-2b full width decode_step, kernel vs plain: "
           f"max|dlogit| {diff:.4e} (tol {tol:.4e} = 3% of max|logit|), "
           f"greedy tokens agree {agree}/{int(live.sum())}")
-    # where a decode step's time goes (8 slots, kernel path)
+    # where a decode step's time goes (8 slots, kernel path), at the
+    # engine's padded row count and unpadded (the padding's cost)
+    from repro_torch.models import layers as ly
     c = clone(cache)
+    busy0 = device_ms(lambda: tf.decode_step(params, c, cur, pos, cfg,
+                                             tables), 5, flush)[0]
     busy, by_name, wall = device_ms(
-        lambda: tf.decode_step(params, c, cur, pos, cfg, tables), 5, flush)
+        lambda: tf.decode_step(params, c, cur, pos, cfg, tables,
+                               rows=ly.padded_rows(B)), 5, flush)
     pa = sum(v for k, v in by_name.items() if "paged_attention" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[profile] decode_step B=8: wall {wall:.3f} ms/step, device busy "
-          f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle), "
-          f"paged_attention {pa:.4f} ms ({len(cfg and params['blocks'])} "
-          f"launches); top kernels "
+    print(f"[profile] decode_step B=8 at the engine's {ly.padded_rows(B)} "
+          f"padded rows: wall {wall:.3f} ms/step, device busy {busy:.3f} ms "
+          f"({100 * (1 - busy / wall):.1f}% idle; unpadded {busy0:.3f} ms "
+          f"busy), paged_attention {pa:.4f} ms "
+          f"({len(cfg and params['blocks'])} launches); top kernels "
           + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
     return diff
 
@@ -1273,17 +1391,22 @@ def phase_sketch_model(cfg, params, dev, flush):
           f"greedy agree {agree}/{int(live.sum())}; fold_base == 0 slots "
           f"bitwise equal to the sketch-free step; the tail moved the "
           f"folded slots' logits by up to {moved:.4e}")
+    from repro_torch.models import layers as ly
     c = clone(cache)
+    busy0 = device_ms(lambda: tf.decode_step(params, c, cur, pos, cfg,
+                                             tables, sketch=sk), 5, flush)[0]
     busy, by_name, wall = device_ms(
-        lambda: tf.decode_step(params, c, cur, pos, cfg, tables, sketch=sk),
-        5, flush)
+        lambda: tf.decode_step(params, c, cur, pos, cfg, tables, sketch=sk,
+                               rows=ly.padded_rows(B)), 5, flush)
     pa = sum(v for k, v in by_name.items() if "paged_attention" in k)
     ts = sum(v for k, v in by_name.items() if "scores_" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[profile] sketched decode_step B=8, T={T}: wall {wall:.3f} "
-          f"ms/step, device busy {busy:.3f} ms ({100 * (1 - busy / wall):.1f}"
-          f"% idle), paged_attention {pa:.4f} ms, tail_scores {ts:.4f} ms; "
-          f"top kernels " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
+    print(f"[profile] sketched decode_step B=8, T={T}, at the engine's "
+          f"{ly.padded_rows(B)} padded rows: wall {wall:.3f} ms/step, device "
+          f"busy {busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle; "
+          f"unpadded {busy0:.3f} ms busy), paged_attention {pa:.4f} ms, "
+          f"tail_scores {ts:.4f} ms; top kernels "
+          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
     del cache, c
     torch.cuda.empty_cache()
 
@@ -1317,9 +1440,7 @@ def phase_serve(cfg, params, dev, logit_gap):
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.launch.serve import make_request_stream, stream_requests
     from repro_torch.serve.frontend import AsyncServeEngine
-    serve = dataclasses.replace(cfg.serve, max_batch=8, max_seq=512,
-                                kv_block_size=16, prefill_bucket=32,
-                                decode_chunk=8, prefix_block=16)
+    serve = dataclasses.replace(cfg.serve, **SERVE)
     reqs = make_request_stream(cfg, np.random.RandomState(SEED + 2), 16, 3,
                                64, 192, 32, sampled_frac=0.25,
                                temperature=0.8, top_k=8)
@@ -1387,6 +1508,7 @@ LONG_BLOCKS = 704           # < half the stream's 1696 blocks of rows
 
 
 def phase_long_serve(cfg, params, dev):
+    from repro_torch.kernels.count_sketch import count_sketch
     from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.launch.serve import stream_requests
@@ -1410,7 +1532,7 @@ def phase_long_serve(cfg, params, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tail_fold.launches = tail_scores.launches = 0   # the main path alone
-    paged_attention.launches = 0
+    paged_attention.launches = count_sketch.launches = 0
     t0 = time.perf_counter()
     done, ttfts = asyncio.run(stream_requests(
         front, reqs, 0.0, 0.0, np.random.RandomState(SEED + 7)))
@@ -1418,7 +1540,9 @@ def phase_long_serve(cfg, params, dev):
     wall = time.perf_counter() - t0
     launches = dict(tail_fold=tail_fold.launches,
                     tail_scores=tail_scores.launches,
-                    paged_attention=paged_attention.launches)
+                    paged_attention=paged_attention.launches,
+                    # the tail span's one-chunk sketch of softmax weights
+                    count_sketch=count_sketch.launches)
     st = sched.stats()
     leaked = sched.alloc.reserved - sched.prefix_cache.held_blocks()
     while sched.prefix_cache.evict_one():
@@ -1472,6 +1596,381 @@ def phase_long_serve(cfg, params, dev):
           f"{LONG_PROMPTS[1]}-token request {exact1}/{LONG_NEW} top-1 (worst "
           f"shortfall {short1 / tol1:.2f} of tol); {card()}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4, spec: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+# the serve phase's engine geometry
+SERVE = dict(max_batch=8, max_seq=512, kv_block_size=16, prefill_bucket=32,
+             decode_chunk=8, prefix_block=16)
+SPEC_K = 4
+# name: (serve knobs, per-request spec_k cycled over the stream or None)
+SPEC_ENGINES = {
+    "truncated_depth2": (dict(spec_k=SPEC_K, draft_depth=2), None),
+    "cs_depth2_ratio4": (dict(spec_k=SPEC_K, draft_depth=2,
+                              draft_sketch_ratio=4), None),
+    "mixed_k0_k4": (dict(spec_k=SPEC_K, draft_depth=2), (0, SPEC_K)),
+}
+SPEC_KERNELS = ("paged_attention", "count_sketch", "unsketch")
+
+
+def kernel_counters():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from repro_torch.kernels.count_sketch import count_sketch, unsketch
+    from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
+    from repro_torch.kernels.paged_attention import paged_attention
+    return dict(paged_attention=paged_attention, count_sketch=count_sketch,
+                unsketch=unsketch, tail_fold=tail_fold,
+                tail_scores=tail_scores)
+
+
+class LaunchShapes:
+    """While active, records the shape of every call the port makes to a
+    kernel wrapper (kernels/ops.py dispatches every launch of the serve
+    paths), keyed as the kernel phases' geometry tables are, so the run
+    can show that each shape the serve paths launched was held against
+    its plain version.  Calls that take the plain version on the card
+    (``use_kernel=False``) never reach the wrappers."""
+
+    KEYS = {
+        # (B, Sq, K, R, hd, bs, nb): the geometry less the pool size NB,
+        # which no work or split depends on
+        "paged_attention": lambda q, kp, vp, tables, *a:
+            (*q.shape, kp.shape[1], tables.shape[1]),
+        "tail_fold": lambda rows, pos, counts, tail, *a:
+            (rows.shape[0], rows.shape[1], tail.shape[1], tail.shape[2],
+             rows.shape[2]),
+        "tail_scores": lambda q, tk, cf, T: (*q.shape, tk.shape[1],
+                                             tk.shape[2], T),
+        # (D, B, I, J, x dtype, chunks); D 0 is one 1-D table
+        "count_sketch": lambda x, h, s, J, index=None, chunks=None:
+            (0 if h.ndim == 1 else h.shape[0], *x.shape, J, x.dtype,
+             chunks),
+        # (D, B, I, J, y per repetition)
+        "unsketch": lambda y, h, s: (0 if h.ndim == 1 else h.shape[0],
+                                     y.shape[-2], h.shape[-1], y.shape[-1],
+                                     y.ndim == 3),
+    }
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.seen = {k: set() for k in self.KEYS}
+        self._orig = {k: getattr(ops, k) for k in self.KEYS}
+        for k, fn in self._orig.items():
+            setattr(ops, k, self._recording(k, fn))
+        return self
+
+    def _recording(self, name, fn):
+        key = self.KEYS[name]
+
+        def call(*a, **kw):
+            self.seen[name].add(tuple(key(*a, **kw)))
+            return fn(*a, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for k, fn in self._orig.items():
+            setattr(ops, k, fn)
+
+    @staticmethod
+    def held():
+        """kernel -> the shapes the kernel phases hold against the plain
+        versions, in ``KEYS``' form."""
+        return {
+            "paged_attention": {g[:5] + g[6:] for g in GEOMETRIES.values()},
+            "tail_fold": set(FOLD_GEOMETRIES.values()),
+            "tail_scores": set(SCORE_GEOMETRIES.values()),
+            "count_sketch": {(D, B, I, J, dt, None) for D, B, I, J, dt
+                             in CS_GEOMETRIES.values()}
+            | {(D, B, I, J, F32, 1) for D, B, I, J in CS_ONE_CHUNK.values()},
+            "unsketch": set(UNSKETCH_GEOMETRIES.values()),
+        }
+
+    def check(self, what):
+        held = self.held()
+        missing = {k: sorted(map(str, v - held[k]))
+                   for k, v in self.seen.items() if v - held[k]}
+        if missing:
+            fail(f"{what} launched kernels at shapes no kernel phase holds "
+                 f"against the plain version: {missing}")
+        print(f"[shapes] {what}: every kernel launch shape is one the "
+              f"kernel phases hold against the plain version: "
+              + "; ".join(f"{k} {sorted(map(str, v))}"
+                          for k, v in self.seen.items() if v))
+
+
+def gemm_rows(params, cfg, dev, B, C):
+    """Whether library GEMM rows and a row reduction at M = B (decode) equal
+    the same rows at M = B C (verify), unpadded and padded to the engine's
+    row count (models/layers.py, row padding): reported, not gated (the
+    verify check gates the model)."""
+    from repro_torch.models import layers as ly
+    g = torch.Generator(dev).manual_seed(SEED + 11)
+    x = torch.randn((B * C, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    blk = params["blocks"][0]
+    ffn = torch.randn((B * C, cfg.d_ff), generator=g, device=dev).to(
+        torch.bfloat16)
+    ops = {"wq": lambda a: a @ blk["attn"]["wq"],
+           "wk": lambda a: a @ blk["attn"]["wk"],
+           "wo": lambda a: a @ blk["attn"]["wo"],
+           "w_gate": lambda a: a @ blk["ffn"]["w_gate"],
+           "head": lambda a: a @ params["embed"].t(),
+           "rms mean": lambda a: a.float().square().mean(-1)}
+    rows = ly.padded_rows(B)
+    out = []
+    for name, op in list(ops.items()) + [
+            ("w_down", lambda a: a @ blk["ffn"]["w_down"])]:
+        xs = ffn if name == "w_down" else x
+        plain = torch.equal(op(xs[:B]), op(xs)[:B])
+        padded = torch.equal(op(ly.pad_rows(xs[:B], rows))[:B],
+                             op(ly.pad_rows(xs, rows))[:B])
+        out.append(f"{name} {plain}/{padded}")
+    return (f"rows {B} of M {B} vs M {B * C} equal, unpadded/padded to "
+            f"{rows}: " + ", ".join(out))
+
+
+def verify_vs_decode(cfg, params, dev):
+    """Full-width verify_step at spec_k 4 against 5 sequential decode_steps
+    on identical caches of 8 slots (one idle), both at the engine's padded
+    row count: logits and pool rows bitwise."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    B, NB, bs, nbs, C = 8, 256, 16, 32, SPEC_K + 1
+    rng = np.random.RandomState(SEED + 10)
+    cache = tf.init_paged_cache(cfg, NB, bs, dev)
+    tables = torch.full((B, nbs), NB, dtype=torch.int32, device=dev)
+    lens = rng.randint(1, 300, B)
+    lens[0] = 0
+    nxt = 0
+    for b in range(1, B):
+        n = -(-(int(lens[b]) + C) // bs)
+        tables[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+        prompt = rng.randint(0, cfg.vocab_size, int(lens[b]))
+        for off in range(0, int(lens[b]), 32):
+            tok = np.zeros((1, 32), np.int64)
+            seg = prompt[off:off + 32]
+            tok[0, :len(seg)] = seg
+            tf.prefill_chunk(params, cache, torch.as_tensor(tok, device=dev),
+                             tables[b], off, cfg)
+    pos = torch.as_tensor(lens.astype(np.int32), device=dev)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, C)),
+                           device=dev)
+    clone = lambda c: {"kv": {k: v.clone() for k, v in c["kv"].items()}}
+    cv, cd = clone(cache), clone(cache)
+    rows = ly.padded_rows(B)              # the engine's, for both steps
+    lv, _ = tf.verify_step(params, cv, toks, pos, cfg, tables, rows=rows)
+    for i in range(C):
+        ld, _ = tf.decode_step(params, cd, toks[:, i:i + 1], pos + i, cfg,
+                               tables, rows=rows)
+        if not torch.equal(lv[:, i], ld):
+            d = (lv[:, i] - ld).abs().max().item()
+            fail(f"spec: verify logits at offset {i} differ from the decode "
+                 f"step's (max {d}); {gemm_rows(params, cfg, dev, B, C)}")
+    for k in ("k", "v"):
+        if not torch.equal(cv["kv"][k], cd["kv"][k]):
+            fail(f"spec: verify pool rows ({k}) differ from decode's")
+    if not torch.isfinite(lv).all():
+        fail("spec: verify logits not finite")
+    print(f"[spec] gemma-2b full width verify_step at spec_k {SPEC_K} (8 "
+          f"slots, contexts {lens.tolist()}): logits (B, {C}, V) and pool "
+          f"rows bitwise {C} sequential decode_steps; "
+          f"{gemm_rows(params, cfg, dev, B, C)}")
+    del cache, cv, cd
+    torch.cuda.empty_cache()
+
+
+def drive_stream(front, reqs, profiled):
+    """The serve phase's submission (all at once) through ``front``:
+    (completions, ttfts, wall s, device busy s or None)."""
+    from repro_torch.launch.serve import stream_requests
+    run = lambda: asyncio.run(stream_requests(
+        front, reqs, 0.0, 0.0, np.random.RandomState(SEED + 3)))
+    if profiled:
+        (done, ttfts), wall, busy, _ = traced(run)
+        return done, ttfts, wall, busy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, ttfts = run()
+    torch.cuda.synchronize()
+    return done, ttfts, time.perf_counter() - t0, None
+
+
+def leaked_blocks(sched):
+    """Blocks still reserved once every prefix-cache entry is evicted."""
+    leaked = sched.alloc.reserved - sched.prefix_cache.held_blocks()
+    while sched.prefix_cache.evict_one():
+        pass
+    return leaked + sched.alloc.reserved
+
+
+def phase_spec(cfg, params, dev):
+    """Speculative decoding at full width: the verify contract, then the
+    serve phase's 16-request stream (and two requests whose whole prompt
+    is a cached prefix) through a plain engine and three spec
+    engines (truncated draft; count-sketch-compressed draft with the
+    sketched head; per-request spec_k 0 / 4), each timed, then rerun on a
+    fresh engine under a CUDA-only profiler for its idle share.  Every
+    greedy request's tokens must equal the plain engine's bitwise; no
+    block leaks; prefix hits fork; the spec path launches the
+    paged-attention, count_sketch and unsketch kernels."""
+    from repro_torch.launch.serve import make_request_stream
+    from repro_torch.models.draft import make_draft
+    from repro_torch.serve.frontend import AsyncServeEngine
+    verify_vs_decode(cfg, params, dev)
+    base = dataclasses.replace(cfg.serve, **SERVE)
+    from repro_torch.serve.scheduler import Request
+    reqs = make_request_stream(cfg, np.random.RandomState(SEED + 2), 16, 3,
+                               64, 192, 32, sampled_frac=0.25,
+                               temperature=0.8, top_k=8)
+    # two greedy requests whose whole prompt is a shared 64-token prefix:
+    # their hit shares the block the first decode row writes, which a
+    # spec engine forks
+    reqs += [Request(rid=16 + i, tokens=reqs[i].tokens[:64].copy(),
+                     max_new=32) for i in range(2)]
+    counters = kernel_counters()
+    launches = {k: 0 for k in SPEC_KERNELS}
+    plain = None
+    results = {}
+    for name, (kw, per_req) in [("plain", ({}, None))] + list(
+            SPEC_ENGINES.items()):
+        sv = dataclasses.replace(base, **kw)
+        stream = [dataclasses.replace(r, spec_k=per_req[i % len(per_req)])
+                  for i, r in enumerate(reqs)] if per_req else reqs
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draft = make_draft(params, cfg, sv)
+        torch.cuda.synchronize()
+        derive_s = time.perf_counter() - t0
+        front = AsyncServeEngine(cfg, params, serve=sv, device=dev,
+                                 draft=draft)
+        done, ttfts, wall, _ = drive_stream(front, stream, False)
+        mine = {k: counters[k].launches for k in SPEC_KERNELS}
+        if name != "plain":
+            for k in SPEC_KERNELS:
+                launches[k] += mine[k]
+        sched = front.scheduler
+        st = sched.stats()
+        leaked = leaked_blocks(sched)
+        got = {c.rid: c.tokens for c in done}
+        ok = [c for c in done if c.status == "ok" and len(c.tokens) == 32
+              and ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()]
+        if len(ok) != len(reqs) or leaked != 0 or st.prefix_hits <= 0:
+            fail(f"spec {name}: completed ok {len(ok)}/{len(reqs)}, leaked "
+                 f"blocks {leaked}, prefix hits {st.prefix_hits}")
+        _, _, twall, busy = drive_stream(AsyncServeEngine(
+            cfg, params, serve=sv, device=dev, draft=draft), stream, True)
+        ntok = sum(len(c.tokens) for c in done)
+        results[name] = dict(tok_s=ntok / wall, ttft=np.percentile(ttfts, 50),
+                             chunk=float(np.mean(sched.chunk_ms)),
+                             idle=1 - busy / twall)
+        line = (f"[spec] {name}: {ntok} tokens in {wall:.4f}s = "
+                f"{ntok / wall:.2f} tok/s, TTFT p50 "
+                f"{np.percentile(ttfts, 50) * 1e3:.2f} ms, mean decode "
+                f"chunk {results[name]['chunk']:.3f} ms "
+                f"({len(sched.chunk_ms)} chunks of {sv.decode_chunk} "
+                f"{'rounds' if draft else 'steps'}); profiled rerun: busy "
+                f"{busy:.4f}s of {twall:.4f}s wall, idle "
+                f"{100 * results[name]['idle']:.1f}%; prefix hits "
+                f"{st.prefix_hits}/{st.prefix_lookups}, leaked blocks 0")
+        if plain is None:
+            plain = got
+            print(line + f"; {card()}")
+            continue
+        greedy = [r.rid for r in reqs if not r.temperature]
+        diff = [rid for rid in greedy
+                if not np.array_equal(got[rid], plain[rid])]
+        if diff:
+            fail(f"spec {name}: greedy requests {diff} differ from the plain "
+                 f"engine's tokens")
+        if st.spec_rounds <= 0 or sched.forks <= 0:
+            fail(f"spec {name}: {st.spec_rounds} rounds, {sched.forks} "
+                 f"forks on {st.prefix_hits} prefix hits (two of them "
+                 f"whole-prompt hits)")
+        same_sampled = sum(np.array_equal(got[r.rid], plain[r.rid])
+                           for r in reqs if r.temperature)
+        print(line + f"; draft {draft.cfg.num_layers} layers (sketched "
+              f"head {draft.cfg.sketch.sketched_head}) derived in "
+              f"{derive_s:.3f}s; acceptance {st.acceptance_rate:.4f} "
+              f"({st.spec_accepted}/{st.spec_proposed}), mean accepted run "
+              f"{st.mean_accepted_run:.4f} over {st.spec_rounds} rounds; "
+              f"{len(greedy)} greedy requests bitwise the plain engine's "
+              f"(sampled {same_sampled}/{len(reqs) - len(greedy)} equal too);"
+              f" {sched.forks} copy-on-write forks; launches "
+              + ", ".join(f"{k} {v}" for k, v in mine.items()))
+    if min(launches.values()) <= 0:
+        fail(f"spec: launches on the spec path {launches}")
+    print(f"[spec] launches on the spec path (three spec engines, draft "
+          f"derivation included): {launches}; {card()}")
+    return launches
+
+
+LONG_SPEC_NEW = 32
+
+
+def phase_long_spec(cfg, params, dev):
+    """The sketched speculative path at 8k: two prompts of 2048 and 4096
+    tokens (window 1024, ratio 8, rows 3) through a sketched plain engine
+    and a sketched spec engine (spec_k 2, truncated draft of depth 2) of
+    the long phase's geometry: the spec engine's tokens bitwise the plain
+    engine's, rows fold in both pools, no block leaks, and the spec path
+    launches both tail kernels and the paged-attention kernel."""
+    from repro_torch.serve.frontend import AsyncServeEngine
+    from repro_torch.serve.scheduler import Request
+    base = dataclasses.replace(
+        cfg.serve, max_batch=8, max_seq=LONG["max_seq"], kv_block_size=16,
+        prefill_bucket=256, decode_chunk=8, prefix_block=16,
+        num_kv_blocks=LONG_BLOCKS, kv_sketch_window=LONG["window"],
+        kv_sketch_ratio=LONG["ratio"], kv_sketch_rows=LONG["rows"])
+    rng = np.random.RandomState(SEED + 8)
+    reqs = [Request(rid=i, tokens=rng.randint(0, cfg.vocab_size, n).astype(
+        np.int32), max_new=LONG_SPEC_NEW) for i, n in enumerate((2048, 4096))]
+    counters = kernel_counters()
+    out = {}
+    for name, kw in (("plain", {}), ("spec", dict(spec_k=2, draft_depth=2))):
+        sv = dataclasses.replace(base, **kw)
+        for c in counters.values():
+            c.launches = 0
+        front = AsyncServeEngine(cfg, params, serve=sv, device=dev)
+        done, ttfts, wall, _ = drive_stream(front, reqs, False)
+        sched = front.scheduler
+        st = sched.stats()
+        tails = [float(c["tail"].abs().sum()) for c in sched._pools()]
+        out[name] = dict(tokens={c.rid: c.tokens for c in done},
+                         launches={k: c.launches
+                                   for k, c in counters.items()},
+                         st=st, leaked=leaked_blocks(sched), tails=tails,
+                         wall=wall, ntok=sum(len(c.tokens) for c in done))
+    sp = out["spec"]
+    same = all(np.array_equal(sp["tokens"][r.rid], out["plain"]["tokens"][
+        r.rid]) for r in reqs)
+    lk = sp["launches"]
+    if not same or sp["leaked"] or sp["st"].fold_rows <= 0 \
+            or min(sp["tails"]) <= 0 or sp["st"].spec_rounds <= 0 \
+            or min(lk[k] for k in ("tail_fold", "tail_scores",
+                                   "paged_attention")) <= 0:
+        fail(f"long spec: tokens equal {same}, leaked {sp['leaked']}, fold "
+             f"rows {sp['st'].fold_rows}, tail sums {sp['tails']}, rounds "
+             f"{sp['st'].spec_rounds}, launches {lk}")
+    print(f"[long-spec] gemma-2b full width, max_seq {LONG['max_seq']}, "
+          f"sketched KV window {LONG['window']} ratio {LONG['ratio']} rows "
+          f"{LONG['rows']}, prompts 2048 / 4096, {LONG_SPEC_NEW} new each: "
+          f"spec_k 2 (truncated draft, depth 2) tokens bitwise the sketched "
+          f"plain engine's; fold rows {sp['st'].fold_rows} (target and "
+          f"draft tails both hold folds: |sum| {sp['tails'][0]:.4e} / "
+          f"{sp['tails'][1]:.4e}); tail bytes {sp['st'].kv_sketch_tail_bytes}"
+          f"; acceptance {sp['st'].acceptance_rate:.4f} over "
+          f"{sp['st'].spec_rounds} rounds; {sp['ntok'] / sp['wall']:.2f} "
+          f"tok/s against the plain engine's "
+          f"{out['plain']['ntok'] / out['plain']['wall']:.2f}; leaked "
+          f"blocks 0; launches {lk}; {card()}")
+    return lk
 
 
 # ---------------------------------------------------------------------------
@@ -1738,8 +2237,12 @@ def main() -> None:
     gap = phase_model(cfg, params, dev, flush)
     phase_sketch_model(cfg, params, dev, flush)
     del flush
-    launches = phase_serve(cfg, params, dev, gap)
-    long_launches = phase_long_serve(cfg, params, dev)
+    with LaunchShapes() as shapes:
+        launches = phase_serve(cfg, params, dev, gap)
+        spec_launches = phase_spec(cfg, params, dev)
+        long_launches = phase_long_serve(cfg, params, dev)
+        long_spec_launches = phase_long_spec(cfg, params, dev)
+    shapes.check("phases serve, spec, long and long-spec")
     del params                               # free gemma-2b for training
     torch.cuda.empty_cache()
     held("serve and long, gemma-2b freed")
@@ -1752,6 +2255,10 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:89",
         "launches": launches,
+        # the speculative paths' own count: phase spec's three engines
+        # (draft micro-steps, verify, prefill) and the sketched spec run
+        "spec_launches": spec_launches["paged_attention"]
+        + long_spec_launches["paged_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
@@ -1777,6 +2284,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/kv_sketch.cu",
             "replaces": replaces, "launches": long_launches[name],
+            "spec_launches": long_spec_launches[name],
             "max_abs_err": max(g["max_abs_err"] for g in geo.values()),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1791,6 +2299,10 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/count_sketch.cu",
             "replaces": replaces, "launches": cpd_launches[name],
+            # draft derivation and the sketched head's activation sketch
+            "spec_launches": spec_launches[name],
+            # count_sketch: the sketched tail span of the 8k stream
+            "long_launches": long_launches.get(name, 0),
             "max_abs_err": max(g["max_abs_err"] for g in geo.values()),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

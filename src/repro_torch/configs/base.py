@@ -99,7 +99,10 @@ class ServeConfig:
     model proposes up to ``spec_k`` tokens per slot per round and the
     served model verifies all of them in ONE multi-query decode step
     (``transformer.verify_step``); greedy speculative output is
-    token-for-token identical to plain greedy decode.  0 (default)
+    token-for-token identical to plain greedy decode (the engine refuses
+    a spec_k whose verify rows would pad past the decode step's,
+    max_batch * (spec_k + 1) > 64 at max_batch <= 64; models/layers.py,
+    row padding).  0 (default)
     disables speculation and keeps the classic one-token decode chunk.
     Per-request ``Request.spec_k`` overrides, clamped to this engine max.
     ``draft_depth``: layers of the served stack kept in the derived draft

@@ -19,7 +19,9 @@ hash and are built once with it (``core/hashes.py:ModeHash``); a bare
 shapes alone: whole-J accumulators or J-slabs, and the split of I into
 chunks, whose partial sums a second launch adds in order.  The order of
 additions is fixed by the hash and (B, I, J), never by D or by the run
-(``ref.count_sketch_tiled_ref`` is its plain model).  Tables hold
+(``ref.count_sketch_tiled_ref`` is its plain model); a caller that passes
+``chunks=1`` fixes it by the hash and (I, J) alone, so a row's sketch is
+the same bits whatever B the call has.  Tables hold
 0 <= h < J (the port's ``ModeHash`` guarantees it; the wrapper does not
 sync to check); an entry with h outside [0, J) contributes nothing, as in
 the TPU kernel.
@@ -91,7 +93,8 @@ def smem_bytes(reps: int, rows: int, slab: int, esize: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(D: int, B: int, I: int, J: int, esize: int) -> Plan:
+def plan(D: int, B: int, I: int, J: int, esize: int,
+         chunks: Optional[int] = None) -> Plan:
     """The work split of a count sketch of x (B, I) (``esize`` bytes an
     element) under D hash rows into J buckets, plain Python.
 
@@ -104,7 +107,8 @@ def plan(D: int, B: int, I: int, J: int, esize: int) -> Plan:
     x and the tables, so the slabs are as few and as wide as fit.  A grid
     short of ``SMS`` blocks takes 1 repetition a block and, when x is no
     longer than a row of the output (I <= J, so re-reading it is cheap),
-    narrower slabs, up to one wave of blocks."""
+    narrower slabs, up to one wave of blocks.  ``chunks`` given: I splits
+    into that many chunks (at most one a tile) instead."""
     tiles = max(1, -(-I // TILE))
     r_ref = min(B, 2)
     groups = -(-B // r_ref)
@@ -117,7 +121,7 @@ def plan(D: int, B: int, I: int, J: int, esize: int) -> Plan:
                 + (8 * P * B * J if P > 1 else 0))
         if best is None or cost < best[0]:
             best = (cost, per)
-    per = best[1]
+    per = best[1] if chunks is None else -(-tiles // max(1, chunks))
     chunks = -(-tiles // per)
 
     rmax = 1 if B == 1 else 2 if B == 2 else 4
@@ -224,10 +228,11 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def count_sketch(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor, J: int,
-                 index: Optional[Index] = None) -> torch.Tensor:
+                 index: Optional[Index] = None,
+                 chunks: Optional[int] = None) -> torch.Tensor:
     """x (B, I) -> (D, B, J), or (B, J) for 1-D tables; see the module
     docstring.  ``index`` is ``bucket_links(h, s, J)``, built here when
-    not given."""
+    not given; ``chunks`` overrides ``plan``'s split of I."""
     dev = x.device
     h2, s2 = _tables(h, s, dev, "count_sketch")
     D, I = h2.shape
@@ -248,7 +253,7 @@ def count_sketch(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor, J: int,
     B = x.shape[0]
     out = torch.empty((D, B, J), dtype=x.dtype, device=dev)
     if B:
-        pl = plan(D, B, I, J, x.element_size())
+        pl = plan(D, B, I, J, x.element_size(), chunks)
         if pl.blocks // (D // pl.reps) >= 2 ** 31:
             raise ValueError(f"grid out of range for B={B}, I={I}, J={J}")
         part = (torch.empty((pl.chunks, D, B, J), dtype=torch.float32,

@@ -118,14 +118,15 @@ def tail_scores_op(q: torch.Tensor, tail_k: torch.Tensor,
 
 def count_sketch_op(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor,
                     J: int, index: Optional[Index] = None,
-                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+                    use_kernel: Optional[bool] = None,
+                    chunks: Optional[int] = None) -> torch.Tensor:
     """Count sketch of the rows of x (B, I) under D stacked hash rows
     (h, s) (D, I) -> (D, B, J), or (B, J) for 1-D tables
-    (kernels/count_sketch.py).  ``index`` is the hash's bucket links,
-    which only the kernel reads.  ``use_kernel`` as for
-    ``paged_attention_op``."""
+    (kernels/count_sketch.py).  ``index`` is the hash's bucket links and
+    ``chunks`` the split of I, which only the kernel reads.
+    ``use_kernel`` as for ``paged_attention_op``."""
     if _resolve(use_kernel, x.device, "use_kernel"):
-        return count_sketch(x, h, s, J, index)
+        return count_sketch(x, h, s, J, index, chunks)
     return ref.count_sketch_ref(x, h, s, J)
 
 

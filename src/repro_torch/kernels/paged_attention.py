@@ -16,7 +16,8 @@ split, the merge pass after it.
 ``plan`` is the kernel's work split, plain Python: a pure function of the
 shapes and the SM count, never of ``start``, ``fold_base`` or the table
 values, so a slot's output depends only on its own inputs and a call
-needs no host sync.
+needs no host sync.  Its KV splits do not depend on the query rows
+either, so a row's output is the same at any Sq.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ MAX_SMEM_BYTES = 232_448    # opt-in shared memory per block on sm_90
 STAGE_KEYS = 32             # kKeys: keys per staged KV tile
 MAX_TILE_ROWS = 64          # query rows per tile: 16 (the MMA's M) to 64
 BLOCKS_PER_SM = 2           # the planner's target for the grid
+MAX_SPLITS = 64             # bounds the merge's f32 scratch at one slot
 
 
 class Plan(NamedTuple):
@@ -47,13 +49,17 @@ class Plan(NamedTuple):
 
 def plan(B: int, K: int, NQ: int, nb: int, bs: int, sm_count: int) -> Plan:
     """Work split of one call: a kv head's NQ = R*Sq query rows in tiles of
-    up to 64, then as many KV splits (contiguous ranges of the slot's nb
-    logical blocks) as it takes for BLOCKS_PER_SM blocks per SM, at most
-    one per logical block."""
+    up to 64, and KV splits (contiguous ranges of the slot's nb logical
+    blocks): as many as it takes for BLOCKS_PER_SM blocks per SM at one
+    tile per (slot, kv head), at most one per logical block and at most
+    MAX_SPLITS.  The splits depend on (B, K, nb, SMs) alone, never on NQ:
+    a decode call (Sq 1), a verify call (Sq = spec_k + 1) and the draft's
+    micro-steps see the same split boundaries, so each verify row is
+    bitwise the decode row at its position."""
     tile_rows = min(MAX_TILE_ROWS, -(-NQ // 16) * 16)
     tiles = -(-NQ // tile_rows)
-    want = -(-BLOCKS_PER_SM * sm_count // (B * K * tiles))
-    per = max(1, nb // want)
+    want = -(-BLOCKS_PER_SM * sm_count // (B * K))
+    per = max(1, nb // want, -(-nb // MAX_SPLITS))
     splits = max(1, -(-nb // per))
     return Plan(tile_rows, tiles, splits, per, max(1, STAGE_KEYS // bs),
                 splits * tiles * B * K)

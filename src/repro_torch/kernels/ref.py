@@ -46,7 +46,7 @@ added once): the kernel equals it bitwise.
 from __future__ import annotations
 
 import math
-from typing import Iterable, Tuple
+from typing import Iterable, Optional, Tuple
 
 import torch
 
@@ -280,7 +280,8 @@ def count_sketch_ref(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor,
 
 
 def count_sketch_tiled_ref(x: torch.Tensor, h: torch.Tensor,
-                           s: torch.Tensor, J: int) -> torch.Tensor:
+                           s: torch.Tensor, J: int,
+                           chunks: Optional[int] = None) -> torch.Tensor:
     """``count_sketch_ref`` summed as the CUDA kernel sums: each chunk of
     ``plan``'s split of I from zero and its tiles in order; within a tile
     each bucket's entries summed in increasing i and the sum added to the
@@ -292,7 +293,8 @@ def count_sketch_tiled_ref(x: torch.Tensor, h: torch.Tensor,
     B, J = x.shape[0], int(J)
     v = x.to(torch.float32)[None] * s2[:, None, :]               # (D, B, I)
     tiles = max(1, -(-I // TILE))
-    per = plan(D, max(B, 1), I, J, x.element_size()).tiles_per_chunk
+    per = plan(D, max(B, 1), I, J, x.element_size(),
+               chunks).tiles_per_chunk
     out = None
     for t0 in range(0, tiles, per):
         acc = torch.zeros((D, B, J), dtype=torch.float32, device=x.device)

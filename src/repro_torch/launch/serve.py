@@ -22,6 +22,14 @@ folds during its prefill.  E.g. on the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --max-seq 512 --kv-sketch-window 64 --long-context 400
+
+Speculative decoding: ``--spec-k K`` has a draft of the first
+``--draft-depth`` layers propose K tokens a round, count-sketch-compressed
+at ``--draft-sketch-ratio`` (with the FCS-sketched head) when it is > 0;
+the exit summary then has a ``speculative:`` line.  E.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --spec-k 3 --draft-depth 1 --draft-sketch-ratio 2
 """
 from __future__ import annotations
 
@@ -66,11 +74,16 @@ def make_request_stream(cfg, rng: np.random.RandomState, n_requests: int,
 
 async def stream_requests(front: AsyncServeEngine, reqs, rate: float,
                           cancel_frac: float,
-                          rng: np.random.RandomState):
+                          rng: np.random.RandomState,
+                          deadline_s: float = 0.0,
+                          priority_frac: float = 0.0):
     """Submit ``reqs`` (all at once when ``rate`` is 0, else with
     exponential gaps of mean 1/rate s), stream every response, and hang
     up on a ``cancel_frac`` fraction of clients halfway through their
-    budget.  Returns (completions, time-to-first-token seconds)."""
+    budget.  A ``priority_frac`` fraction is submitted at priority 1 (it
+    may preempt running priority-0 requests); ``deadline_s`` > 0 gives
+    every request that SLO deadline.  Returns (completions,
+    time-to-first-token seconds)."""
     results, ttfts = [], []
 
     async def consume(handle, t_submit, cancel_after):
@@ -87,8 +100,11 @@ async def stream_requests(front: AsyncServeEngine, reqs, rate: float,
     for r in reqs:
         h = await front.submit(r.tokens, max_new=r.max_new,
                                temperature=r.temperature, top_k=r.top_k,
-                               seed=r.seed, kv_sketch=r.kv_sketch,
-                               deadline_s=0, rid=r.rid)
+                               seed=r.seed, spec_k=r.spec_k,
+                               kv_sketch=r.kv_sketch,
+                               priority=(1 if rng.rand() < priority_frac
+                                         else 0),
+                               deadline_s=max(0.0, deadline_s), rid=r.rid)
         cancel_after = (max(1, r.max_new // 2)
                         if rng.rand() < cancel_frac else None)
         tasks.append(asyncio.ensure_future(
@@ -111,11 +127,37 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--admit-threshold", type=int, default=2,
+                    help="count-min frequency a prompt prefix needs before "
+                         "its blocks are admitted to the prefix cache")
     ap.add_argument("--sampled-frac", type=float, default=0.25)
+    ap.add_argument("--temperature", type=float, default=0.8,
+                    help="temperature for the sampled fraction")
+    ap.add_argument("--top-k", type=int, default=8,
+                    help="top-k cutoff for the sampled fraction")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative draft tokens per verify round "
+                         "(0 = plain decode)")
+    ap.add_argument("--draft-depth", type=int, default=1,
+                    help="layers kept in the derived draft proposer")
+    ap.add_argument("--draft-sketch-ratio", type=int, default=0,
+                    help="count-sketch-compress the draft's weights at this "
+                         "ratio, with the FCS-sketched head (0 = dense "
+                         "truncated draft)")
+    ap.add_argument("--paged-kernels", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="paged attention: the CUDA kernel ('on'), the "
+                         "plain version ('off') or by device ('auto')")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="open-loop Poisson arrivals (req/s); 0 submits "
                          "everything at once")
     ap.add_argument("--cancel-frac", type=float, default=0.0)
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request SLO deadline in seconds; expired "
+                         "requests surface partial output (0 = none)")
+    ap.add_argument("--priority-frac", type=float, default=0.0,
+                    help="fraction of requests submitted at priority 1 "
+                         "(may preempt running priority-0 requests)")
     ap.add_argument("--kv-sketch-window", type=int, default=0,
                     help="exact recent-window rows per slot; older blocks "
                          "fold into per-slot FCS tail tables and free "
@@ -137,17 +179,30 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
     params = tf.init_params(cfg, seed=args.seed, device=dev)
-    serve = dataclasses.replace(cfg.serve, max_batch=args.max_batch,
-                                max_seq=args.max_seq,
-                                prefix_block=args.prefix_len,
-                                kv_sketch_window=args.kv_sketch_window,
-                                kv_sketch_ratio=args.kv_sketch_ratio,
-                                kv_sketch_rows=args.kv_sketch_rows)
+    serve = dataclasses.replace(
+        cfg.serve, max_batch=args.max_batch, max_seq=args.max_seq,
+        admit_threshold=args.admit_threshold, prefix_block=args.prefix_len,
+        spec_k=args.spec_k, draft_depth=args.draft_depth,
+        draft_sketch_ratio=args.draft_sketch_ratio,
+        kv_sketch_window=args.kv_sketch_window,
+        kv_sketch_ratio=args.kv_sketch_ratio,
+        kv_sketch_rows=args.kv_sketch_rows,
+        paged_kernels={"auto": None, "on": True, "off": False}[
+            args.paged_kernels])
+    t0 = time.perf_counter()
     front = AsyncServeEngine(cfg, params, serve=serve, device=dev)
+    sched = front.scheduler
+    if sched.draft is not None:
+        print(f"draft: {sched.draft.cfg.num_layers} of {cfg.num_layers} "
+              f"layers, sketch ratio {args.draft_sketch_ratio} "
+              f"(sketched head: {sched.draft.cfg.sketch.sketched_head}); "
+              f"engine built in {time.perf_counter() - t0:.3f}s")
     reqs = make_request_stream(cfg, np.random.RandomState(args.seed + 1),
                                args.requests, args.prefixes,
                                args.prefix_len, args.max_tail, args.max_new,
-                               sampled_frac=args.sampled_frac)
+                               sampled_frac=args.sampled_frac,
+                               temperature=args.temperature,
+                               top_k=args.top_k)
     if args.long_context:
         if args.kv_sketch_window <= 0:
             raise ValueError("--long-context needs --kv-sketch-window")
@@ -160,13 +215,22 @@ def main(argv=None):
     t0 = time.perf_counter()
     done, ttfts = asyncio.run(stream_requests(
         front, reqs, args.arrival_rate, args.cancel_frac,
-        np.random.RandomState(args.seed + 3)))
+        np.random.RandomState(args.seed + 3), deadline_s=args.deadline_s,
+        priority_frac=args.priority_frac))
     dt = time.perf_counter() - t0
     toks = sum(len(c.tokens) for c in done)
+    ttft = (f"{np.percentile(ttfts, 50) * 1e3:.1f} ms" if ttfts
+            else "n/a (no token streamed)")
     print(f"device: {dev}; served {len(done)} requests / {toks} tokens in "
-          f"{dt:.3f}s ({toks / dt:.1f} tok/s); ttft p50 "
-          f"{np.percentile(ttfts, 50) * 1e3:.1f} ms")
-    sched = front.scheduler
+          f"{dt:.3f}s ({toks / dt:.1f} tok/s); ttft p50 {ttft}")
+    statuses = {}
+    for c in done:
+        statuses[c.status] = statuses.get(c.status, 0) + 1
+    kernel = (sched.use_kernels if sched.use_kernels is not None
+              else dev.type == "cuda")
+    print(f"statuses: {statuses}; paged attention: "
+          f"{'CUDA kernel' if kernel else 'plain version'} "
+          f"(--paged-kernels {args.paged_kernels})")
     if sched.sketch_on:
         print(f"kv sketch: window={serve.kv_sketch_window} rows "
               f"(ratio={serve.kv_sketch_ratio}, rows={serve.kv_sketch_rows}"

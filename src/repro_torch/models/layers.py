@@ -1,10 +1,23 @@
 """Shared layers of the port (``repro/models/layers.py``): norms, RoPE,
 GQA/MQA attention over the paged KV pool (decode and chunked prefill),
 full-sequence causal attention (the training path), the GLU FFN,
-embeddings, the LM head and the training loss.
+embeddings, the LM head (dense, tied or FCS-sketched) and the training
+loss.
 
 Plain functions over explicit parameter dicts.  Weights are bf16;
 norms, softmax statistics and logits are f32.
+
+Row padding.  A serve engine's decode and verify steps carry their B*S
+hidden rows padded with zero rows to ``padded_rows(max_batch)``, a
+multiple of ``ROW_TILE``, so every GEMM and row reduction of a decode
+step (B rows) and of a verify step (B*(spec_k+1) rows) runs at one shape
+(the scheduler refuses a spec engine whose verify rows would not fit).
+Library GEMMs and reductions pick their algorithm (split-K, block
+shape) by shape, so only equal shapes make a verify row bitwise the
+decode row at its position — the property greedy speculative decoding
+rests on.  At decode sizes the GEMMs are bound by the weights' bytes,
+which padding does not add to.  Chunk prefill runs at the same shape in
+every engine and is not padded.
 
 Paged KV pool layout: ``(NB + 1, bs, K, hd)`` per layer.  Blocks
 ``[0, NB)`` are the pool the block tables index; block ``NB`` is a write
@@ -17,9 +30,11 @@ the ``[:NB]`` view.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -28,6 +43,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
 PDTYPE = torch.bfloat16  # parameter dtype
+ROW_TILE = 64            # decode / verify rows pad to a multiple of this
+_PRIME = 2_147_483_647   # core/hashes.py:PRIME, the head hash's modulus
+
+
+def padded_rows(M: int) -> int:
+    """M rounded up to a multiple of ``ROW_TILE``: the rows a decode or
+    verify step of M rows runs its GEMMs and row reductions at, and the
+    rows of the tail span's value contraction (serve/kv_sketch.py)."""
+    return max(ROW_TILE, -(-M // ROW_TILE) * ROW_TILE)
+
+
+def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """(M, n) -> (rows, n): zero rows appended."""
+    return F.pad(x, (0, 0, 0, rows - x.shape[0])) if rows > x.shape[0] else x
 
 
 # ---------------------------------------------------------------------------
@@ -66,9 +95,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def _project_qkv_rope(p: dict, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor):
     """Project (+bias), split heads, rope q and k at ``positions``
-    ((S,) or (B, S)).  Shared by decode and chunked prefill, so a prompt
-    row prefilled in a chunk and recomputed by decode is bit-identical."""
-    B, S, _ = x.shape
+    ((S,) or (B, S)).  x is (B, S, d), or (rows, d) holding the B*S rows
+    of (B, S) ``positions`` first and zero padding after (the paged
+    paths' layout): the projections then run at all the rows.  Shared by
+    decode, verify and chunked prefill."""
+    if x.ndim == 3:
+        B, S = x.shape[:2]
+    else:
+        B, S = positions.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
     q = x @ p["wq"]
@@ -76,6 +110,8 @@ def _project_qkv_rope(p: dict, x: torch.Tensor, cfg: ModelConfig,
     vn = x @ p["wv"]
     if cfg.qkv_bias:
         q, kn, vn = q + p["bq"], kn + p["bk"], vn + p["bv"]
+    if x.ndim == 2:
+        q, kn, vn = q[:B * S], kn[:B * S], vn[:B * S]
     q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
     kn = rope(kn.reshape(B, S, K, hd), positions, cfg.rope_theta)
     return q, kn, vn.reshape(B, S, K, hd)
@@ -122,7 +158,10 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """Attention of new rows against the paged pool — the reference's
     ``_paged_decode_attention`` (one token per slot, x (B, 1, d),
     positions (B, 1)) and ``chunk_attention`` (one prompt chunk of one
-    slot, x (1, C, d), positions (1, C) = start + arange(C)) in one.
+    slot, x (1, C, d), positions (1, C) = start + arange(C)) in one, and
+    the verify step's (B, K + 1) rows of consecutive positions.  x may
+    also be the B*S rows padded to (rows, d) (see ``padded_rows``); the
+    result then has the same padded layout.
     Each new KV row scatters through its slot's (B, nb) block-table row
     into the layer's pool in place (the JAX version donated the pool);
     rows on unallocated entries (== NB) or past the table land in the
@@ -132,7 +171,7 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     chunk sees earlier chunks and shared prefix blocks; ``tail`` /
     ``sketch`` add the folded span (see ``paged_attend``).  Pools are
     (NB + 1, bs, K, hd) with the sink last.  Returns (B, S, d)."""
-    B, S, _ = x.shape
+    B, S = positions.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
     NB, bs = pool_k.shape[0] - 1, pool_k.shape[1]
@@ -148,6 +187,8 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     o = paged_attend(qg, pool_k[:NB], pool_v[:NB], tables,
                      positions[:, 0].contiguous(), fold_base, use_kernel,
                      tail, sketch)
+    if x.ndim == 2:
+        return pad_rows(o.reshape(B * S, H * hd), x.shape[0]) @ p["wo"]
     return o.reshape(B, S, H * hd) @ p["wo"]
 
 
@@ -193,20 +234,80 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens]
 
 
-def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
-    """The (d, Vp) vocab projection: the dense head or the tied embed."""
+def head_sketch_len(cfg: ModelConfig) -> int:
+    return cfg.sketch.head_hash_len or cfg.d_model // 4
+
+
+@functools.lru_cache(maxsize=None)
+def _head_hash_tables(seed: int, d: int, J: int):
+    """The FCS-sketched head's 2-wise independent hash (h, sg) over the
+    d_model activation entries, as numpy arrays: the reference's
+    ``layers._head_hash_tables`` draw for draw, so both packages sketch
+    with the same buckets and signs."""
+    rng = np.random.RandomState(seed & 0x7FFFFFFF)
+    ah = rng.randint(1, _PRIME, dtype=np.int64)
+    bh = rng.randint(0, _PRIME, dtype=np.int64)
+    as_ = rng.randint(1, _PRIME, dtype=np.int64)
+    bs = rng.randint(0, _PRIME, dtype=np.int64)
+    idx = np.arange(d, dtype=np.int64)
+    h = (((ah * idx + bh) % _PRIME) % J).astype(np.int32)
+    sg = (1.0 - 2.0 * (((as_ * idx + bs) % _PRIME) % 2)).astype(np.float32)
+    return h, sg
+
+
+@functools.lru_cache(maxsize=None)
+def head_hash(seed: int, d: int, J: int, device: torch.device):
+    """``_head_hash_tables`` on ``device`` as (h int32, sg f32, bucket
+    links), built once per (seed, d, J, device)."""
+    from repro_torch.kernels.count_sketch import bucket_links
+    h, sg = _head_hash_tables(seed, d, J)
+    h = torch.as_tensor(h, device=device)
+    sg = torch.as_tensor(sg, device=device)
+    return h, sg, bucket_links(h, sg, J)
+
+
+class _ActivationSketch(torch.autograd.Function):
+    """Count sketch of activation rows x (M, d) -> (M, J) under one hash
+    row; its gradient is the transpose, the signed lookup."""
+
+    @staticmethod
+    def forward(ctx, x, h, sg, links, J):
+        ctx.save_for_backward(h, sg)
+        return kops.count_sketch_op(x, h, sg, J, index=links)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, sg = ctx.saved_tensors
+        return (kops.unsketch_op(g.contiguous(), h, sg), None, None, None,
+                None)
+
+
+def _head_io(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """(x_eff, W_eff) of the vocab projection: x and the dense head (or
+    the tied embed), or, with the FCS-sketched head (paper Section 4.2),
+    the per-token count sketch of x into J = ``head_sketch_len`` buckets
+    and the (J, Vp) sketched head.  The reference forms the sketch as a
+    one-hot product, O(d J) a token; here it is ``count_sketch_op``,
+    O(d)."""
     if cfg.sketch.sketched_head:
-        raise NotImplementedError(
-            "the FCS-sketched LM head is not ported yet; see ROADMAP "
-            "Queue 1 #11")
-    return params["head"] if params.get("head") is not None \
+        J = head_sketch_len(cfg)
+        h, sg, links = head_hash(cfg.sketch.seed, cfg.d_model, J, x.device)
+        xs = _ActivationSketch.apply(
+            x.reshape(-1, x.shape[-1]).contiguous(), h, sg, links, J)
+        return xs.reshape(*x.shape[:-1], J), params["head"]
+    head = params["head"] if params.get("head") is not None \
         else params["embed"].t()
+    return x, head
 
 
-def logits_fn(params: dict, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """Final hidden -> vocab logits (f32), dense or tied head."""
-    return (x @ _head(params, cfg)).float()
+def logits_fn(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              rows: Optional[int] = None) -> torch.Tensor:
+    """Final hidden -> vocab logits (f32), dense, tied or sketched head.
+    ``rows`` keeps the first rows of a padded (rows', d) x (the paged
+    paths' layout; the projection runs at all of them)."""
+    x, head = _head_io(params, x, cfg)
+    out = x @ head
+    return (out if rows is None else out[:rows]).float()
 
 
 def _ce_chunk(x: torch.Tensor, head_c: torch.Tensor, labels: torch.Tensor,
@@ -227,14 +328,15 @@ def _ce_chunk(x: torch.Tensor, head_c: torch.Tensor, labels: torch.Tensor,
 def cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
                   cfg: ModelConfig, vocab_chunk: int = 8192) -> torch.Tensor:
     """Mean next-token cross entropy over (B, S) (the reference's
-    ``cross_entropy``): a vocab-chunked online logsumexp, each chunk
+    ``cross_entropy``), through ``_head_io`` (dense, tied or sketched
+    head): a vocab-chunked online logsumexp, each chunk
     recomputed in the backward, so the (B, S, V) f32 logits never exist
     whole.  The logsumexp runs over all ``padded_vocab`` columns of the
     head (padded rows carry init weights, as in the reference).  The
     reference pads the head to a whole number of chunks and masks the
     padding; here the last chunk is narrower, which is the same sum."""
-    head = _head(params, cfg)
     B, S, _ = x.shape
+    x, head = _head_io(params, x, cfg)
     V = head.shape[-1]
     m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
     l = torch.zeros((B, S), dtype=torch.float32, device=x.device)

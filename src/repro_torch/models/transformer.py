@@ -1,12 +1,13 @@
 """Dense attention model assembly (``repro/models/transformer.py``, the
 attention stack only): parameter init, the paged slot cache, the
-full-sequence (training) / decode / chunked-prefill forward paths, and
-the training loss.
+full-sequence (training) / decode / verify / chunked-prefill forward
+paths, and the training loss.
 
 Parameter layout (plain dicts of tensors; ``models/bridge.py`` builds the
 same layout from the JAX package's parameter tree):
 
-  {"embed": (Vp, d), "head": (d, Vp) | None (tied), "final_norm": (d,),
+  {"embed": (Vp, d), "head": (d, Vp) | (J, Vp) (FCS-sketched head,
+   models/layers.py:_head_io) | None (tied), "final_norm": (d,),
    "blocks": [ {"attn": {"wq", "wk", "wv", "wo"}, "ffn": {"w_gate",
                 "w_up", "w_down"}, "norm1": (d,), "norm2": (d,)}, ... ]}
 
@@ -138,8 +139,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         })
     head = None
     if cfg.sketch.sketched_head:
-        raise NotImplementedError("sketched LM head: see ROADMAP Queue 1 #11")
-    if not cfg.tie_embeddings:
+        # the projection lives in the J-dim sketch space (paper Section
+        # 4.2); it takes precedence over tied embeddings, as in the
+        # reference's init_head
+        J = ly.head_sketch_len(cfg)
+        head = normal((J, cfg.padded_vocab), 1.0 / math.sqrt(J))
+    elif not cfg.tie_embeddings:
         head = normal((d, cfg.padded_vocab), 1.0 / math.sqrt(d))
     return {"embed": normal((cfg.padded_vocab, d), 0.02), "head": head,
             "final_norm": zeros(d), "blocks": blocks}
@@ -185,7 +190,7 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
             index: Optional[torch.Tensor] = None,
             tables: Optional[torch.Tensor] = None,
             kernels: Optional[bool] = None,
-            sketch: Optional[dict] = None
+            sketch: Optional[dict] = None, rows: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: embedded inputs (B, S, d).  Returns (final-normed hidden, cache).
 
@@ -193,10 +198,12 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     recomputed in the backward, as the reference's
     ``jax.checkpoint(nothing_saveable)`` over the layer scan), "decode" (one
     token per slot at per-slot positions ``index`` (B,) through the block
-    ``tables`` (B, nb)), "chunk" (a (1, C) prompt chunk of one slot at
-    absolute offset ``index`` (1,) through its (1, nb) table row).  The
-    paged modes write the cache in place and return it.  ``kernels``:
-    paged attention implementation (see kernels/ops.py).
+    ``tables`` (B, nb)), "verify" (S consecutive tokens per slot from
+    ``index``: the speculative verify step), "chunk" (a (1, C) prompt
+    chunk of one slot at absolute offset ``index`` (1,) through its
+    (1, nb) table row).  The paged modes write the cache in place and
+    return it.  ``kernels``: paged attention implementation (see
+    kernels/ops.py).
 
     ``sketch`` (paged modes only): two-span long-context attention
     against FCS tail tables (serve/kv_sketch.py): {"fold_base": (B,)
@@ -204,16 +211,32 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     "coeffs": (Z, 4) hash coefficients, "pos_hash": the (Z, T) position
     buckets and signs of ``kv_sketch.pos_buckets_signs``}.  Without it
     nothing is folded and the exact span starts at 0.
+
+    ``rows`` (paged modes only): run the B*S rows padded with zero rows
+    to this count (models/layers.py, row padding).
     """
     _check_family(cfg)
     if mode == "train":
         for p_l in params["blocks"]:
             x = checkpoint(_train_block, p_l, x, cfg, use_reentrant=False)
         return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), None
-    if mode not in ("decode", "chunk"):
+    if mode not in ("decode", "verify", "chunk"):
         raise ValueError(f"mode {mode!r} is not ported (train / decode / "
-                         f"chunk)")
-    B, S, _ = x.shape
+                         f"verify / chunk)")
+    B, S, d = x.shape
+    y = _paged_forward(params, x, cfg, cache, index, tables, kernels, sketch,
+                       rows)
+    return y[:B * S].view(B, S, d), cache
+
+
+def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                   cache: dict, index: torch.Tensor, tables: torch.Tensor,
+                   kernels: Optional[bool], sketch: Optional[dict],
+                   rows: Optional[int] = None) -> torch.Tensor:
+    """The paged modes of ``forward`` on the B*S rows of x, padded with
+    zero rows to ``rows`` when given (models/layers.py, row padding):
+    returns the final-normed hidden rows in that (rows, d) layout."""
+    B, S, d = x.shape
     positions = index[:, None] + torch.arange(S, dtype=torch.int32,
                                               device=x.device)
     if sketch is None:
@@ -221,15 +244,18 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         fold_base = sketch["fold_base"]
     kv = cache["kv"]
+    h = x.reshape(B * S, d)
+    if rows is not None:
+        h = ly.pad_rows(h, rows)
     for i, p_l in enumerate(params["blocks"]):
-        h = ly.rms_norm(x, p_l["norm1"], cfg.norm_eps)
+        a = ly.rms_norm(h, p_l["norm1"], cfg.norm_eps)
         tail = (None if sketch is None
                 else (sketch["tail"][0, i], sketch["tail"][1, i]))
-        a = ly.paged_self_attention(p_l["attn"], h, cfg, kv["k"][i],
+        a = ly.paged_self_attention(p_l["attn"], a, cfg, kv["k"][i],
                                     kv["v"][i], positions, tables,
                                     fold_base, kernels, tail, sketch)
-        x = _ffn_residual(p_l, x + a, cfg)
-    return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+        h = _ffn_residual(p_l, h + a, cfg)
+    return ly.rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
 def embed_inputs(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -249,16 +275,43 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                 index: torch.Tensor, cfg: ModelConfig,
                 tables: torch.Tensor, kernels: Optional[bool] = None,
-                sketch: Optional[dict] = None
+                sketch: Optional[dict] = None, rows: Optional[int] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """tokens: (B, 1) int; index: (B,) int32 positions; tables: (B, nb)
-    int32; ``sketch``: optional two-span state (see forward).  Returns
-    (logits (B, Vp) f32, cache updated in place)."""
+    int32; ``sketch``: optional two-span state, ``rows`` the padded row
+    count (see forward).  Returns (logits (B, Vp) f32, cache updated in
+    place)."""
+    logits, cache = verify_step(params, cache, tokens, index, cfg, tables,
+                                kernels=kernels, sketch=sketch, rows=rows)
+    return logits[:, 0], cache
+
+
+def verify_step(params: Params, cache: dict, tokens: torch.Tensor,
+                index: torch.Tensor, cfg: ModelConfig,
+                tables: torch.Tensor, kernels: Optional[bool] = None,
+                sketch: Optional[dict] = None, rows: Optional[int] = None
+                ) -> Tuple[torch.Tensor, dict]:
+    """Speculative verification (the reference's ``verify_step``): score
+    C tokens per slot in one multi-query decode against the paged pool.
+
+    tokens: (B, C) int — each slot's last committed token followed by its
+    C - 1 draft proposals; index: (B,) int32, the slot's decode position.
+    Rows for positions index[b] .. index[b] + C - 1 scatter through the
+    slot's block table as C successive decode steps would (rows past the
+    table land in the write sink), and the logits (B, C, Vp) f32 at
+    position index[b] + i are what a decode step would give after
+    committing tokens[:, :i + 1]: bitwise, when both pad their rows to one
+    ``rows`` count (models/layers.py, row padding; the library GEMMs and
+    row reductions pick their order by shape) and since the paged
+    kernel's KV splits ignore C (kernels/paged_attention.py:plan).
+    Rejected rows above the accepted prefix are rewritten by the next
+    round before any query can attend them."""
+    B, C = tokens.shape
     x = embed_inputs(params, tokens)
-    y, cache = forward(params, x, cfg, mode="decode", cache=cache,
-                       index=index.to(torch.int32), tables=tables,
-                       kernels=kernels, sketch=sketch)
-    return ly.logits_fn(params, y, cfg)[:, 0], cache
+    y = _paged_forward(params, x, cfg, cache, index.to(torch.int32),
+                       tables, kernels, sketch, rows)
+    logits = ly.logits_fn(params, y, cfg, rows=B * C)
+    return logits.view(B, C, -1), cache
 
 
 def prefill_chunk(params: Params, cache: dict, tokens: torch.Tensor,
@@ -279,7 +332,6 @@ def prefill_chunk(params: Params, cache: dict, tokens: torch.Tensor,
           if torch.is_tensor(start)
           else torch.full((1,), start, dtype=torch.int32, device=dev))
     tbl = table.to(device=dev, dtype=torch.int32).reshape(1, -1)
-    _, cache = forward(params, embed_inputs(params, tokens), cfg,
-                       mode="chunk", cache=cache, index=st, tables=tbl,
-                       kernels=kernels, sketch=sketch)
+    _paged_forward(params, embed_inputs(params, tokens), cfg, cache, st,
+                   tbl, kernels, sketch)
     return cache

@@ -4,7 +4,9 @@
 in, a (B, max_new) token matrix out — as a thin wrapper over the async
 front-end: each batch row becomes one streamed submission against the
 cached scheduler's pump, drained inside an ``asyncio.run``.  Greedy batch
-output is the streamed output; there is one serving path.
+output is the streamed output; there is one serving path.  With
+``cfg.serve.spec_k > 0`` the draft is derived once per weights and
+shared by every scheduler the engine builds.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.draft import make_draft
 from repro_torch.serve.frontend import AsyncServeEngine
 from repro_torch.serve.scheduler import EngineStats, SlotScheduler
 
@@ -51,6 +54,7 @@ class ServeEngine:
         self.max_batch = max_batch
         self.device = resolve_device(device)
         self._frontends = {}         # max_batch -> AsyncServeEngine
+        self._draft = None           # derived once per weights
         self._rid = 0
 
     def _frontend(self, batch: int) -> AsyncServeEngine:
@@ -60,22 +64,33 @@ class ServeEngine:
         if self._frontends and next(iter(self._frontends.values())
                                     ).scheduler.params is not self.params:
             self._frontends.clear()
+            self._draft = None       # derived from the old weights
         kb = self.max_batch or batch
         if kb not in self._frontends:
             serve = dataclasses.replace(self.cfg.serve, max_batch=kb,
                                         max_seq=self.max_seq)
+            if serve.spec_k > 0 and self._draft is None:
+                # the derivation is a real pass (count sketches of every
+                # block matrix) and does not depend on the slot geometry
+                self._draft = make_draft(self.params, self.cfg, serve)
             self._frontends[kb] = AsyncServeEngine(scheduler=SlotScheduler(
-                self.cfg, self.params, serve=serve, device=self.device))
+                self.cfg, self.params, serve=serve, device=self.device,
+                draft=self._draft))
         return self._frontends[kb]
 
     def generate(self, tokens, max_new: int = 32, temperature: Per = 0.0,
                  top_k: Per = 0, seed: Optional[int] = None,
+                 spec_k: Optional[Per] = None,
                  kv_sketch: Optional[Per] = None) -> GenerationResult:
         """tokens: (B, S) prompt ids.  ``temperature`` / ``top_k`` may be
         scalars or length-B vectors; a request is greedy when its
         temperature is 0.  ``seed`` seeds row b's sampler with seed + b,
         so two calls with one seed draw the same tokens; without it the
         generators derive from cfg.serve.seed and the request id.
+        ``spec_k`` (scalar or per-request) sets speculative tokens per
+        round, defaulting to ``cfg.serve.spec_k`` and clamped to it: an
+        engine built with spec_k > 0 speculates, and a request may opt
+        down to plain decode with 0.
         ``kv_sketch`` (scalar or per-request bools) opts requests out of
         long-context KV sketching on engines built with
         ``cfg.serve.kv_sketch_window > 0``: False keeps that request's
@@ -88,6 +103,8 @@ class ServeEngine:
         front = self._frontend(B)
         temps = _per_request(temperature, B, "temperature")
         ks = _per_request(top_k, B, "top_k")
+        sks = (None if spec_k is None
+               else _per_request(spec_k, B, "spec_k"))
         kss = (None if kv_sketch is None
                else _per_request(kv_sketch, B, "kv_sketch"))
         rids = list(range(self._rid, self._rid + B))
@@ -100,6 +117,7 @@ class ServeEngine:
                     prompts[b], max_new=max_new,
                     temperature=float(temps[b]), top_k=int(ks[b]),
                     seed=None if seed is None else seed + b,
+                    spec_k=None if sks is None else int(sks[b]),
                     kv_sketch=None if kss is None else bool(kss[b]),
                     deadline_s=0,         # batch callers never expire
                     rid=rids[b]))

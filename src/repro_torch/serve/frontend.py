@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import DeviceLike
+from repro_torch.models.draft import Draft
 from repro_torch.serve.scheduler import (Completion, EngineStats, Request,
                                          SlotScheduler)
 
@@ -85,7 +86,8 @@ class AsyncServeEngine:
                  params: Any = None,
                  serve: Optional[ServeConfig] = None,
                  scheduler: Optional[SlotScheduler] = None,
-                 temperature: float = 0.0, device: DeviceLike = None):
+                 temperature: float = 0.0, device: DeviceLike = None,
+                 draft: Optional[Draft] = None):
         if scheduler is not None:
             self._sched = scheduler
         else:
@@ -94,7 +96,7 @@ class AsyncServeEngine:
                                  "scheduler=")
             self._sched = SlotScheduler(cfg, params, serve=serve,
                                         temperature=temperature,
-                                        device=device)
+                                        device=device, draft=draft)
         sv = self._sched.serve
         self.queue_depth = max(1, int(sv.queue_depth))
         self.default_deadline_s = float(sv.default_deadline_s)
@@ -115,12 +117,15 @@ class AsyncServeEngine:
                      temperature: Optional[float] = None, top_k: int = 0,
                      seed: Optional[int] = None,
                      generator: Optional[torch.Generator] = None,
+                     spec_k: Optional[int] = None,
                      kv_sketch: Optional[bool] = None,
                      priority: int = 0,
                      deadline_s: Optional[float] = None,
                      rid: Optional[int] = None) -> StreamHandle:
         """Submit one request; returns its StreamHandle.  Waits (never
         raises) while ``queue_depth`` requests are already queued.
+        ``spec_k`` sets this request's speculative tokens per round on a
+        spec engine (None: the engine's; 0: plain decode);
         ``kv_sketch=False`` keeps this request's whole context exact on a
         sketched engine; ``deadline_s`` is relative to now (None -> the
         serve config's default; 0 disables); ``rid`` overrides the
@@ -140,7 +145,8 @@ class AsyncServeEngine:
         req = Request(rid=rid, tokens=np.asarray(tokens, np.int32),
                       max_new=int(max_new), temperature=temperature,
                       top_k=int(top_k), seed=seed, generator=generator,
-                      kv_sketch=kv_sketch, priority=int(priority),
+                      spec_k=spec_k, kv_sketch=kv_sketch,
+                      priority=int(priority),
                       deadline=deadline)
         self._sched.submit(req)
         handle = StreamHandle(self, req)

@@ -24,12 +24,15 @@ reference.  On CPU tensors both ops run their plain versions.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.count_sketch import Index, bucket_links
+from repro_torch.models.layers import padded_rows
 from repro_torch.sketch.csvec import median_rows
 from repro_torch.sketch.hashing import cached_coeffs, row_buckets_signs
 
@@ -61,21 +64,26 @@ def pos_domain(max_seq: int, block_size: int) -> int:
     return -(-max_seq // block_size) * block_size
 
 
-def pos_buckets_signs(coeffs: torch.Tensor, T: int, cols: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(Z, T) int64 buckets and f32 signs of positions [0, T): the hashes
-    fold and query share, computed once per engine (the port's form of
-    the reference's precomputed ``pos_onehot``)."""
+class PosHash(NamedTuple):
+    bk: torch.Tensor        # (Z, T) int32 buckets
+    sg: torch.Tensor        # (Z, T) f32 signs
+    links: Index            # their bucket links (count_sketch's order)
+
+
+def pos_buckets_signs(coeffs: torch.Tensor, T: int, cols: int) -> PosHash:
+    """(Z, T) buckets and signs of positions [0, T), with their bucket
+    links: the hashes fold and query share, computed once per engine (the
+    port's form of the reference's precomputed ``pos_onehot``)."""
     idx = torch.arange(T, dtype=torch.int64, device=coeffs.device)
     bk, sg = row_buckets_signs(coeffs, idx, cols, signed=True)
-    return bk.long(), sg
+    return PosHash(bk, sg, bucket_links(bk, sg, cols))
 
 
 def pos_onehot(coeffs: torch.Tensor, T: int, cols: int) -> torch.Tensor:
     """(Z, T, cols) signed position one-hot: onehot[z, j, c] =
     s_z(j) * [h_z(j) == c] (the reference's fold and query operand; the
-    port gathers and scatters through ``pos_buckets_signs`` instead)."""
-    bk, sg = pos_buckets_signs(coeffs, T, cols)
+    port count-sketches through ``pos_buckets_signs`` instead)."""
+    bk, sg, _ = pos_buckets_signs(coeffs, T, cols)
     cols_iota = torch.arange(cols, dtype=torch.int64, device=coeffs.device)
     return torch.where(cols_iota[None, None, :] == bk[:, :, None],
                        sg[:, :, None], torch.zeros((), device=coeffs.device))
@@ -159,7 +167,7 @@ def fold_rows(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
 
 def tail_attend(q: torch.Tensor, tail_k: torch.Tensor, tail_v: torch.Tensor,
                 coeffs: torch.Tensor,
-                pos_hash: Tuple[torch.Tensor, torch.Tensor],
+                pos_hash: PosHash,
                 fold_base: torch.Tensor, scale: float,
                 use_kernel: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -171,12 +179,20 @@ def tail_attend(q: torch.Tensor, tail_k: torch.Tensor, tail_v: torch.Tensor,
     position is >= fold_base, so the whole tail is causally visible —
     only the live-span mask applies.
 
+    A query row's statistics are the same bits whatever Sq the call has:
+    the score estimates and the softmax reduce each row alone, the count
+    sketch of the softmax weights runs in one chunk of positions
+    (``count_sketch_op(chunks=1)``, a fixed order of additions), and the
+    value contraction runs at ``padded_rows(R*Sq)`` rows, so a verify
+    step's rows are its decode steps' while both pad to one count (the
+    scheduler refuses a sketched spec engine where they would not).
+
     Returns (m, l, acc): (B, K, R, Sq), same, and (B, K, R, Sq, hd) f32,
     merge-ready against the exact span's statistics.  An empty tail
     (fold_base == 0) yields m = -1e30, l = 0, acc = 0."""
     B, Sq, K, R, hd = q.shape
     Z, C = tail_k.shape[1], tail_k.shape[2]
-    bk, sg = pos_hash                                         # (Z, T)
+    bk, sg, links = pos_hash                                  # (Z, T)
     T = bk.shape[1]
     qt = q.permute(0, 2, 3, 1, 4).reshape(B, K, R * Sq, hd).float()
     est = kops.tail_scores_op(qt.contiguous(), tail_k, coeffs, T,
@@ -189,13 +205,15 @@ def tail_attend(q: torch.Tensor, tail_k: torch.Tensor, tail_v: torch.Tensor,
     w = torch.where(live, torch.exp(s - m[..., None]), 0.0)
     l = w.sum(dim=-1)
     # CS is linear: sum_j w_j v_j ~= < CS_z(w), tail_v[z] > per row z
-    wz = w[:, None] * sg[None, :, None, None, None, :]      # (B,Z,K,R,Sq,T)
-    cw = torch.zeros((B, Z, K, R, Sq, C), dtype=torch.float32,
-                     device=q.device)
-    cw.scatter_add_(-1, bk[None, :, None, None, None, :].expand_as(wz), wz)
-    acc = median_rows(torch.einsum("bzkrqc,bzckh->zbkrqh", cw,
-                                   tail_v.float()))
-    return m, l, acc
+    RS = R * Sq
+    cw = kops.count_sketch_op(w.reshape(B * K * RS, T), bk, sg, C,
+                              index=links, use_kernel=use_kernel, chunks=1)
+    rows = padded_rows(RS)
+    cw = F.pad(cw.view(Z, B, K, RS, C).permute(1, 0, 2, 3, 4),
+               (0, 0, 0, rows - RS))                         # (B,Z,K,rows,C)
+    est_v = torch.matmul(cw, tail_v.float().permute(0, 1, 3, 2, 4))
+    acc = median_rows(est_v[:, :, :, :RS].permute(1, 0, 2, 3, 4))
+    return m, l, acc.reshape(B, K, R, Sq, hd)
 
 
 def merge_spans(m_e: torch.Tensor, l_e: torch.Tensor, acc_e: torch.Tensor,

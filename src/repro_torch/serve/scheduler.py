@@ -50,8 +50,28 @@ runs the sketch-free attention, which is what the sketched attention
 selects for such slots anyway (the ``fold_base == 0`` anchor); host
 mirrors tell which.
 
-Not ported yet (each raises ``NotImplementedError``): speculative decoding
-(``spec_k > 0``), recurrent families and the observer hooks.
+Speculative decoding (``serve.spec_k > 0`` / per-request
+``Request.spec_k``, serve/speculative.py): a draft (``models/draft.py``,
+truncated and/or count-sketch-compressed, or given as ``draft=``) keeps
+its own shallow paged pool in ``cache["draft"]`` (and its own tail when
+sketched), on the target's block ids, tables and refcounts; it prefills
+in lockstep with the target, proposes K tokens a round, and the target
+verifies them in one multi-query step.  Greedy speculative output is
+token for token plain greedy output: decode and verify steps pad their
+rows to one count, ``step_rows`` (models/layers.py, row padding), and an
+engine whose verify rows (max_batch * (spec_k + 1)), or sketched
+tail-span rows, would pad further is refused.  Every slot of a spec engine
+reserves ``spec_overhang`` = spec_k rows past its demand, as the
+reference's books do; verify and draft writes above the committed
+position stay in its own blocks below max_seq and land in the write sink
+past it (the model sees the first ``attn_blocks`` table entries, the
+plain engine's table width).  A slot never writes a block that another
+holder shares: after admission ``_ensure_exclusive`` forks (copy-on-write,
+both pools) every shared block its decode region reaches, because a
+verify step writes proposals that may be rejected.
+
+Not ported yet (each raises ``NotImplementedError``): recurrent families
+and the observer hooks.
 """
 from __future__ import annotations
 
@@ -66,7 +86,10 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.models import layers as ly
+from repro_torch.models.draft import Draft, make_draft
 from repro_torch.serve import kv_sketch as kvs
+from repro_torch.serve import speculative as spec
 from repro_torch.serve.prefix_cache import SketchPrefixCache
 
 
@@ -92,6 +115,10 @@ class Request:
     # time.monotonic() past which the request expires
     priority: int = 0
     deadline: Optional[float] = None
+    # speculative tokens per round: None -> the engine default
+    # (serve.spec_k), clamped to the engine max; 0 decodes this request
+    # plainly inside a speculative engine
+    spec_k: Optional[int] = None
 
 
 @dataclass
@@ -140,10 +167,26 @@ class EngineStats:
     prefix_cached_bytes: int = _stat("gauge")
     fold_rows: int = _stat("counter")   # exact rows folded into tails
     kv_sketch_tail_bytes: int = _stat("gauge")
+    spec_rounds: int = _stat("counter")     # verify rounds of spec slots
+    spec_proposed: int = _stat("counter")   # draft tokens proposed
+    spec_accepted: int = _stat("counter")   # ... verified and emitted
 
     @property
     def prefix_hit_rate(self) -> float:
         return self.prefix_hits / max(self.prefix_lookups, 1)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals that survived verification."""
+        return self.spec_accepted / max(self.spec_proposed, 1)
+
+    @property
+    def mean_accepted_run(self) -> float:
+        """Tokens emitted per verify round by speculating slots (accepted
+        proposals plus the target's token): 1.0 means speculation never
+        helps, spec_k + 1 is the ceiling."""
+        return ((self.spec_accepted + self.spec_rounds)
+                / max(self.spec_rounds, 1))
 
     @staticmethod
     def merge(parts: Sequence["EngineStats"]) -> "EngineStats":
@@ -180,6 +223,12 @@ class EngineStats:
         if self.fold_rows or self.kv_sketch_tail_bytes:
             lines.append(f"kv sketch: folded_rows={self.fold_rows}, "
                          f"tail_bytes={self.kv_sketch_tail_bytes}")
+        if self.spec_rounds:
+            lines.append(
+                f"speculative: acceptance={self.acceptance_rate:.2f} "
+                f"({self.spec_accepted}/{self.spec_proposed}), "
+                f"mean_run={self.mean_accepted_run:.2f} over "
+                f"{self.spec_rounds} rounds")
         return "\n".join(lines)
 
 
@@ -228,6 +277,21 @@ class BlockAllocator:
             if self.rc[b] == 0:
                 self._free.append(b)
 
+    def fork(self, b: int) -> Optional[int]:
+        """Copy-on-write preparation for one holder of block ``b``: the
+        sole holder (refcount 1) keeps ``b``; otherwise a fresh block is
+        taken (refcount 1), the caller's reference on ``b`` dropped and
+        the new id returned, for the caller to copy the rows into and
+        rebind.  None when no block is free (the caller defers)."""
+        assert self.rc[b] >= 1, f"fork of unheld block {b}"
+        if self.rc[b] == 1:
+            return b
+        ids = self.alloc(1)
+        if ids is None:
+            return None
+        self.rc[b] -= 1          # rc > 1: never reaches the free list here
+        return ids[0]
+
     def reserved_bytes(self) -> int:
         return self.reserved * self.block_bytes
 
@@ -239,7 +303,8 @@ class BlockAllocator:
 class DecodeState:
     """Device-resident slot state; every tensor keeps its shape for the
     engine's lifetime and is updated in place."""
-    cache: Dict[str, Any]        # {"kv": {"k", "v"}} block pool (+ sink)
+    cache: Dict[str, Any]        # {"kv": {"k", "v"}} block pool (+ sink),
+                                 # "tail", and a spec engine's "draft"
     tables: torch.Tensor         # (B, blocks_per_slot) int32 block tables
     cur: torch.Tensor            # (B, 1) int64 next token to feed
     pos: torch.Tensor            # (B,) int32 write/attend position
@@ -247,6 +312,7 @@ class DecodeState:
     temp: torch.Tensor           # (B,) f32 sampling temperature
     top_k: torch.Tensor          # (B,) int32 top-k cutoff (0 = off)
     fold_base: torch.Tensor      # (B,) int32 first exact (unfolded) row
+    spec_k: torch.Tensor         # (B,) int32 proposals per round
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -257,13 +323,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class SlotScheduler:
     def __init__(self, cfg: ModelConfig, params: Any,
                  serve: Optional[ServeConfig] = None,
-                 temperature: float = 0.0, device: DeviceLike = None):
+                 temperature: float = 0.0, device: DeviceLike = None,
+                 draft: Optional[Draft] = None):
+        sv = serve if serve is not None else cfg.serve
+        if sv.spec_k > 0 and cfg.family not in tf.ATTN_FAMILIES:
+            raise ValueError(f"speculative decode needs a kv-cache family "
+                             f"the port serves {tf.ATTN_FAMILIES}, got "
+                             f"{cfg.family!r}")
         if cfg.family not in tf.ATTN_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "Queue 1 #12")
-        sv = serve if serve is not None else cfg.serve
-        if sv.spec_k > 0:
-            raise _not_ported("speculative decoding (spec_k > 0)",
-                              "Queue 1 #8")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine "
@@ -278,6 +346,37 @@ class SlotScheduler:
         # paged attention implementation: None picks by device
         self.use_kernels = sv.paged_kernels
         B = sv.max_batch
+        # speculative decode: an explicit draft wins; else one derived from
+        # the serve knobs (None when spec_k == 0)
+        self.draft = draft if draft is not None else make_draft(params, cfg,
+                                                                 sv)
+        self.spec_max = int(sv.spec_k) if self.draft is not None else 0
+        # decode and verify steps run their rows padded to one count, the
+        # plain engine's of this max_batch, so a verify row is bitwise
+        # that engine's decode row (models/layers.py, row padding); a spec
+        # engine whose verify rows, or sketched tail-span rows, would pad
+        # further is refused rather than silently losing that identity
+        self.step_rows = ly.padded_rows(B)
+        rows_of = [("max_batch", B)]
+        if sv.kv_sketch_window:
+            rows_of.append(("query heads per kv head",
+                            cfg.num_heads // cfg.num_kv_heads))
+        for what, n in rows_of:
+            verify = n * (self.spec_max + 1)
+            if ly.padded_rows(verify) != ly.padded_rows(n):
+                raise ValueError(
+                    f"spec_k {self.spec_max}: {what} x (spec_k + 1) = "
+                    f"{verify} verify rows pad to {ly.padded_rows(verify)}, "
+                    f"the decode step's {n} to {ly.padded_rows(n)}, so "
+                    f"greedy speculative output would not be bitwise plain "
+                    f"output; lower max_batch or spec_k")
+        self.spec_rounds = 0       # verify rounds run by speculating slots
+        self.spec_proposed = 0     # draft tokens proposed in those rounds
+        self.spec_accepted = 0     # draft tokens verified and emitted
+        # host mirror of each slot's proposals per round (0 for sampled
+        # slots, which never accept proposals)
+        self._slot_spec: List[int] = [0] * B
+        self.forks = 0             # copy-on-write block forks made
         self._queue: List[Request] = []
         self._slot_req: List[Optional[Request]] = [None] * B
         self._slot_out: List[List[int]] = [[] for _ in range(B)]
@@ -323,7 +422,18 @@ class SlotScheduler:
             raise ValueError(f"kv_block_size {self.block_size} must divide "
                              f"prefix_block {sv.prefix_block} so cached "
                              f"prefixes share whole blocks")
-        self.blocks_per_slot = -(-sv.max_seq // self.block_size)
+        # verify and draft writes overhang the committed sequence by up to
+        # spec_max rows; every slot of a spec engine (the verify step is
+        # batch-wide) reserves them, so they land in its own blocks
+        self.spec_overhang = self.spec_max
+        self.blocks_per_slot = -(-(sv.max_seq + self.spec_overhang)
+                                 // self.block_size)
+        # the model reads and writes through the first attn_blocks entries
+        # of each table: positions past max_seq (a verify step's rejected
+        # overhang at the end of a long request) land in the write sink,
+        # and the paged kernel's split plan, which reads the table width,
+        # is the plain engine's, so verify rows are its decode rows
+        self.attn_blocks = -(-sv.max_seq // self.block_size)
         nb = sv.num_kv_blocks or B * self.blocks_per_slot
         self.num_blocks = nb
         self.sketch_on = bool(sv.kv_sketch_window)
@@ -344,16 +454,24 @@ class SlotScheduler:
                 self.tail_coeffs, self.tail_domain, self.tail_cols)
             # max position advance per decode chunk; the in-chunk fold cap
             # keeps pace with it (+1 block so a lagging slot catches up)
-            self.adv_max = sv.decode_chunk
+            self.adv_max = sv.decode_chunk * (self.spec_max + 1)
             self.fold_cap = bs * (-(-self.adv_max // bs) + 1)
             bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
             self.prefill_fold_cap = bs * (bucket // bs + 1)
             tail = (B, Z, self.tail_cols)
         cache = tf.init_paged_cache(cfg, nb, self.block_size, self.device,
                                     tail=tail)
-        # K and V, all layers, one block (the tail tables are per-slot
-        # constant state, not paged)
-        block_bytes = (2 * cfg.num_layers * self.block_size
+        layers = cfg.num_layers
+        if self.draft is not None:
+            # the draft's shallow pool mirrors the target's block for block
+            # (same ids, tables and refcounts), so prefix sharing, forks
+            # and frees cover both
+            cache["draft"] = tf.init_paged_cache(
+                self.draft.cfg, nb, self.block_size, self.device, tail=tail)
+            layers += self.draft.cfg.num_layers
+        # K and V, all layers of both pools, one block (the tail tables
+        # are per-slot constant state, not paged)
+        block_bytes = (2 * layers * self.block_size
                        * cfg.num_kv_heads * cfg.resolved_head_dim
                        * cache["kv"]["k"].element_size())
         self.alloc = BlockAllocator(nb, block_bytes)
@@ -370,6 +488,7 @@ class SlotScheduler:
             temp=torch.zeros((B,), dtype=torch.float32, device=dev),
             top_k=torch.zeros((B,), dtype=torch.int32, device=dev),
             fold_base=torch.zeros((B,), dtype=torch.int32, device=dev),
+            spec_k=torch.zeros((B,), dtype=torch.int32, device=dev),
         )
 
     def set_observer(self, obs: Any) -> None:
@@ -409,35 +528,61 @@ class SlotScheduler:
         return {"fold_base": fold_base, "tail": tail,
                 "coeffs": self.tail_coeffs, "pos_hash": self.tail_pos_hash}
 
+    def _attn_tables(self, tables: torch.Tensor) -> torch.Tensor:
+        """The model's view of block tables (B, blocks_per_slot) or a row:
+        the first ``attn_blocks`` entries."""
+        if tables.shape[-1] == self.attn_blocks:
+            return tables
+        return tables[..., :self.attn_blocks].contiguous()
+
+    def _pools(self) -> List[dict]:
+        """The paged caches {"kv", ("tail")}: the target's, then the
+        draft's in a spec engine."""
+        c = self._state.cache
+        return [c] + ([c["draft"]] if self.draft is not None else [])
+
     def _run_chunk(self, fold: Optional[np.ndarray] = None) -> torch.Tensor:
-        """Enqueue ``decode_chunk`` decode steps for every slot; returns
-        the stacked (2, chunk, B) int64 tokens and emit flags, still on
-        the device.  A sketch engine first folds ``fold[b]`` aged rows of
-        each slot into its tail (planned by ``_plan_folds``): the folded
-        rows lie below the window every query of the chunk keeps exact,
-        so folding at the head equals folding between the steps."""
+        """Enqueue ``decode_chunk`` decode steps (a spec engine: rounds,
+        serve/speculative.py) for every slot; returns the stacked
+        (2, chunk, B) — spec: (2, chunk, B, K + 1) — int64 tokens and emit
+        flags, still on the device.  A sketch engine first folds
+        ``fold[b]`` aged rows of each slot into its tail, in both pools of
+        a spec engine (planned by ``_plan_folds``): the folded rows lie
+        below the window every query of the chunk keeps exact, so folding
+        at the head equals folding between the steps."""
         cfg, st = self.cfg, self._state
         sampled = [s for s, r in enumerate(self._slot_req)
                    if r is not None and self._slot_temp[s] > 0.0]
-        sketch = None
+        sketch = draft_sketch = None
         if fold is not None:
             if fold.any():
                 fold_len = self._to_device(fold)
-                kvs.fold_pool(st.cache["kv"], st.cache["tail"], st.tables,
-                              st.fold_base, fold_len, self.tail_coeffs,
-                              self.fold_cap, use_kernel=self.use_kernels)
+                for c in self._pools():
+                    kvs.fold_pool(c["kv"], c["tail"], st.tables,
+                                  st.fold_base, fold_len, self.tail_coeffs,
+                                  self.fold_cap, use_kernel=self.use_kernels)
                 st.fold_base.add_(fold_len)
             bs = self.block_size
             if any(r is not None and self._slot_first_lblk[s] * bs + fold[s]
                    for s, r in enumerate(self._slot_req)):
-                sketch = self._sketch_state(st.fold_base, st.cache["tail"])
+                sketch, draft_sketch = ([
+                    self._sketch_state(st.fold_base, c["tail"])
+                    for c in self._pools()] + [None])[:2]
+        tables = self._attn_tables(st.tables)
+        if self.spec_max > 0:
+            return spec.spec_chunk(
+                self.params, self.draft, cfg, st, tables,
+                self.serve.decode_chunk, self.spec_max,
+                lambda lg: self._sample(lg, sampled), self.step_rows,
+                kernels=self.use_kernels, sketch=sketch,
+                draft_sketch=draft_sketch)
         toks, emits = [], []
         for _ in range(self.serve.decode_chunk):
             running = st.remaining > 0
             logits, _ = tf.decode_step(self.params, st.cache, st.cur, st.pos,
-                                       cfg, st.tables,
+                                       cfg, tables,
                                        kernels=self.use_kernels,
-                                       sketch=sketch)
+                                       sketch=sketch, rows=self.step_rows)
             nxt = self._sample(logits[:, :cfg.vocab_size], sampled)
             step = running.to(torch.int32)
             st.pos.add_(step)
@@ -463,14 +608,14 @@ class SlotScheduler:
         # reject up front what the pool can never serve, so it can't
         # head-of-line-block the queue
         bs = self.block_size
-        need = -(-(S + req.max_new) // bs)
+        need = -(-(S + req.max_new + self.spec_overhang) // bs)
         if self.sketch_on and req.kv_sketch is not False:
             # a sketched request never holds its whole context: its peak
             # is the exact window + one prefill bucket of write frontier +
-            # one chunk of decode lookahead
+            # one chunk of decode lookahead (+ speculative overhang)
             bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
             peak = (self.kv_window // bs + -(-bucket // bs)
-                    + -(-self.adv_max // bs) + 2)
+                    + -(-(self.adv_max + self.spec_overhang) // bs) + 2)
             need = min(need, peak)
         if need > self.num_blocks:
             raise ValueError(f"request needs {need} KV blocks of "
@@ -524,10 +669,30 @@ class SlotScheduler:
             seg = prompt[off:off + bucket]
             tok = np.zeros((1, bucket), np.int64)
             tok[0, :len(seg)] = seg
-            tf.prefill_chunk(self.params, self._state.cache,
-                             self._to_device(tok), table, off, self.cfg,
-                             kernels=self.use_kernels)
+            self._prefill_one(self._to_device(tok), table, off)
             off += bucket
+
+    def _prefill_one(self, tok: torch.Tensor, table: torch.Tensor, off: int,
+                     slot: int = 0, fold_base: int = 0) -> None:
+        """One prefill chunk through the target pool and, in lockstep
+        through the same table, the draft's, so a cached prefix's blocks
+        hold both models' rows.  ``fold_base`` > 0: the chunk attends the
+        slot's folded span through its tails."""
+        dev = self.device
+        table = self._attn_tables(table)
+        fb = None
+        if fold_base > 0:
+            fb = torch.full((1,), fold_base, dtype=torch.int32, device=dev)
+        models = [(self.params, self.cfg)]
+        if self.draft is not None:
+            models.append((self.draft.params, self.draft.cfg))
+        for (params, cfg), c in zip(models, self._pools()):
+            sketch = None
+            if fb is not None:
+                sketch = self._sketch_state(fb,
+                                            c["tail"][:, :, slot:slot + 1])
+            tf.prefill_chunk(params, c, tok, table, off, cfg,
+                             kernels=self.use_kernels, sketch=sketch)
 
     def _sketch_prefill_admit(self, slot: int, prompt: np.ndarray,
                               shared: List[int], start_off: int
@@ -549,7 +714,6 @@ class SlotScheduler:
         row = np.full((self.blocks_per_slot,), NB, np.int32)
         slot_ids = list(shared)
         row[:len(slot_ids)] = slot_ids
-        tail = self._state.cache["tail"][:, :, slot:slot + 1]
         first_lblk = 0
         fold_base = 0
         off = (start_off // bucket) * bucket
@@ -567,29 +731,24 @@ class SlotScheduler:
                 slot_ids.extend(ids)
             tok = np.zeros((1, bucket), np.int64)
             tok[0, :len(seg)] = seg
-            sketch = None
-            if fold_base > 0:
-                sketch = self._sketch_state(
-                    torch.full((1,), fold_base, dtype=torch.int32,
-                               device=dev), tail)
-            tf.prefill_chunk(self.params, self._state.cache,
-                             self._to_device(tok), self._to_device(row), off,
-                             self.cfg, kernels=self.use_kernels,
-                             sketch=sketch)
+            self._prefill_one(self._to_device(tok), self._to_device(row),
+                              off, slot, fold_base)
             # fold whole blocks that aged past the window ([0, end) keeps
             # >= W exact rows; the decode resume row S-1 always stays
             # exact because fold_base <= S - W <= S - 1)
             n_elig = max(0, (end - W) // bs) - first_lblk
             while n_elig > 0:
                 k = min(n_elig, self.prefill_fold_cap // bs)
-                kvs.fold_pool(
-                    self._state.cache["kv"], tail,
-                    self._to_device(row)[None],
-                    torch.full((1,), fold_base, dtype=torch.int32,
-                               device=dev),
-                    torch.full((1,), k * bs, dtype=torch.int32, device=dev),
-                    self.tail_coeffs, self.prefill_fold_cap,
-                    use_kernel=self.use_kernels)
+                rows = self._to_device(row)[None]
+                for c in self._pools():
+                    kvs.fold_pool(
+                        c["kv"], c["tail"][:, :, slot:slot + 1], rows,
+                        torch.full((1,), fold_base, dtype=torch.int32,
+                                   device=dev),
+                        torch.full((1,), k * bs, dtype=torch.int32,
+                                   device=dev),
+                        self.tail_coeffs, self.prefill_fold_cap,
+                        use_kernel=self.use_kernels)
                 # sentinel the folded entries before freeing: a freed
                 # block may be re-allocated while this row is live
                 row[first_lblk:first_lblk + k] = NB
@@ -610,6 +769,39 @@ class SlotScheduler:
         while ids is None and self.prefix_cache.evict_one(idle_only=True):
             ids = self.alloc.alloc(n)
         return ids
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy one physical block's rows, every layer of both pools."""
+        for c in self._pools():
+            for t in c["kv"].values():
+                t[:, dst].copy_(t[:, src])
+
+    def _ensure_exclusive(self, slot_ids: List[int], first_write: int,
+                          first_lblk: int = 0) -> bool:
+        """Copy-on-write fork: make every block of the slot that decode
+        can write — logical blocks covering positions >= ``first_write``
+        — held by the slot alone.  A shared block (a prefix-cache entry's
+        or another slot's) is forked: a fresh block is taken (evicting
+        idle cache entries under pressure), its rows copied in both pools,
+        ``slot_ids`` rebound in place and the shared block loses this
+        slot's reference.  False when the pool can't supply a fork target
+        now (the caller unwinds and defers).  ``first_lblk`` is the
+        logical block of ``slot_ids[0]`` (nonzero for a sketched slot
+        whose leading blocks folded)."""
+        bs = self.block_size
+        for i in range(max(0, first_write // bs - first_lblk),
+                       len(slot_ids)):
+            b = slot_ids[i]
+            nb = self.alloc.fork(b)
+            while nb is None and self.prefix_cache.evict_one(idle_only=True):
+                nb = self.alloc.fork(b)
+            if nb is None:
+                return False
+            if nb != b:          # was shared: copy its rows
+                self._copy_block(b, nb)
+                slot_ids[i] = nb
+                self.forks += 1
+        return True
 
     def _admit(self, slot: int, req: Request) -> bool:
         """Try to admit ``req`` into ``slot``; False when the block pool
@@ -640,7 +832,8 @@ class SlotScheduler:
         first_lblk = 0
         if use_sketch:
             # the slot's tables may hold a retired occupant's sums
-            st.cache["tail"][:, :, slot].zero_()
+            for c in self._pools():
+                c["tail"][:, :, slot].zero_()
             slot_ids, first_lblk, ok = self._sketch_prefill_admit(
                 slot, prompt, shared, start_off)
             if not ok:
@@ -650,12 +843,8 @@ class SlotScheduler:
                         f"small for sketched prompt {S} with window "
                         f"{self.kv_window}")
                 return False
-            row = np.full((self.blocks_per_slot,), self.num_blocks,
-                          np.int32)
-            row[first_lblk:first_lblk + len(slot_ids)] = slot_ids
-            st.tables[slot] = self._to_device(row)
         else:
-            n_total = -(-(S + req.max_new) // bs)
+            n_total = -(-(S + req.max_new + self.spec_overhang) // bs)
             new_ids = self._take_blocks(n_total - len(shared))
             if new_ids is None:
                 if hit is not None:
@@ -681,6 +870,23 @@ class SlotScheduler:
         if admit_plen is not None:
             self.prefix_cache.admit(prompt, admit_plen,
                                     tuple(slot_ids[:admit_plen // bs]))
+        # copy-on-write (spec engines): plain decode's one write into a
+        # shared block is the idempotent rewrite of the last prompt row,
+        # but a verify step writes proposals that may be rejected, so a
+        # speculating slot never writes a block with refcount > 1
+        if self.spec_max and not self._ensure_exclusive(slot_ids, S - 1,
+                                                        first_lblk):
+            # pool exhausted mid-fork: drop the slot's references (the
+            # cache keeps any entry admitted above) and defer; the memo
+            # says admission already happened
+            st.tables[slot] = self.num_blocks
+            self.alloc.unref(slot_ids)
+            self._slot_blocks[slot] = []
+            self._admit_memo[req.rid] = None
+            return False
+        row = np.full((self.blocks_per_slot,), self.num_blocks, np.int32)
+        row[first_lblk:first_lblk + len(slot_ids)] = slot_ids
+        st.tables[slot] = self._to_device(row)
         st.fold_base[slot] = first_lblk * bs
         self._slot_first_lblk[slot] = first_lblk
         self._slot_use_sketch[slot] = use_sketch
@@ -693,6 +899,12 @@ class SlotScheduler:
 
         temp = (self.temperature if req.temperature is None
                 else float(req.temperature))
+        eff_spec = 0
+        if self.spec_max:
+            eff_spec = (self.serve.spec_k if req.spec_k is None
+                        else int(req.spec_k))
+            eff_spec = max(0, min(eff_spec, self.spec_max))
+        st.spec_k[slot] = eff_spec
         st.cur[slot, 0] = int(prompt[S - 1])
         st.pos[slot] = S - 1
         st.remaining[slot] = req.max_new
@@ -707,6 +919,7 @@ class SlotScheduler:
                                 else None)
         self._slot_admit_seq[slot] = self._admit_seq
         self._admit_seq += 1
+        self._slot_spec[slot] = eff_spec if temp == 0.0 else 0
         return True
 
     def _complete(self, slot: int, status: str) -> Completion:
@@ -760,6 +973,7 @@ class SlotScheduler:
             self._slot_out[s] = []
             self._slot_temp[s] = 0.0
             self._slot_gen[s] = None
+            self._slot_spec[s] = 0
 
     def _retire(self) -> List[Completion]:
         """Retire every slot whose collected output reached ``max_new``."""
@@ -900,9 +1114,10 @@ class SlotScheduler:
             p = self._slot_pos[s]
             first = self._slot_first_lblk[s]
             held = self._slot_blocks[s]
-            # the chunk writes rows up to p + adv_max, clamped to the
-            # request's own demand
-            last = min(p + self.adv_max, self._slot_rows[s] - 1)
+            # the chunk writes rows up to p + adv_max (+ rejected
+            # speculative writes), clamped to the request's own demand
+            last = min(p + self.adv_max, self._slot_rows[s] - 1) \
+                + self.spec_overhang
             need_end = min(last // bs, self.blocks_per_slot - 1)
             have_end = first + len(held) - 1
             if need_end > have_end:
@@ -996,11 +1211,23 @@ class SlotScheduler:
         if events is not None:
             self.chunk_ms.append(events[0].elapsed_time(events[1]))
         toks, emits = host[0], host[1].astype(bool)
+        if toks.ndim == 2:               # plain chunk: one token per step
+            toks, emits = toks[:, :, None], emits[:, :, None]
         for t in range(toks.shape[0]):
             for s in range(toks.shape[1]):
-                if self._slot_req[s] is not None and emits[t, s]:
-                    self._slot_out[s].append(int(toks[t, s]))
-                    self._slot_pos[s] += 1
+                if self._slot_req[s] is None:
+                    continue
+                e = int(emits[t, s].sum())
+                if e == 0:
+                    continue
+                self._slot_out[s].extend(int(x) for x in
+                                         toks[t, s][emits[t, s]])
+                self._slot_pos[s] += e
+                # one verify round: spec_k proposed, e - 1 survived
+                rr, pp, aa = spec.round_accounting(self._slot_spec[s], e)
+                self.spec_rounds += rr
+                self.spec_proposed += pp
+                self.spec_accepted += aa
         return self._retire()
 
     def step(self) -> List[Completion]:
@@ -1051,7 +1278,7 @@ class SlotScheduler:
         replaces exact-KV growth past the window (0 without sketching)."""
         if not self.sketch_on:
             return 0
-        return kvs.tail_state_bytes(self._state.cache["tail"])
+        return sum(kvs.tail_state_bytes(c["tail"]) for c in self._pools())
 
     def kv_sketch_exact_bytes(self) -> int:
         """Bytes of pool blocks held now by sketched slots: the exact
@@ -1089,4 +1316,7 @@ class SlotScheduler:
             prefix_cached_bytes=pc.bytes,
             fold_rows=self.fold_rows_total,
             kv_sketch_tail_bytes=self.kv_sketch_tail_bytes(),
+            spec_rounds=self.spec_rounds,
+            spec_proposed=self.spec_proposed,
+            spec_accepted=self.spec_accepted,
         )

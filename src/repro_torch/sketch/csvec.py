@@ -12,8 +12,8 @@ Ported: ``csvec_zeros``, dense ``accumulate``, ``accumulate_coords``,
 ``query`` / ``query_all``, ``decay`` and ``state_bytes``.  The signed
 median is numpy's (the two middle rows averaged when the row count is
 even), as ``jnp.median`` computes it; ``torch.median`` returns the lower
-middle value and is not used.  ``topk``, ``merge`` and ``l2_estimate``
-are on no ported path (ROADMAP Queue 1 #14).
+middle value and is not used.  ``topk``, ``merge``, ``l2_estimate``,
+``scale`` and ``query_row`` are on no ported path (ROADMAP Queue 1 #16).
 
 The container holds only the (rows, cols) f32 table and the (rows, 4)
 hash coefficients; bucket hashes are recomputed on the fly

@@ -2,8 +2,10 @@
 tail_fold, tail_scores, count_sketch and unsketch kernels against their
 plain versions, the model's kernel path against its plain path, the slot
 engine launching the paged-attention kernel (and, sketched, the tail
-kernels), the sketched optimizer launching sketch_update, and sketched
-RTPM launching count_sketch and unsketch.  Every test carries the
+kernels), verify rows bitwise decode rows, the speculative engine's
+greedy tokens bitwise the plain engine's (its draft through count_sketch
+and unsketch), the sketched optimizer launching sketch_update, and
+sketched RTPM launching count_sketch and unsketch.  Every test carries the
 ``cuda`` marker and skips without a card; the file imports nothing of
 JAX, so it runs on the card's machine:
 
@@ -184,6 +186,148 @@ def test_engine_launches_the_kernel(card):
     assert sorted(c.rid for c in done) == [0, 1, 2, 3]
     assert all(len(c.tokens) == 6 for c in done)
     assert sched.alloc.reserved == sched.prefix_cache.held_blocks()
+
+
+@pytest.mark.parametrize("Sq", range(2, 10))
+def test_kernel_verify_rows_are_decode_rows_bitwise(card, Sq):
+    """A verify call (Sq = spec_k + 1 rows a slot) at gemma-2b's serve
+    geometry: row i is bitwise the Sq = 1 call's at start + i, since the
+    planner's KV splits ignore Sq."""
+    args = _inputs(8, Sq, 1, 8, 256, 256, 16, 32, card, seed=Sq)
+    q, kp, vp, tables, start, fb = args
+    m, l, acc = paged_attention(*args)
+    for i in range(Sq):
+        mi, li, ai = paged_attention(q[:, i:i + 1].contiguous(), kp, vp,
+                                     tables, start + i, fb)
+        assert torch.equal(m[..., i], mi[..., 0])
+        assert torch.equal(l[..., i], li[..., 0])
+        assert torch.equal(acc[..., i, :], ai[..., 0, :])
+
+
+@pytest.mark.parametrize("Sq", [2, 3, 5])
+def test_tail_attend_verify_rows_are_decode_rows_bitwise(card, Sq):
+    """The sketched tail span at gemma-2b's 8k shapes: each row of a
+    verify call equals the Sq = 1 call at its position, bitwise (the
+    tail_scores kernel, the one-chunk count sketch and the padded value
+    contraction are all row-invariant and deterministic)."""
+    from repro_torch.serve import kv_sketch as kvs
+    B, K, R, hd, Z = 8, 1, 8, 256, 3
+    C, T = kvs.tail_cols(8192, 8), kvs.pos_domain(8192, 16)
+    coeffs = cached_coeffs(3, Z, device=card)
+    ph = kvs.pos_buckets_signs(coeffs, T, C)
+    g = torch.Generator(card).manual_seed(Sq)
+    tk = torch.randn((B, Z, C, K, hd), generator=g, device=card)
+    tv = torch.randn((B, Z, C, K, hd), generator=g, device=card)
+    q = torch.randn((B, Sq, K, R, hd), generator=g, device=card).to(
+        torch.bfloat16)
+    fb = torch.tensor([0, 752, 608, 768, 704, 736, 176, 1024],
+                      dtype=torch.int32, device=card)
+    full = kvs.tail_attend(q, tk, tv, coeffs, ph, fb, 1 / 16)
+    again = kvs.tail_attend(q, tk, tv, coeffs, ph, fb, 1 / 16)
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    for i in range(Sq):
+        one = kvs.tail_attend(q[:, i:i + 1].contiguous(), tk, tv, coeffs,
+                              ph, fb, 1 / 16)
+        for a, b in zip(full, one):
+            assert torch.equal(a[:, :, :, i], b[:, :, :, 0]), i
+
+
+def test_one_chunk_count_sketch_is_its_tiled_model(card):
+    """``chunks=1`` on the card: bitwise the tiled model, and a row's
+    sketch the same bits in calls of 64 and 192 rows."""
+    from repro_torch.serve import kv_sketch as kvs
+    T, C, Z = 8192, 1024, 3
+    ph = kvs.pos_buckets_signs(cached_coeffs(5, Z, device=card), T, C)
+    x = torch.rand((192, T), generator=torch.Generator(card).manual_seed(2),
+                   device=card)
+    got = count_sketch(x, ph.bk, ph.sg, C, ph.links, chunks=1)
+    assert torch.equal(got, ref.count_sketch_tiled_ref(x, ph.bk, ph.sg, C,
+                                                       chunks=1))
+    assert torch.equal(got[:, :64],
+                       count_sketch(x[:64], ph.bk, ph.sg, C, ph.links,
+                                    chunks=1))
+
+
+def test_sketched_head_count_sketch_matches_plain_version(card):
+    """The FCS-sketched head's activation sketch on the card: rows of
+    bf16 hidden states under the head's hash (gemma-2b's d_model, J at
+    ratio 4), against the plain version within one bf16 rounding, and
+    its gradient (the signed lookup) bitwise the plain one."""
+    from repro_torch.models import layers as ly
+    d, J = 2048, 512
+    h, sg, links = ly.head_hash(1234, d, J, card)
+    x = torch.randn((64, d), generator=torch.Generator(card).manual_seed(3),
+                    device=card).to(torch.bfloat16)
+    before = count_sketch.launches
+    got = count_sketch_op(x, h, sg, J, index=links)
+    assert count_sketch.launches == before + 1
+    want = ref.count_sketch_ref(x, h, sg, J)
+    tol = 2 ** -7 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    g = torch.randn((64, J), device=card)
+    assert torch.equal(unsketch_op(g, h, sg), ref.unsketch_ref(g, h, sg))
+
+
+@pytest.mark.parametrize("B,C", [(8, 5), (24, 5)])
+def test_verify_logits_are_decode_logits_on_the_card(card, B, C):
+    """Reduced gemma-2b on the card: verify logits at position index + i
+    and the pool rows are bitwise C sequential decode steps' when both
+    pad their rows to one count: 64 (the engine's at max_batch 8), and
+    128, past one row tile (B 24: the verify step's 120 rows)."""
+    from repro_torch.models import layers as ly
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=6, device=card)
+    bs, nbs = 8, 6
+    NB = B * nbs
+    g = torch.Generator(card).manual_seed(B)
+    toks = torch.randint(0, cfg.vocab_size, (B, C), generator=g,
+                         device=card)
+    tables = torch.arange(NB, dtype=torch.int32, device=card).reshape(B, nbs)
+    pos = torch.randint(0, nbs * bs - C, (B,), generator=g, device=card,
+                        dtype=torch.int32)
+    rows = ly.padded_rows(B * C)
+    cache_v = tf.init_paged_cache(cfg, NB, bs, card)
+    cache_d = tf.init_paged_cache(cfg, NB, bs, card)
+    lg_v, _ = tf.verify_step(params, cache_v, toks, pos, cfg, tables,
+                             rows=rows)
+    for i in range(C):
+        lg_d, _ = tf.decode_step(params, cache_d, toks[:, i:i + 1], pos + i,
+                                 cfg, tables, rows=rows)
+        assert torch.equal(lg_v[:, i], lg_d), f"offset {i}"
+    for k in ("k", "v"):
+        assert torch.equal(cache_v["kv"][k], cache_d["kv"][k])
+
+
+@pytest.mark.parametrize("max_batch", [3, 16])
+def test_spec_engine_greedy_equals_plain_on_the_card(card, max_batch):
+    """Reduced gemma-2b: a spec engine (truncated draft, and a
+    count-sketch-compressed one with the sketched head) gives the plain
+    engine's greedy tokens bitwise, launching the paged-attention,
+    count_sketch and unsketch kernels; no block leaks.  At max_batch 16
+    the verify step's 64 rows fill the decode step's padded row count."""
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=4, device=card)
+    base = dataclasses.replace(cfg.serve, max_batch=max_batch, max_seq=96,
+                               prefill_bucket=16, decode_chunk=4)
+    rng = np.random.RandomState(1)
+    reqs = [Request(rid=i, tokens=rng.randint(0, 512, n).astype(np.int32),
+                    max_new=7) for i, n in enumerate((5, 16, 9, 23, 12))]
+    ref_tok = {c.rid: c.tokens.tolist() for c in SlotScheduler(
+        cfg, params, serve=base, device=card).run(list(reqs))}
+    for ratio in (0, 2):
+        launches = (paged_attention.launches, count_sketch.launches,
+                    unsketch.launches)
+        sched = SlotScheduler(cfg, params, serve=dataclasses.replace(
+            base, spec_k=3, draft_depth=1, draft_sketch_ratio=ratio),
+            device=card)
+        got = {c.rid: c.tokens.tolist() for c in sched.run(list(reqs))}
+        assert got == ref_tok
+        assert sched.stats().spec_rounds > 0
+        assert sched.alloc.reserved == sched.prefix_cache.held_blocks()
+        assert paged_attention.launches > launches[0]
+        if ratio:
+            assert count_sketch.launches > launches[1]
+            assert unsketch.launches > launches[2]
 
 
 def _sketch_inputs(n, C, R, offset, dtype, dev, pieces=1):

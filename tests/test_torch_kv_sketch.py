@@ -445,3 +445,40 @@ def test_two_span_decode_matches_reference():
     plain = plain[:, :tcfg.vocab_size].numpy()
     np.testing.assert_array_equal(got[1:3], plain[1:3])
     assert not np.array_equal(got[0], plain[0])
+
+
+@pytest.mark.parametrize("Sq", [2, 3, 5])
+def test_tail_attend_rows_ignore_sq(Sq):
+    """A query row's tail statistics are the same bits at any Sq: a
+    verify step's rows (Sq = spec_k + 1) equal its decode steps' (Sq 1),
+    the property greedy speculation over sketched KV rests on."""
+    B, K, R, hd, Z, C, T = 3, 2, 2, 16, 3, 64, 256
+    g = torch.Generator().manual_seed(Sq)
+    tk = torch.randn((B, Z, C, K, hd), generator=g)
+    tv = torch.randn((B, Z, C, K, hd), generator=g)
+    q = torch.randn((B, Sq, K, R, hd), generator=g).to(torch.bfloat16)
+    coeffs = cached_coeffs(11, Z)
+    ph = kvs.pos_buckets_signs(coeffs, T, C)
+    fb = torch.tensor([0, 48, 128], dtype=torch.int32)
+    full = kvs.tail_attend(q, tk, tv, coeffs, ph, fb, 0.25)
+    for i in range(Sq):
+        one = kvs.tail_attend(q[:, i:i + 1].contiguous(), tk, tv, coeffs, ph,
+                              fb, 0.25)
+        for a, b in zip(full, one):
+            assert torch.equal(a[:, :, :, i], b[:, :, :, 0]), i
+
+
+def test_one_chunk_count_sketch_rows_ignore_b():
+    """``chunks=1`` fixes the kernel's order of additions by the hash and
+    (I, J) alone: in its tiled model a row's sketch is the same bits in a
+    call of 3 rows and of 200."""
+    T, C, Z = 8192, 1024, 3
+    ph = kvs.pos_buckets_signs(cached_coeffs(5, Z), T, C)
+    x = torch.randn((200, T), generator=torch.Generator().manual_seed(1))
+    big = ref.count_sketch_tiled_ref(x, ph.bk, ph.sg, C, chunks=1)
+    small = ref.count_sketch_tiled_ref(x[:3], ph.bk, ph.sg, C, chunks=1)
+    assert torch.equal(big[:, :3], small)
+    np.testing.assert_allclose(big.numpy(),
+                               ref.count_sketch_ref(x, ph.bk, ph.sg,
+                                                    C).numpy(),
+                               rtol=1e-5, atol=1e-5)

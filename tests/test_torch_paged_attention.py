@@ -30,7 +30,7 @@ from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro_torch.configs.registry import reduced_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM,
+from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM, MAX_SPLITS,
                                                  paged_attention, plan)
 from repro_torch.models import transformer as tf
 from repro_torch.serve.scheduler import SlotScheduler
@@ -224,6 +224,20 @@ def test_plan_reaches_the_block_target(name):
         assert pl.blocks >= H100_SMS
     if name == "decode_8k":
         assert pl.blocks >= BLOCKS_PER_SM * H100_SMS
+
+
+@pytest.mark.parametrize("name", sorted(CHIP_GEOMETRIES))
+def test_plan_splits_ignore_the_query_rows(name):
+    """The KV splits depend on (B, K, nb, SMs) alone: a decode call, a
+    verify call of any Sq and the draft's micro-steps split a slot's
+    blocks at the same boundaries (what makes verify rows bitwise decode
+    rows on the card), and no call has more than MAX_SPLITS."""
+    B, Sq, K, R, hd, NB, bs, nb = CHIP_GEOMETRIES[name]
+    one = plan(B, K, R, nb, bs, H100_SMS)
+    for sq in range(1, 17):
+        pl = plan(B, K, R * sq, nb, bs, H100_SMS)
+        assert (pl.splits, pl.per_split) == (one.splits, one.per_split)
+        assert pl.splits <= MAX_SPLITS
 
 
 def test_plan_changes_with_shapes_only():

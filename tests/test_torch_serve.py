@@ -182,12 +182,43 @@ async def _aenumerate(it):
 
 
 def test_not_ported_options_raise(served):
-    tcfg, tparams = served["tcfg"], served["tparams"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotScheduler(tcfg, tparams, serve=_serve(tcfg, spec_k=2),
-                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         served["ts"].set_observer(object())
+
+
+def _drive(capsys, *args):
+    launch_args = ["--device", "cpu", "--requests", "6", "--max-new", "6",
+                   "--max-batch", "2", *args]
+    from repro_torch.launch import serve as launch
+    launch.main(launch_args)
+    return capsys.readouterr().out
+
+
+# the launcher's options beside the reference's (src/repro/launch/
+# serve.py): each run on the CPU drive, with what it must show
+LAUNCH_OPTIONS = {
+    "admit_threshold": (["--admit-threshold", "100"], "admitted=0,"),
+    "temperature_top_k": (["--sampled-frac", "1", "--temperature", "1.5",
+                           "--top-k", "3"], "statuses: {'ok': 6}"),
+    "paged_kernels_off": (["--paged-kernels", "off"],
+                          "plain version (--paged-kernels off)"),
+    "deadline_s": (["--deadline-s", "1e-9"], "'expired'"),
+    "priority_frac": (["--priority-frac", "1", "--arrival-rate", "1000"],
+                      "statuses: {'ok': 6}"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCH_OPTIONS))
+def test_launcher_options(capsys, name):
+    args, shows = LAUNCH_OPTIONS[name]
+    assert shows in _drive(capsys, *args)
+
+
+def test_launcher_paged_kernels_on_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(ValueError, match="CUDA"):
+        _drive(capsys, "--paged-kernels", "on")
 
 
 def test_serve_entry_point_raises_without_a_card():

@@ -21,10 +21,13 @@ attention), ``sketch`` (sketch_update), ``kv`` (tail_fold, tail_scores),
 paper's sizes), ``model`` and ``sketch_model`` (the full-width gemma-2b
 decode steps at max_seq 512 and, sketched, at 8192, with their
 profiles), ``serve`` (the 16-request stream; runs ``model`` first for its
-logit gap), ``long`` (the 8k stream) and ``train`` (4 steps of
+logit gap), ``spec`` (the speculative engines on that stream), ``long``
+(the 8k stream), ``long_spec`` (the sketched speculative run) and
+``train`` (4 steps of
 full-width yi-9b with sketched AdamW, one profiled).  Every line a phase
 prints is passed through, prefixed by the checkout.  Exits non-zero if
-any run fails.
+any run fails.  A checkout whose ``chip_smoke.py`` has no ``spec`` or
+``long_spec`` phase says so and skips it.
 
     python3 tools/kernel_ab.py --phases sketch,kv,train \
         build/parent . . build/parent
@@ -38,7 +41,7 @@ import sys
 
 HOME = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("kernel", "sketch", "kv", "cs", "cpd", "model", "sketch_model",
-          "serve", "long", "train")
+          "serve", "spec", "long", "long_spec", "train")
 DEFAULT = "kernel,kv,model,sketch_model,serve,long"
 SHARED = ("GEOMETRIES", "CS_GEOMETRIES", "UNSKETCH_GEOMETRIES",
           "SKETCH_GEOMETRIES")
@@ -114,7 +117,8 @@ def run_one(checkout: str, phases) -> None:
         cs.phase_cs_kernels(flush)
     if "cpd" in phases:
         cs.phase_cpd(dev)
-    if {"model", "sketch_model", "serve", "long"} & set(phases):
+    if {"model", "sketch_model", "serve", "spec", "long",
+            "long_spec"} & set(phases):
         serve_phases(cs, phases, dev, flush)
     del flush
     if "train" in phases:
@@ -136,8 +140,14 @@ def serve_phases(cs, phases, dev, flush) -> None:
         cs.phase_sketch_model(cfg, params, dev, flush)
     if "serve" in phases:
         cs.phase_serve(cfg, params, dev, gap)
-    if "long" in phases:
-        cs.phase_long_serve(cfg, params, dev)
+    for name, fn in (("spec", "phase_spec"), ("long", "phase_long_serve"),
+                     ("long_spec", "phase_long_spec")):
+        if name not in phases:
+            continue
+        if not hasattr(cs, fn):
+            print(f"[ab] this checkout has no {name} phase")
+            continue
+        getattr(cs, fn)(cfg, params, dev)
 
 
 def parse(argv):
