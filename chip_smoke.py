@@ -63,14 +63,25 @@ Phases (one line each; any failure exits non-zero):
                  sketch-free step bitwise
   4. serve     — 16 requests through the async engine (the path
                  ServeEngine.generate wraps), launches counted, greedy
-                 output checked against a teacher-forced recompute
+                 output checked against a teacher-forced recompute.
+                 Every serve phase (serve, spec, long, long-spec) runs
+                 its engines with the decode chunk replayed as CUDA
+                 graphs (the card's default) and again as their eager
+                 twins (graphs=False), each stream twice (timed, then
+                 profiled) and a profiled decode window: the graphed
+                 engine must equal its twin bitwise (tokens, completion
+                 order, emit flags, allocator books, tail tables, launch
+                 counts, callers' generator states) and capture each
+                 variant once; a [graphs] line gives both engines'
+                 decode chunk ms, busy per step, idle shares, tok/s and
+                 TTFT, the captures and the graphs' pool bytes
      spec      — full-width verify_step at spec_k 4 bitwise 5 decode
                  steps; then the serve stream (and two whole-prompt
                  prefix hits) through a plain engine and three spec
                  engines (truncated draft of depth 2; that draft
                  count-sketch-compressed at ratio 4 with the sketched
-                 head; per-request spec_k 0 / 4), each timed and rerun
-                 under the profiler for its idle share: greedy tokens
+                 head; per-request spec_k 0 / 4), each with its eager
+                 twin as above: greedy tokens
                  bitwise the plain engine's, no leaks, copy-on-write
                  forks, acceptance reported, the paged-attention,
                  count_sketch and unsketch kernels launched
@@ -948,7 +959,7 @@ def traced(fn):
                 mine[k][0] += sec
                 mine[k][1] += 1
     if busy <= 0:
-        fail("the profiler recorded no device time in a cpd run")
+        fail("the profiler recorded no device time in a traced run")
     return out, wall, busy, mine
 
 
@@ -1437,36 +1448,26 @@ def greedy_shortfall(params, cfg, dev, prompt, toks):
 
 
 def phase_serve(cfg, params, dev, logit_gap):
-    from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.launch.serve import make_request_stream, stream_requests
+    from repro_torch.launch.serve import make_request_stream
     from repro_torch.serve.frontend import AsyncServeEngine
     serve = dataclasses.replace(cfg.serve, **SERVE)
     reqs = make_request_stream(cfg, np.random.RandomState(SEED + 2), 16, 3,
                                64, 192, 32, sampled_frac=0.25,
                                temperature=0.8, top_k=8)
-    front = AsyncServeEngine(cfg, params, serve=serve, device=dev)
-    torch.cuda.synchronize()
-    paged_attention.launches = 0            # count the main path alone
-    t0 = time.perf_counter()
-    done, ttfts = asyncio.run(stream_requests(
-        front, reqs, 0.0, 0.0, np.random.RandomState(SEED + 3)))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = paged_attention.launches
-    sched = front.scheduler
-    st = sched.stats()
-    held = sched.prefix_cache.held_blocks()
-    leaked = sched.alloc.reserved - held
-    while sched.prefix_cache.evict_one():
-        pass
-    leaked += sched.alloc.reserved
+    run = twin_streams(
+        "serve", lambda graphs: AsyncServeEngine(
+            cfg, params, serve=serve, device=dev, graphs=graphs), reqs, dev)
+    done, ttfts, wall = run["done"], run["ttfts"], run["wall"]
+    launches = run["launches"]["paged_attention"]
+    sched = run["sched"]
+    st = run["stats"]
     ntok = sum(len(c.tokens) for c in done)
     ok = [c for c in done if c.status == "ok" and len(c.tokens) == 32
           and ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()]
-    if launches <= 0 or len(ok) != len(reqs) or leaked != 0 \
+    if launches <= 0 or len(ok) != len(reqs) or run["leaked"] != 0 \
             or st.prefix_hits <= 0:
         fail(f"serve: launches {launches}, completed ok {len(ok)}/"
-             f"{len(reqs)}, leaked blocks {leaked}, prefix hits "
+             f"{len(reqs)}, leaked blocks {run['leaked']}, prefix hits "
              f"{st.prefix_hits}")
     # greedy output against a teacher-forced full-sequence recompute
     # (plain attention) on the served context: every served greedy token
@@ -1485,18 +1486,20 @@ def phase_serve(cfg, params, dev, logit_gap):
         worst = max(worst, short / tol)
         exact += n_top1
         total += len(c.tokens)
-    mean_chunk = float(np.mean(sched.chunk_ms))
     n_sampled = sum(1 for r in reqs if r.temperature)
-    print(f"[serve] gemma-2b full width, 16 requests ({n_sampled} sampled): "
-          f"{ntok} tokens in {wall:.4f}s = {ntok / wall:.2f} tok/s, "
-          f"TTFT p50 {np.percentile(ttfts, 50) * 1e3:.2f} ms, mean decode "
-          f"chunk {mean_chunk:.3f} ms ({len(sched.chunk_ms)} chunks of "
+    print(f"[serve] gemma-2b full width, 16 requests ({n_sampled} sampled), "
+          f"decode chunk replayed as CUDA graphs: {ntok} tokens in "
+          f"{wall:.4f}s = {ntok / wall:.2f} tok/s, TTFT p50 "
+          f"{np.percentile(ttfts, 50) * 1e3:.2f} ms, mean decode "
+          f"chunk {run['chunk']:.3f} ms ({run['chunks']} chunks of "
           f"{serve.decode_chunk} steps), peak reserved KV "
           f"{st.kv_peak_reserved_bytes} B, prefix hits {st.prefix_hits}/"
           f"{st.prefix_lookups}, leaked blocks 0, paged_attention launches "
           f"{launches}; greedy vs teacher-forced recompute: {exact}/{total} "
           f"tokens are its top-1, worst shortfall {worst:.2f} of tol; "
           f"{card()}")
+    del run, sched
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1508,10 +1511,6 @@ LONG_BLOCKS = 704           # < half the stream's 1696 blocks of rows
 
 
 def phase_long_serve(cfg, params, dev):
-    from repro_torch.kernels.count_sketch import count_sketch
-    from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
-    from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.launch.serve import stream_requests
     from repro_torch.serve.frontend import AsyncServeEngine
     from repro_torch.serve.scheduler import Request
     serve = dataclasses.replace(
@@ -1527,39 +1526,28 @@ def phase_long_serve(cfg, params, dev):
             rid=i, tokens=rng.randint(0, cfg.vocab_size, n).astype(np.int32),
             max_new=LONG_NEW, temperature=0.8 if sampled else 0.0,
             top_k=8 if sampled else 0, seed=SEED + 6 if sampled else None))
-    front = AsyncServeEngine(cfg, params, serve=serve, device=dev)
-    sched = front.scheduler
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tail_fold.launches = tail_scores.launches = 0   # the main path alone
-    paged_attention.launches = count_sketch.launches = 0
-    t0 = time.perf_counter()
-    done, ttfts = asyncio.run(stream_requests(
-        front, reqs, 0.0, 0.0, np.random.RandomState(SEED + 7)))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(tail_fold=tail_fold.launches,
-                    tail_scores=tail_scores.launches,
-                    paged_attention=paged_attention.launches,
-                    # the tail span's one-chunk sketch of softmax weights
-                    count_sketch=count_sketch.launches)
-    st = sched.stats()
-    leaked = sched.alloc.reserved - sched.prefix_cache.held_blocks()
-    while sched.prefix_cache.evict_one():
-        pass
-    leaked += sched.alloc.reserved
+    run = twin_streams(
+        "long", lambda graphs: AsyncServeEngine(
+            cfg, params, serve=serve, device=dev, graphs=graphs), reqs, dev)
+    sched, done, ttfts, wall = (run["sched"], run["done"], run["ttfts"],
+                                run["wall"])
+    launches = {k: run["launches"][k] for k in (
+        "tail_fold", "tail_scores", "paged_attention",
+        # the tail span's one-chunk sketch of softmax weights
+        "count_sketch")}
+    st = run["stats"]
     ntok = sum(len(c.tokens) for c in done)
     ok = [c for c in done if c.status == "ok" and len(c.tokens) == LONG_NEW
           and ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()]
     rows = sum(LONG_PROMPTS) + LONG_NEW * len(LONG_PROMPTS)
     row_bytes = sched.alloc.block_bytes // sched.block_size
     dense_stream = rows * row_bytes
-    if len(ok) != len(reqs) or leaked != 0 or st.fold_rows <= 0 \
+    if len(ok) != len(reqs) or run["leaked"] != 0 or st.fold_rows <= 0 \
             or st.kv_peak_reserved_bytes >= dense_stream \
             or min(launches.values()) <= 0:
         fail(f"long serve: completed ok {len(ok)}/{len(reqs)}, leaked "
-             f"blocks {leaked}, fold rows {st.fold_rows}, peak reserved "
-             f"{st.kv_peak_reserved_bytes} vs dense {dense_stream}, "
+             f"blocks {run['leaked']}, fold rows {st.fold_rows}, peak "
+             f"reserved {st.kv_peak_reserved_bytes} vs dense {dense_stream}, "
              f"launches {launches}")
     byrid = {c.rid: c for c in done}
     # the first request never folds: every served token must be the
@@ -1572,15 +1560,15 @@ def phase_long_serve(cfg, params, dev):
     # fidelity of a folded request against exact attention (reported)
     short1, tol1, exact1 = greedy_shortfall(params, cfg, dev,
                                             reqs[1].tokens, byrid[1].tokens)
-    mean_chunk = float(np.mean(sched.chunk_ms))
     print(f"[long] gemma-2b full width, max_seq {LONG['max_seq']}, sketched "
           f"KV window {LONG['window']} ratio {LONG['ratio']} rows "
-          f"{LONG['rows']} (C={sched.tail_cols}, T={sched.tail_domain}): "
+          f"{LONG['rows']} (C={sched.tail_cols}, T={sched.tail_domain}), "
+          f"decode chunk replayed as CUDA graphs: "
           f"{len(reqs)} requests, prompts {list(LONG_PROMPTS)} (the last "
           f"sampled), {LONG_NEW} new each: {ntok} tokens in {wall:.4f}s = "
           f"{ntok / wall:.2f} tok/s, TTFT p50 "
           f"{np.percentile(ttfts, 50) * 1e3:.2f} ms, mean decode chunk "
-          f"{mean_chunk:.3f} ms ({len(sched.chunk_ms)} chunks of "
+          f"{run['chunk']:.3f} ms ({run['chunks']} chunks of "
           f"{serve.decode_chunk} steps)")
     print(f"[long] fold rows {st.fold_rows}; tail bytes "
           f"{st.kv_sketch_tail_bytes}; exact-window bytes (every pool block "
@@ -1588,13 +1576,15 @@ def phase_long_serve(cfg, params, dev):
           f"{st.kv_peak_reserved_bytes} ({st.blocks_peak} of {LONG_BLOCKS} "
           f"blocks); dense-equivalent bytes: the stream's {rows} rows "
           f"{dense_stream}, the engine's max_batch x max_seq "
-          f"{st.kv_dense_equiv_bytes}; peak allocated "
-          f"{torch.cuda.max_memory_allocated()} B; leaked blocks 0; "
+          f"{st.kv_dense_equiv_bytes}; peak allocated {run['peak']} B; "
+          f"leaked blocks 0; "
           f"launches {launches}; greedy vs exact teacher-forced recompute: "
           f"unfolded {LONG_PROMPTS[0]}-token request {exact0}/{LONG_NEW} "
           f"top-1 (worst shortfall {short / tol:.2f} of tol), folded "
           f"{LONG_PROMPTS[1]}-token request {exact1}/{LONG_NEW} top-1 (worst "
           f"shortfall {short1 / tol1:.2f} of tol); {card()}")
+    del run, sched
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1632,7 +1622,10 @@ class LaunchShapes:
     paths), keyed as the kernel phases' geometry tables are, so the run
     can show that each shape the serve paths launched was held against
     its plain version.  Calls that take the plain version on the card
-    (``use_kernel=False``) never reach the wrappers."""
+    (``use_kernel=False``) never reach the wrappers.  A decode chunk
+    replayed as a CUDA graph calls no wrapper; its capture called each one
+    once at every shape the variant launches (and the eager twins of the
+    serve phases call them too), so every shape is still seen."""
 
     KEYS = {
         # (B, Sq, K, R, hd, bs, nb): the geometry less the pool size NB,
@@ -1808,16 +1801,204 @@ def leaked_blocks(sched):
     return leaked + sched.alloc.reserved
 
 
+# ---------------------------------------------------------------------------
+# the decode chunk as CUDA graphs: each serve phase graphed and eager
+# ---------------------------------------------------------------------------
+
+WINDOW_CHUNKS = 3       # decode chunks in a profiled decode window
+
+
+def with_generators(reqs, dev):
+    """``reqs`` with every sampled request drawing from a caller's
+    generator seeded with its seed (fresh generators on each call)."""
+    return [dataclasses.replace(r, generator=torch.Generator(
+        dev).manual_seed(r.seed if r.seed is not None else r.rid))
+        if r.temperature else r for r in reqs]
+
+
+def chunk_log(sched):
+    """Record each collected chunk's (tokens, emit flags) on the host: a
+    copy of the chunk's output just before ``collect`` reads it."""
+    log = []
+    collect = sched.collect
+
+    def spy():
+        log.append(sched._inflight[0].cpu().numpy())
+        return collect()
+
+    sched.collect = spy
+    return log
+
+
+def decode_window(sched, reqs):
+    """The engine's hot loop alone: up to max_batch of ``reqs`` admitted
+    and prefilled, then up to WINDOW_CHUNKS dispatch / collect rounds
+    (fewer if every request finishes first) under the CUDA-only
+    profiler, then the rest drained.  Returns (busy ms, wall ms) per
+    decode step of the window."""
+    for r in reqs[:sched.serve.max_batch]:
+        sched.submit(r)
+    sched.admit_pending()
+
+    def rounds():
+        n = 0
+        while n < WINDOW_CHUNKS and sched.dispatch():
+            sched.collect()
+            n += 1
+        return n
+
+    n, wall, busy, _ = traced(rounds)
+    sched.drain()
+    if n == 0:
+        fail("decode window: no live slot to dispatch")
+    steps = n * sched.serve.decode_chunk
+    return 1e3 * busy / steps, 1e3 * wall / steps
+
+
+def run_twin(front, reqs, dev):
+    """One engine through its phase's stream twice (the first pass timed,
+    the second under the CUDA-only profiler, each with fresh caller
+    generators) and a decode window: what the graphed engine and its eager
+    twin are held equal on, and the figures of the ``[graphs]`` line."""
+    sched = front.scheduler
+    log = chunk_log(sched)
+    counters = kernel_counters()
+    gens = []
+    streams = []
+    for _ in range(2):
+        streams.append(with_generators(reqs, dev))
+        gens += [r.generator for r in streams[-1] if r.generator is not None]
+    window = with_generators([dataclasses.replace(r, rid=r.rid + 10_000)
+                              for r in reqs], dev)
+    gens += [r.generator for r in window[:sched.serve.max_batch]
+             if r.generator is not None]
+    for c in counters.values():
+        c.launches = 0                       # the stream's launches alone
+    torch.cuda.reset_peak_memory_stats()
+    done, ttfts, wall, _ = drive_stream(front, streams[0], False)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = sched.stats()
+    chunk_ms = list(sched.chunk_ms)
+    caps = [sched.decode_compilations]
+    done2, _, twall, busy = drive_stream(front, streams[1], True)
+    caps.append(sched.decode_compilations)
+    busy_step, wall_step = decode_window(sched, window)
+    torch.cuda.synchronize()
+    g = sched._graphs
+    out = dict(
+        sched=sched, done=done, ttfts=ttfts, wall=wall, launches=launches,
+        peak=peak, stats=stats, chunk=float(np.mean(chunk_ms)),
+        chunks=len(chunk_ms), caps=caps, idle=1 - busy / twall,
+        busy_step=busy_step, wall_step=wall_step, log=log,
+        tokens=[{c.rid: c.tokens for c in d} for d in (done, done2)],
+        order=[c.rid for c in sched.completed],
+        launches_all={k: c.launches for k, c in counters.items()},
+        gens=[t.get_state() for t in gens],
+        tails=[c["tail"].clone() for c in sched._pools()]
+        if sched.sketch_on else [],
+        variants=[] if g is None else g.variants(),
+        capture_s={} if g is None else dict(g.capture_s),
+        pool=0 if g is None else g.pool_bytes())
+    out["books"] = (sched.alloc.peak_reserved, sched.alloc.rc.tolist(),
+                    sorted(sched.alloc._free))
+    out["leaked"] = leaked_blocks(sched)
+    return out
+
+
+def twin_streams(what, make_front, reqs, dev):
+    """Serve ``reqs`` through a graphed engine (``make_front(None)``, the
+    card's default) and its eager twin (``make_front(False)``), each by
+    ``run_twin``.  Fails unless the graphed engine equals its twin
+    bitwise (tokens of both passes, completion order, every chunk's emit
+    flags and the tokens they flag, allocator books, tail tables, kernel
+    launch counts, the callers' generator states) and captured each
+    variant it used once, none more on the second pass.  Prints the
+    ``[graphs]`` line; returns the graphed run."""
+    runs = {}
+    for graphs in (None, False):
+        runs[graphs] = run_twin(make_front(graphs), reqs, dev)
+    g, e = runs[None], runs[False]
+    bad = []
+    if g["order"] != e["order"]:
+        bad.append("completion order")
+    for k, (a, b) in enumerate(zip(g["tokens"], e["tokens"])):
+        if a.keys() != b.keys() or any(not np.array_equal(a[r], b[r])
+                                       for r in a):
+            bad.append(f"tokens of pass {k + 1}")
+    flags = len(g["log"]) == len(e["log"]) and all(
+        np.array_equal(x[1], y[1])
+        and np.array_equal(x[0][x[1] > 0], y[0][y[1] > 0])
+        for x, y in zip(g["log"], e["log"]))
+    if not flags:
+        bad.append("emit flags or flagged tokens")
+    if g["books"] != e["books"]:
+        bad.append("allocator books")
+    if len(g["tails"]) != len(e["tails"]) or not all(
+            torch.equal(a, b) for a, b in zip(g["tails"], e["tails"])):
+        bad.append("tail tables")
+    if g["launches"] != e["launches"] or \
+            g["launches_all"] != e["launches_all"]:
+        bad.append(f"launches {g['launches']} / {e['launches']}")
+    if len(g["gens"]) != len(e["gens"]) or not all(
+            torch.equal(a, b) for a, b in zip(g["gens"], e["gens"])):
+        bad.append("callers' generator states")
+    used = len(g["sched"]._graphs.replays)
+    if g["caps"] != [g["caps"][0]] * 2 or not 1 <= g["caps"][0] <= used \
+            or e["caps"] != [0, 0]:
+        bad.append(f"captures {g['caps']} (eager {e['caps']}) for {used} "
+                   f"variants used")
+    if g["leaked"] or e["leaked"]:
+        bad.append(f"leaked blocks {g['leaked']} / {e['leaked']}")
+    if bad:
+        fail(f"{what}: the graphed engine differs from its eager twin: "
+             + ", ".join(bad))
+    def figures(r):
+        ntok = sum(len(c.tokens) for c in r["done"])
+        return dict(
+            chunk=f"{r['chunk']:.3f}", busy=f"{r['busy_step']:.4f}",
+            wall=f"{r['wall_step']:.4f}",
+            widle=f"{100 * (1 - r['busy_step'] / r['wall_step']):.1f}",
+            idle=f"{100 * r['idle']:.1f}", tok_s=f"{ntok / r['wall']:.2f}",
+            ttft=f"{np.percentile(r['ttfts'], 50) * 1e3:.2f}")
+
+    fg, fe = figures(g), figures(e)
+    pair = {k: f"{fg[k]} / {fe[k]}" for k in fg}
+    print(f"[graphs] {what}: variants "
+          f"{', '.join(v.name for v in g['variants'])}; "
+          f"decode_compilations {g['caps'][0]} after the first pass, "
+          f"{g['caps'][1]} after the second, {used} after the decode window "
+          f"(capture s: "
+          + ", ".join(f"{v.name} {t:.3f}" for v, t in g["capture_s"].items())
+          + f"); graphs' pool {g['pool']} B; graphed / eager twin: decode "
+          f"chunk {pair['chunk']} ms (mean of {g['chunks']} chunks), busy "
+          f"per decode step {pair['busy']} ms (wall {pair['wall']} ms, idle "
+          f"{pair['widle']}% over up to {WINDOW_CHUNKS} chunks, "
+          f"{min(len(reqs), g['sched'].serve.max_batch)} slots live), "
+          f"stream idle {pair['idle']}% (second pass, profiled), "
+          f"{pair['tok_s']} tok/s, TTFT p50 {pair['ttft']} ms (first pass, "
+          f"captures included); bitwise equal: tokens of "
+          f"{len(g['order'])} requests over both passes and the window, "
+          f"emit flags of {len(g['log'])} chunks, completion order, "
+          f"allocator books, {len(g['tails'])} tail tables, launches "
+          f"{g['launches_all']}, {len(g['gens'])} callers' generator "
+          f"states; {card()}")
+    del runs[False], e
+    torch.cuda.empty_cache()
+    return g
+
+
 def phase_spec(cfg, params, dev):
     """Speculative decoding at full width: the verify contract, then the
     serve phase's 16-request stream (and two requests whose whole prompt
     is a cached prefix) through a plain engine and three spec
     engines (truncated draft; count-sketch-compressed draft with the
-    sketched head; per-request spec_k 0 / 4), each timed, then rerun on a
-    fresh engine under a CUDA-only profiler for its idle share.  Every
-    greedy request's tokens must equal the plain engine's bitwise; no
-    block leaks; prefix hits fork; the spec path launches the
-    paged-attention, count_sketch and unsketch kernels."""
+    sketched head; per-request spec_k 0 / 4), each graphed and as its
+    eager twin (``twin_streams``: timed, then again under a CUDA-only
+    profiler for its idle share, then a decode window).  Every greedy
+    request's tokens must equal the plain engine's bitwise; no block
+    leaks; prefix hits fork; the spec path launches the paged-attention,
+    count_sketch and unsketch kernels."""
     from repro_torch.launch.serve import make_request_stream
     from repro_torch.models.draft import make_draft
     from repro_torch.serve.frontend import AsyncServeEngine
@@ -1835,7 +2016,6 @@ def phase_spec(cfg, params, dev):
     counters = kernel_counters()
     launches = {k: 0 for k in SPEC_KERNELS}
     plain = None
-    results = {}
     for name, (kw, per_req) in [("plain", ({}, None))] + list(
             SPEC_ENGINES.items()):
         sv = dataclasses.replace(base, **kw)
@@ -1848,37 +2028,37 @@ def phase_spec(cfg, params, dev):
         draft = make_draft(params, cfg, sv)
         torch.cuda.synchronize()
         derive_s = time.perf_counter() - t0
-        front = AsyncServeEngine(cfg, params, serve=sv, device=dev,
-                                 draft=draft)
-        done, ttfts, wall, _ = drive_stream(front, stream, False)
         mine = {k: counters[k].launches for k in SPEC_KERNELS}
+        run = twin_streams(
+            f"spec {name}", lambda graphs: AsyncServeEngine(
+                cfg, params, serve=sv, device=dev, draft=draft,
+                graphs=graphs), stream, dev)
+        mine = {k: mine[k] + run["launches"][k] for k in SPEC_KERNELS}
         if name != "plain":
             for k in SPEC_KERNELS:
                 launches[k] += mine[k]
-        sched = front.scheduler
-        st = sched.stats()
-        leaked = leaked_blocks(sched)
+        sched, done, ttfts, wall = (run["sched"], run["done"], run["ttfts"],
+                                    run["wall"])
+        st = run["stats"]
         got = {c.rid: c.tokens for c in done}
         ok = [c for c in done if c.status == "ok" and len(c.tokens) == 32
               and ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()]
-        if len(ok) != len(reqs) or leaked != 0 or st.prefix_hits <= 0:
+        if len(ok) != len(reqs) or run["leaked"] != 0 \
+                or st.prefix_hits <= 0:
             fail(f"spec {name}: completed ok {len(ok)}/{len(reqs)}, leaked "
-                 f"blocks {leaked}, prefix hits {st.prefix_hits}")
-        _, _, twall, busy = drive_stream(AsyncServeEngine(
-            cfg, params, serve=sv, device=dev, draft=draft), stream, True)
+                 f"blocks {run['leaked']}, prefix hits {st.prefix_hits}")
         ntok = sum(len(c.tokens) for c in done)
-        results[name] = dict(tok_s=ntok / wall, ttft=np.percentile(ttfts, 50),
-                             chunk=float(np.mean(sched.chunk_ms)),
-                             idle=1 - busy / twall)
-        line = (f"[spec] {name}: {ntok} tokens in {wall:.4f}s = "
+        line = (f"[spec] {name} (graphed): {ntok} tokens in {wall:.4f}s = "
                 f"{ntok / wall:.2f} tok/s, TTFT p50 "
                 f"{np.percentile(ttfts, 50) * 1e3:.2f} ms, mean decode "
-                f"chunk {results[name]['chunk']:.3f} ms "
-                f"({len(sched.chunk_ms)} chunks of {sv.decode_chunk} "
-                f"{'rounds' if draft else 'steps'}); profiled rerun: busy "
-                f"{busy:.4f}s of {twall:.4f}s wall, idle "
-                f"{100 * results[name]['idle']:.1f}%; prefix hits "
-                f"{st.prefix_hits}/{st.prefix_lookups}, leaked blocks 0")
+                f"chunk {run['chunk']:.3f} ms ({run['chunks']} chunks of "
+                f"{sv.decode_chunk} {'rounds' if draft else 'steps'}); "
+                f"second pass profiled: idle {100 * run['idle']:.1f}%; "
+                f"prefix hits {st.prefix_hits}/{st.prefix_lookups}, leaked "
+                f"blocks 0")
+        forks = sched.forks
+        del run, sched
+        torch.cuda.empty_cache()
         if plain is None:
             plain = got
             print(line + f"; {card()}")
@@ -1889,8 +2069,8 @@ def phase_spec(cfg, params, dev):
         if diff:
             fail(f"spec {name}: greedy requests {diff} differ from the plain "
                  f"engine's tokens")
-        if st.spec_rounds <= 0 or sched.forks <= 0:
-            fail(f"spec {name}: {st.spec_rounds} rounds, {sched.forks} "
+        if st.spec_rounds <= 0 or forks <= 0:
+            fail(f"spec {name}: {st.spec_rounds} rounds, {forks} "
                  f"forks on {st.prefix_hits} prefix hits (two of them "
                  f"whole-prompt hits)")
         same_sampled = sum(np.array_equal(got[r.rid], plain[r.rid])
@@ -1902,7 +2082,8 @@ def phase_spec(cfg, params, dev):
               f"{st.mean_accepted_run:.4f} over {st.spec_rounds} rounds; "
               f"{len(greedy)} greedy requests bitwise the plain engine's "
               f"(sampled {same_sampled}/{len(reqs) - len(greedy)} equal too);"
-              f" {sched.forks} copy-on-write forks; launches "
+              f" {forks} copy-on-write forks over both passes and the "
+              f"window; launches "
               + ", ".join(f"{k} {v}" for k, v in mine.items()))
     if min(launches.values()) <= 0:
         fail(f"spec: launches on the spec path {launches}")
@@ -1918,7 +2099,8 @@ def phase_long_spec(cfg, params, dev):
     """The sketched speculative path at 8k: two prompts of 2048 and 4096
     tokens (window 1024, ratio 8, rows 3) through a sketched plain engine
     and a sketched spec engine (spec_k 2, truncated draft of depth 2) of
-    the long phase's geometry: the spec engine's tokens bitwise the plain
+    the long phase's geometry, each graphed and as its eager twin
+    (``twin_streams``): the spec engine's tokens bitwise the plain
     engine's, rows fold in both pools, no block leaks, and the spec path
     launches both tail kernels and the paged-attention kernel."""
     from repro_torch.serve.frontend import AsyncServeEngine
@@ -1931,22 +2113,20 @@ def phase_long_spec(cfg, params, dev):
     rng = np.random.RandomState(SEED + 8)
     reqs = [Request(rid=i, tokens=rng.randint(0, cfg.vocab_size, n).astype(
         np.int32), max_new=LONG_SPEC_NEW) for i, n in enumerate((2048, 4096))]
-    counters = kernel_counters()
     out = {}
     for name, kw in (("plain", {}), ("spec", dict(spec_k=2, draft_depth=2))):
         sv = dataclasses.replace(base, **kw)
-        for c in counters.values():
-            c.launches = 0
-        front = AsyncServeEngine(cfg, params, serve=sv, device=dev)
-        done, ttfts, wall, _ = drive_stream(front, reqs, False)
-        sched = front.scheduler
-        st = sched.stats()
-        tails = [float(c["tail"].abs().sum()) for c in sched._pools()]
-        out[name] = dict(tokens={c.rid: c.tokens for c in done},
-                         launches={k: c.launches
-                                   for k, c in counters.items()},
-                         st=st, leaked=leaked_blocks(sched), tails=tails,
-                         wall=wall, ntok=sum(len(c.tokens) for c in done))
+        run = twin_streams(
+            f"long-spec {name}", lambda graphs: AsyncServeEngine(
+                cfg, params, serve=sv, device=dev, graphs=graphs), reqs, dev)
+        out[name] = dict(tokens={c.rid: c.tokens for c in run["done"]},
+                         launches=run["launches"], st=run["stats"],
+                         leaked=run["leaked"],
+                         tails=[float(t.abs().sum()) for t in run["tails"]],
+                         wall=run["wall"],
+                         ntok=sum(len(c.tokens) for c in run["done"]))
+        del run
+        torch.cuda.empty_cache()
     sp = out["spec"]
     same = all(np.array_equal(sp["tokens"][r.rid], out["plain"]["tokens"][
         r.rid]) for r in reqs)
@@ -2198,6 +2378,7 @@ def phase_train(dev):
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2307,6 +2488,7 @@ def main() -> None:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    print(f"[time] every phase passed in {time.perf_counter() - t_run:.1f}s")
     print(json.dumps(record))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -100,7 +100,8 @@ async def stream_requests(front: AsyncServeEngine, reqs, rate: float,
     for r in reqs:
         h = await front.submit(r.tokens, max_new=r.max_new,
                                temperature=r.temperature, top_k=r.top_k,
-                               seed=r.seed, spec_k=r.spec_k,
+                               seed=r.seed, generator=r.generator,
+                               spec_k=r.spec_k,
                                kv_sketch=r.kv_sketch,
                                priority=(1 if rng.rand() < priority_frac
                                          else 0),

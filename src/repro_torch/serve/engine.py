@@ -6,7 +6,9 @@ front-end: each batch row becomes one streamed submission against the
 cached scheduler's pump, drained inside an ``asyncio.run``.  Greedy batch
 output is the streamed output; there is one serving path.  With
 ``cfg.serve.spec_k > 0`` the draft is derived once per weights and
-shared by every scheduler the engine builds.
+shared by every scheduler the engine builds.  ``graphs`` is passed to
+each scheduler (serve/graphs.py: None captures the decode chunk as CUDA
+graphs on the card; False keeps the eager chunk).
 """
 from __future__ import annotations
 
@@ -47,12 +49,14 @@ def _per_request(val: Per, B: int, name: str) -> np.ndarray:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_seq: int = 512,
                  max_batch: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 graphs: Optional[bool] = None):
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
         self.max_batch = max_batch
         self.device = resolve_device(device)
+        self.graphs = graphs
         self._frontends = {}         # max_batch -> AsyncServeEngine
         self._draft = None           # derived once per weights
         self._rid = 0
@@ -75,7 +79,7 @@ class ServeEngine:
                 self._draft = make_draft(self.params, self.cfg, serve)
             self._frontends[kb] = AsyncServeEngine(scheduler=SlotScheduler(
                 self.cfg, self.params, serve=serve, device=self.device,
-                draft=self._draft))
+                draft=self._draft, graphs=self.graphs))
         return self._frontends[kb]
 
     def generate(self, tokens, max_new: int = 32, temperature: Per = 0.0,
@@ -126,6 +130,12 @@ class ServeEngine:
         done = asyncio.run(go())
         out = np.stack([c.tokens for c in done])
         return GenerationResult(tokens=torch.as_tensor(out), prompt_len=S)
+
+    @property
+    def decode_compilations(self) -> int:
+        """Decode chunk captures across every live scheduler."""
+        return sum(f.scheduler.decode_compilations
+                   for f in self._frontends.values())
 
     def stats(self) -> EngineStats:
         """Snapshot merged across every live scheduler."""

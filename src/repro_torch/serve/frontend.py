@@ -79,15 +79,17 @@ class StreamHandle:
 
 class AsyncServeEngine:
     """The async front door.  Owns a fresh ``SlotScheduler`` (``cfg`` +
-    ``params``) or wraps an existing one (``scheduler=``).  Call it from
-    one asyncio event loop at a time."""
+    ``params``; ``draft`` and ``graphs`` as the scheduler takes them) or
+    wraps an existing one (``scheduler=``).  Call it from one asyncio
+    event loop at a time."""
 
     def __init__(self, cfg: Optional[ModelConfig] = None,
                  params: Any = None,
                  serve: Optional[ServeConfig] = None,
                  scheduler: Optional[SlotScheduler] = None,
                  temperature: float = 0.0, device: DeviceLike = None,
-                 draft: Optional[Draft] = None):
+                 draft: Optional[Draft] = None,
+                 graphs: Optional[bool] = None):
         if scheduler is not None:
             self._sched = scheduler
         else:
@@ -96,7 +98,8 @@ class AsyncServeEngine:
                                  "scheduler=")
             self._sched = SlotScheduler(cfg, params, serve=serve,
                                         temperature=temperature,
-                                        device=device, draft=draft)
+                                        device=device, draft=draft,
+                                        graphs=graphs)
         sv = self._sched.serve
         self.queue_depth = max(1, int(sv.queue_depth))
         self.default_deadline_s = float(sv.default_deadline_s)

@@ -15,15 +15,25 @@ through the slot's table.  A freshly admitted request resumes decode at
 ``pos = S - 1`` by re-feeding its last prompt token, so the first output
 token is sampled by the decode chunk and prefill produces no logits.
 
-Decode runs ``decode_chunk`` steps per scheduler round as a Python loop
-of device work that never waits on the host: per-slot position,
-remaining budget, temperature and top-k are device tensors, finished and
-idle slots keep running masked (an idle slot's table row is all
-sentinels, so its KV write lands in the sink), and the chunk's tokens
-and emit masks are stacked on the device and copied to the host once, at
-``collect``.  Whether a chunk samples at all is decided on the host from
-its mirror of the slots' temperatures, so a greedy-only chunk pays only
-an argmax.  Each sampled slot draws from its own ``torch.Generator``.
+Decode runs ``decode_chunk`` steps per scheduler round as device work
+that never waits on the host: per-slot position, remaining budget,
+temperature and top-k are device tensors, finished and idle slots keep
+running masked (an idle slot's table row is all sentinels, so its KV
+write lands in the sink), and the chunk's tokens and emit masks are
+stacked on the device and copied to the host once, at ``collect``.
+Whether a chunk samples at all is decided on the host from its mirror of
+the slots' temperatures, so a greedy-only chunk pays only an argmax; a
+sampling chunk draws for every slot from that slot's generator (one per
+slot, owned by the engine) and keeps the draw where the slot's
+temperature is positive, so greedy slots stay independent of their
+neighbours.  A slot's generator takes its request's state at admission
+(``Request.generator``'s, or a seed's) and gives it back to
+``Request.generator`` when the slot is released.
+
+On the card the chunk is captured once per variant as a CUDA graph and
+replayed (serve/graphs.py; ``graphs=False`` keeps the eager chunk, the
+CPU's path, as the card's twin); ``decode_compilations`` counts the
+captures.
 
 Prefix reuse is gated by the count-min admission filter in
 serve/prefix_cache.py and is zero-copy: a hit writes the cached entry's
@@ -90,6 +100,7 @@ from repro_torch.models import layers as ly
 from repro_torch.models.draft import Draft, make_draft
 from repro_torch.serve import kv_sketch as kvs
 from repro_torch.serve import speculative as spec
+from repro_torch.serve.graphs import ChunkGraphs, Variant
 from repro_torch.serve.prefix_cache import SketchPrefixCache
 
 
@@ -99,9 +110,11 @@ class Request:
     tokens: np.ndarray           # (S,) int32 prompt
     max_new: int
     # per-request sampling: None temperature falls back to the scheduler
-    # default; top_k == 0 disables top-k filtering.  The slot's generator
-    # is ``generator`` when given, else one seeded with ``seed``, else one
-    # seeded with the scheduler's base seed plus the rid.
+    # default; top_k == 0 disables top-k filtering.  A sampled request's
+    # slot generator starts from ``generator``'s state when given (and
+    # gives the advanced state back to it when the slot is released),
+    # else from ``seed``, else from the scheduler's base seed plus the
+    # rid.  A generator serves one request in flight at a time.
     temperature: Optional[float] = None
     top_k: int = 0
     seed: Optional[int] = None
@@ -142,7 +155,11 @@ def _stat(kind: str) -> Any:
 class EngineStats:
     """One flat snapshot of a scheduler (or, merged, of an engine): queue
     pressure, slot occupancy, pool high-water marks and prefix-cache
-    effectiveness.  Field names match the JAX package's ``EngineStats``."""
+    effectiveness.  Field names match the JAX package's ``EngineStats``,
+    which also has ``prefill_compilations``: not ported (it comes with a
+    captured chunked prefill).  ``decode_compilations`` counts the decode
+    chunk's CUDA graph captures (one per variant an engine used; 0 on the
+    CPU, which runs the chunk eagerly)."""
     queue_depth: int = _stat("gauge")
     active_slots: int = _stat("gauge")
     max_batch: int = _stat("gauge")
@@ -151,6 +168,7 @@ class EngineStats:
     expired: int = _stat("counter")
     preempted: int = _stat("counter")
     decode_steps: int = _stat("counter")
+    decode_compilations: int = _stat("counter")
     pool_blocks: int = _stat("gauge")
     block_size: int = _stat("geometry")
     blocks_reserved: int = _stat("gauge")
@@ -208,7 +226,8 @@ class EngineStats:
             f"{self.max_batch} completed={self.completed} "
             f"(cancelled={self.cancelled} expired={self.expired} "
             f"preemptions={self.preempted})",
-            f"decode: steps={self.decode_steps}",
+            f"decode: steps={self.decode_steps} "
+            f"compilations={self.decode_compilations}",
             f"paged KV: {self.pool_blocks} blocks x {self.block_size} "
             f"tokens, reserved={self.blocks_reserved} (peak "
             f"{self.blocks_peak}, free {self.blocks_free}) — "
@@ -324,7 +343,12 @@ class SlotScheduler:
     def __init__(self, cfg: ModelConfig, params: Any,
                  serve: Optional[ServeConfig] = None,
                  temperature: float = 0.0, device: DeviceLike = None,
-                 draft: Optional[Draft] = None):
+                 draft: Optional[Draft] = None,
+                 graphs: Optional[bool] = None):
+        """``graphs``: the decode chunk as captured CUDA graphs
+        (serve/graphs.py).  None captures on the card and runs eagerly on
+        the CPU; True demands graphs and raises on the CPU; False runs the
+        eager chunk on either (the card's twin)."""
         sv = serve if serve is not None else cfg.serve
         if sv.spec_k > 0 and cfg.family not in tf.ATTN_FAMILIES:
             raise ValueError(f"speculative decode needs a kv-cache family "
@@ -339,6 +363,9 @@ class SlotScheduler:
         if sv.paged_kernels and self.device.type != "cuda":
             raise ValueError("paged_kernels=True needs a CUDA device: the "
                              "CUDA kernel has no CPU or interpret mode")
+        if graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True needs a CUDA device: CUDA graphs "
+                             "have no CPU mode")
         self.cfg = cfg
         self.params = params
         self.serve = sv
@@ -387,7 +414,10 @@ class SlotScheduler:
         # read device tensors, so the next round's host work overlaps the
         # chunk in flight
         self._slot_temp: List[float] = [0.0] * B
-        self._slot_gen: List[Optional[torch.Generator]] = [None] * B
+        # one generator per slot, owned by the engine (a CUDA graph draws
+        # only from generators registered at its capture)
+        self._slot_gen = [torch.Generator(device=self.device)
+                          for _ in range(B)]
         self._slot_admit_seq: List[int] = [0] * B
         # decode resumes at S - 1 and collect() advances the mirror by the
         # tokens emitted, so fold planning never reads device positions
@@ -490,6 +520,17 @@ class SlotScheduler:
             fold_base=torch.zeros((B,), dtype=torch.int32, device=dev),
             spec_k=torch.zeros((B,), dtype=torch.int32, device=dev),
         )
+        self._graphs: Optional[ChunkGraphs] = None
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs:
+            self._graphs = ChunkGraphs(self._slot_gen)
+            # every lazy first call of every variant before any capture,
+            # while every slot is idle: sentinel tables send each KV write
+            # to the sink, remaining == 0 keeps every position, and
+            # admission resets ``cur`` and reseeds the slot's generator
+            for v in self._usable_variants():
+                self._chunk(v)
 
     def set_observer(self, obs: Any) -> None:
         """The reference's observability hooks are not ported yet."""
@@ -499,15 +540,14 @@ class SlotScheduler:
     # Device pieces
     # ------------------------------------------------------------------
 
-    def _sample(self, lg: torch.Tensor, sampled: List[int]) -> torch.Tensor:
-        """Per-slot next token: argmax for greedy slots; top-k filtered
-        temperature sampling, from the slot's own generator, for the
-        host-known list of ``sampled`` slots.  A greedy-only chunk passes
-        an empty list and pays the argmax alone."""
-        greedy = torch.argmax(lg, dim=-1)
-        if not sampled:
-            return greedy
+    def _sample(self, lg: torch.Tensor) -> torch.Tensor:
+        """Per-slot next token of a sampling chunk: top-k filtered
+        temperature sampling where the slot's temperature is positive,
+        argmax elsewhere.  Every slot draws from its own generator (the
+        draws of greedy and idle slots go unused), so the draw is device
+        data and a greedy row is its argmax whatever its neighbours do."""
         st = self._state
+        greedy = torch.argmax(lg, dim=-1)
         V = lg.shape[-1]
         srt = torch.sort(lg, dim=-1, descending=True).values
         kth = torch.gather(
@@ -515,13 +555,16 @@ class SlotScheduler:
         keep = (st.top_k <= 0)[:, None] | (lg >= kth[:, None])
         filt = torch.where(keep, lg, torch.full_like(lg, -float("inf")))
         probs = torch.softmax(filt / st.temp.clamp(min=1e-6)[:, None], -1)
-        out = greedy.clone()
-        for s in sampled:
-            # exponential race: argmax(p / E) with E ~ Exp(1) draws from p
-            e = torch.empty_like(probs[s]).exponential_(
-                generator=self._slot_gen[s])
-            out[s] = torch.argmax(probs[s] / e)
-        return out
+        # exponential race: argmax(p / E) with E ~ Exp(1) draws from p
+        e = torch.stack([torch.empty_like(probs[s]).exponential_(generator=g)
+                         for s, g in enumerate(self._slot_gen)])
+        return torch.where(st.temp > 0, torch.argmax(probs / e, dim=-1),
+                           greedy)
+
+    @staticmethod
+    def _greedy(lg: torch.Tensor) -> torch.Tensor:
+        """Per-slot next token of a greedy-only chunk."""
+        return torch.argmax(lg, dim=-1)
 
     def _sketch_state(self, fold_base: torch.Tensor, tail: torch.Tensor
                       ) -> dict:
@@ -541,40 +584,59 @@ class SlotScheduler:
         c = self._state.cache
         return [c] + ([c["draft"]] if self.draft is not None else [])
 
-    def _run_chunk(self, fold: Optional[np.ndarray] = None) -> torch.Tensor:
-        """Enqueue ``decode_chunk`` decode steps (a spec engine: rounds,
-        serve/speculative.py) for every slot; returns the stacked
-        (2, chunk, B) — spec: (2, chunk, B, K + 1) — int64 tokens and emit
-        flags, still on the device.  A sketch engine first folds
-        ``fold[b]`` aged rows of each slot into its tail, in both pools of
-        a spec engine (planned by ``_plan_folds``): the folded rows lie
+    def _usable_variants(self) -> List[Variant]:
+        """The chunk variants this engine can dispatch."""
+        return [Variant(sampled, sketched) for sketched in
+                ((False, True) if self.sketch_on else (False,))
+                for sampled in (False, True)]
+
+    def _variant(self, fold: Optional[np.ndarray]) -> Variant:
+        """The host's choice for the coming chunk, from its mirrors: the
+        full sampler if a live slot samples, the two-span attention if a
+        live slot attends a folded tail after this dispatch's fold."""
+        live = [s for s, r in enumerate(self._slot_req) if r is not None]
+        sketched = fold is not None and any(
+            self._slot_first_lblk[s] * self.block_size + fold[s]
+            for s in live)
+        return Variant(any(self._slot_temp[s] > 0.0 for s in live),
+                       sketched)
+
+    def _fold(self, fold: Optional[np.ndarray]) -> None:
+        """A sketch engine folds ``fold[b]`` aged rows of each slot into
+        its tail, in both pools of a spec engine (planned by
+        ``_plan_folds``), eagerly ahead of the chunk: the folded rows lie
         below the window every query of the chunk keeps exact, so folding
         at the head equals folding between the steps."""
+        if fold is None or not fold.any():
+            return
+        st = self._state
+        fold_len = self._to_device(fold)
+        for c in self._pools():
+            kvs.fold_pool(c["kv"], c["tail"], st.tables, st.fold_base,
+                          fold_len, self.tail_coeffs, self.fold_cap,
+                          use_kernel=self.use_kernels)
+        st.fold_base.add_(fold_len)
+
+    def _chunk(self, v: Variant) -> torch.Tensor:
+        """Enqueue ``decode_chunk`` decode steps (a spec engine: rounds,
+        serve/speculative.py) for every slot: the device program of one
+        variant, reading only tensors of the slot state whose addresses
+        never change, so it can be captured once and replayed.  Returns
+        the stacked (2, chunk, B) — spec: (2, chunk, B, K + 1) — int64
+        tokens and emit flags, on the device."""
         cfg, st = self.cfg, self._state
-        sampled = [s for s, r in enumerate(self._slot_req)
-                   if r is not None and self._slot_temp[s] > 0.0]
+        sample = self._sample if v.sampled else self._greedy
         sketch = draft_sketch = None
-        if fold is not None:
-            if fold.any():
-                fold_len = self._to_device(fold)
-                for c in self._pools():
-                    kvs.fold_pool(c["kv"], c["tail"], st.tables,
-                                  st.fold_base, fold_len, self.tail_coeffs,
-                                  self.fold_cap, use_kernel=self.use_kernels)
-                st.fold_base.add_(fold_len)
-            bs = self.block_size
-            if any(r is not None and self._slot_first_lblk[s] * bs + fold[s]
-                   for s, r in enumerate(self._slot_req)):
-                sketch, draft_sketch = ([
-                    self._sketch_state(st.fold_base, c["tail"])
-                    for c in self._pools()] + [None])[:2]
+        if v.sketched:
+            sketch, draft_sketch = ([
+                self._sketch_state(st.fold_base, c["tail"])
+                for c in self._pools()] + [None])[:2]
         tables = self._attn_tables(st.tables)
         if self.spec_max > 0:
             return spec.spec_chunk(
                 self.params, self.draft, cfg, st, tables,
-                self.serve.decode_chunk, self.spec_max,
-                lambda lg: self._sample(lg, sampled), self.step_rows,
-                kernels=self.use_kernels, sketch=sketch,
+                self.serve.decode_chunk, self.spec_max, sample,
+                self.step_rows, kernels=self.use_kernels, sketch=sketch,
                 draft_sketch=draft_sketch)
         toks, emits = [], []
         for _ in range(self.serve.decode_chunk):
@@ -583,7 +645,7 @@ class SlotScheduler:
                                        cfg, tables,
                                        kernels=self.use_kernels,
                                        sketch=sketch, rows=self.step_rows)
-            nxt = self._sample(logits[:, :cfg.vocab_size], sampled)
+            nxt = sample(logits[:, :cfg.vocab_size])
             step = running.to(torch.int32)
             st.pos.add_(step)
             st.remaining.sub_(step)
@@ -638,13 +700,16 @@ class SlotScheduler:
                 i -= 1
         self._queue.insert(i, req)
 
-    def _request_generator(self, req: Request) -> torch.Generator:
+    def _seed_slot_generator(self, slot: int, req: Request) -> None:
+        """Start ``slot``'s generator where the request's draws start:
+        ``req.generator``'s state, else its seed, else the base seed plus
+        the rid."""
+        g = self._slot_gen[slot]
         if req.generator is not None:
-            return req.generator
-        g = torch.Generator(device=self.device)
-        g.manual_seed(req.seed if req.seed is not None
-                      else self._base_seed + req.rid)
-        return g
+            g.set_state(req.generator.get_state())
+        else:
+            g.manual_seed(req.seed if req.seed is not None
+                          else self._base_seed + req.rid)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device without waiting on the stream (pinned,
@@ -915,8 +980,8 @@ class SlotScheduler:
         self._slot_out[slot] = []
         self._slot_hit[slot] = hit is not None
         self._slot_temp[slot] = temp
-        self._slot_gen[slot] = (self._request_generator(req) if temp > 0.0
-                                else None)
+        if temp > 0.0:
+            self._seed_slot_generator(slot, req)
         self._slot_admit_seq[slot] = self._admit_seq
         self._admit_seq += 1
         self._slot_spec[slot] = eff_spec if temp == 0.0 else 0
@@ -956,6 +1021,11 @@ class SlotScheduler:
         for s in freed:
             if deactivate:
                 self._state.remaining[s] = 0
+            req = self._slot_req[s]
+            if self._slot_temp[s] > 0.0 and req.generator is not None:
+                # the caller's generator ends where the slot's draws left
+                # it, as if the slot had drawn from it
+                req.generator.set_state(self._slot_gen[s].get_state())
             # sentinel the row BEFORE its blocks can be freed and reused:
             # an idle slot still runs the decode write every step
             self._state.tables[s] = self.num_blocks
@@ -972,7 +1042,6 @@ class SlotScheduler:
             self._slot_req[s] = None
             self._slot_out[s] = []
             self._slot_temp[s] = 0.0
-            self._slot_gen[s] = None
             self._slot_spec[s] = 0
 
     def _retire(self) -> List[Completion]:
@@ -1033,8 +1102,8 @@ class SlotScheduler:
     def preempt(self, slot: int) -> Request:
         """Evict a running slot and requeue its request as a continuation
         (prompt + tokens so far, budget reduced) at the head of its
-        priority band.  A sampled slot's continuation keeps drawing from
-        the slot's generator.  Pump boundary only."""
+        priority band.  A sampled slot's continuation draws on from where
+        the slot's generator stands.  Pump boundary only."""
         assert self._inflight is None, (
             "preempt() between dispatch() and collect()")
         req = self._slot_req[slot]
@@ -1044,13 +1113,15 @@ class SlotScheduler:
             req.rid, (len(req.tokens), [], False))
         self._preempted[req.rid] = (plen0, prior + out,
                                     hit0 or self._slot_hit[slot])
+        gen = req.generator          # the release below hands it the state
+        if self._slot_temp[slot] > 0.0 and gen is None:
+            gen = torch.Generator(device=self.device)
+            gen.set_state(self._slot_gen[slot].get_state())
         cont = dataclasses.replace(
             req,
             tokens=np.concatenate([np.asarray(req.tokens, np.int32),
                                    np.asarray(out, np.int32)]),
-            max_new=req.max_new - len(out),
-            generator=(self._slot_gen[slot] if self._slot_gen[slot] is not None
-                       else req.generator))
+            max_new=req.max_new - len(out), generator=gen)
         self._release_slot_state([slot], deactivate=True)
         self.preemptions += 1
         # the continuation must not re-feed the count-min tracker
@@ -1179,18 +1250,26 @@ class SlotScheduler:
         return admitted
 
     def dispatch(self) -> bool:
-        """Launch one decode chunk.  On the card this only enqueues work;
-        ``collect()`` waits for it.  False when no slot is active."""
+        """Launch one decode chunk: the eager fold at its head, then the
+        variant's graph replay (captured here at the variant's first
+        dispatch) or, without graphs, the eager chunk.  On the card this
+        only enqueues work; ``collect()`` waits for it.  False when no
+        slot is active."""
         assert self._inflight is None, "one decode chunk may be in flight"
         if not any(r is not None for r in self._slot_req):
             return False
         fold = self._plan_folds() if self.sketch_on else None
+        v = self._variant(fold)
+        if self._graphs is not None:
+            self._graphs.ensure(v, lambda: self._chunk(v))
         events = None
         if self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-        out = self._run_chunk(fold)
+        self._fold(fold)
+        out = (self._graphs.replay(v) if self._graphs is not None
+               else self._chunk(v))
         if events is not None:
             events[1].record()
         if fold is not None:
@@ -1256,6 +1335,12 @@ class SlotScheduler:
     # Introspection
     # ------------------------------------------------------------------
 
+    @property
+    def decode_compilations(self) -> int:
+        """Decode chunk variants captured as CUDA graphs (0 when the chunk
+        runs eagerly)."""
+        return 0 if self._graphs is None else self._graphs.captures
+
     def kv_reserved_bytes(self) -> int:
         """Bytes of pool blocks currently allocated (slots + cache)."""
         return self.alloc.reserved_bytes()
@@ -1300,6 +1385,7 @@ class SlotScheduler:
             expired=self.expirations,
             preempted=self.preemptions,
             decode_steps=self.decode_steps,
+            decode_compilations=self.decode_compilations,
             pool_blocks=self.num_blocks,
             block_size=self.block_size,
             blocks_reserved=self.alloc.reserved,

@@ -24,9 +24,11 @@ one-token-per-step loop.  One round, for every slot at once:
 
 So greedy speculative output is token for token plain greedy output,
 and slots with spec_k == 0 ride the same chunk as one-verified-token
-rounds.  Like the plain chunk it is a Python loop of device work that
-never waits on the host: tokens and emit flags stay on the device,
-(chunk, B, K + 1), until ``collect`` copies them once.
+rounds.  Like the plain chunk it is device work that never waits on the
+host (every per-slot decision is device data): tokens and emit flags
+stay on the device, (chunk, B, K + 1), until ``collect`` copies them
+once, and on the card the scheduler captures it once per variant as a
+CUDA graph and replays it (serve/graphs.py).
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ def spec_chunk(params, draft: Draft, cfg: ModelConfig, state,
     scheduler's ``DecodeState``, updated in place: pools, cur, pos,
     remaining) through the block ``tables`` the model sees (B, nb).
     ``sample(logits (B, V))`` is the scheduler's per-slot
-    sampler (argmax for greedy slots).  ``rows``: the padded row count of
+    sampler (argmax for greedy slots, every slot at once).  ``rows``: the padded row count of
     the verify step, the plain engine's decode row count
     (models/layers.py, row padding); the draft's micro-steps, whose
     proposals only decide what is verified, run unpadded.

@@ -4,8 +4,10 @@ plain versions, the model's kernel path against its plain path, the slot
 engine launching the paged-attention kernel (and, sketched, the tail
 kernels), verify rows bitwise decode rows, the speculative engine's
 greedy tokens bitwise the plain engine's (its draft through count_sketch
-and unsketch), the sketched optimizer launching sketch_update, and
-sketched RTPM launching count_sketch and unsketch.  Every test carries the
+and unsketch), the decode chunk replayed as CUDA graphs bitwise its eager
+twin (plain, sketched and speculative engines), the sketched optimizer
+launching sketch_update, and sketched RTPM launching count_sketch and
+unsketch.  Every test carries the
 ``cuda`` marker and skips without a card; the file imports nothing of
 JAX, so it runs on the card's machine:
 
@@ -788,3 +790,147 @@ def test_sketched_rtpm_launches_both_kernels(card):
                            hashes=hashes, inits=inits)
     torch.testing.assert_close(lk.cpu(), lc, rtol=0,
                                atol=1e-3 * lc.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# The decode chunk as CUDA graphs (serve/graphs.py): graphed vs eager twin
+# ---------------------------------------------------------------------------
+
+
+def _chunk_log(sched):
+    """Record each collected chunk's (tokens, emit flags) on the host."""
+    log = []
+    collect = sched.collect
+
+    def spy():
+        log.append(sched._inflight[0].cpu().numpy())
+        return collect()
+
+    sched.collect = spy
+    return log
+
+
+def _graphed_and_eager(cfg, params, serve, make_reqs, card, passes=2):
+    """The same stream through a graphed engine and its eager twin, in
+    ``passes`` passes each: tokens, emit flags (and the tokens they
+    flag), completion order, allocator books, tail tables, kernel launch
+    counts and the callers' generator states bitwise equal; the captures
+    equal the variants used and do not grow after the first pass; no
+    leaked blocks.  Returns the graphed scheduler."""
+    from repro_torch.serve.graphs import launch_counters
+    out = {}
+    for graphs in (True, False):
+        sched = SlotScheduler(cfg, params, serve=serve, device=card,
+                              graphs=graphs)
+        log = _chunk_log(sched)
+        gens, done, caps = [], [], []
+        before = [w.launches for w in launch_counters()]
+        for p in range(passes):
+            reqs = make_reqs(100 * p)
+            gens += [r.generator for r in reqs if r.generator is not None]
+            done += sched.run(reqs)
+            caps.append(sched.decode_compilations)
+        torch.cuda.synchronize()
+        launches = [w.launches - b for w, b in zip(launch_counters(), before)]
+        out[graphs] = dict(sched=sched, log=log, done=done, caps=caps,
+                           launches=launches,
+                           gens=[g.get_state() for g in gens])
+    g, e = out[True], out[False]
+    assert [c.rid for c in g["done"]] == [c.rid for c in e["done"]]
+    for a, b in zip(g["done"], e["done"]):
+        assert np.array_equal(a.tokens, b.tokens), a.rid
+    assert len(g["log"]) == len(e["log"])
+    for a, b in zip(g["log"], e["log"]):
+        fa, fb = a[1].astype(bool), b[1].astype(bool)
+        assert np.array_equal(fa, fb)
+        assert np.array_equal(a[0][fa], b[0][fb])
+    gs, es = g["sched"], e["sched"]
+    assert (gs.alloc.peak_reserved, gs.alloc.rc.tolist(),
+            sorted(gs.alloc._free)) == (es.alloc.peak_reserved,
+                                        es.alloc.rc.tolist(),
+                                        sorted(es.alloc._free))
+    assert gs.alloc.reserved == gs.prefix_cache.held_blocks()
+    if gs.sketch_on:
+        for a, b in zip(gs._pools(), es._pools()):
+            assert torch.equal(a["tail"], b["tail"])
+    assert g["launches"] == e["launches"] and g["launches"][0] > 0
+    assert all(torch.equal(a, b) for a, b in zip(g["gens"], e["gens"]))
+    used = len(gs._graphs.replays)
+    assert g["caps"] == [used] * passes and used >= 1
+    assert e["caps"] == [0] * passes
+    return gs
+
+
+def _stream(cfg, lens, sampled, rid0, card, max_new=7):
+    rng = np.random.RandomState(rid0 + 1)
+    reqs = []
+    for i, n in enumerate(lens):
+        gen = None
+        if i in sampled:
+            gen = torch.Generator(card).manual_seed(rid0 + 50 + i)
+        reqs.append(Request(
+            rid=rid0 + i, tokens=rng.randint(0, cfg.vocab_size, n).astype(
+                np.int32), max_new=max_new,
+            temperature=0.8 if i in sampled else 0.0, top_k=8 * (i % 2),
+            generator=gen, seed=None if gen is not None else rid0 + i))
+    return reqs
+
+
+def test_graphed_plain_engine_is_its_eager_twin(card):
+    """Reduced gemma-2b, greedy and sampled requests (sampled ones from
+    callers' generators) through the graphed plain engine and its eager
+    twin: both variants used, everything bitwise."""
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=7, device=card)
+    serve = dataclasses.replace(cfg.serve, max_batch=3, max_seq=96,
+                                prefill_bucket=16, decode_chunk=4)
+    gs = _graphed_and_eager(
+        cfg, params, serve,
+        lambda r0: (_stream(cfg, (5, 16, 9), (), r0, card)
+                    + _stream(cfg, (23, 12, 30), (1, 2), r0 + 10, card)),
+        card)
+    assert {v.sampled for v in gs._graphs.replays} == {False, True}
+
+
+def test_graphed_sketched_engine_is_its_eager_twin(card):
+    """A sketched engine (window 32) whose long prompts fold, mixed with
+    short and sampled ones: tail tables, tokens and books bitwise the
+    eager twin's in every variant the stream picks."""
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=8, device=card)
+    serve = dataclasses.replace(
+        cfg.serve, max_batch=3, max_seq=256, prefill_bucket=16,
+        decode_chunk=4, kv_block_size=16, prefix_block=16,
+        kv_sketch_window=32, admit_threshold=1 << 30)
+
+    def make(r0):
+        return (_stream(cfg, (12, 20), (), r0, card)
+                + _stream(cfg, (14,), (0,), r0 + 10, card)
+                + _stream(cfg, (70, 90), (), r0 + 20, card)
+                + _stream(cfg, (55, 12), (0,), r0 + 30, card))
+
+    gs = _graphed_and_eager(cfg, params, serve, make, card)
+    assert gs.fold_rows_total > 0
+    assert any(v.sketched for v in gs._graphs.replays)
+
+
+@pytest.mark.parametrize("ratio", [0, 2])
+def test_graphed_spec_engine_is_its_eager_twin(card, ratio):
+    """A truncated spec engine (ratio 0) and a count-sketch-compressed one
+    with the sketched head (ratio 2), spec_k 3: the graphed spec chunk is
+    its eager twin bitwise, and its greedy tokens are the plain engine's."""
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=9, device=card)
+    base = dataclasses.replace(cfg.serve, max_batch=3, max_seq=96,
+                               prefill_bucket=16, decode_chunk=4)
+    serve = dataclasses.replace(base, spec_k=3, draft_depth=1,
+                                draft_sketch_ratio=ratio)
+    make = lambda r0: _stream(cfg, (5, 16, 9, 23, 12), (3,), r0, card)
+    gs = _graphed_and_eager(cfg, params, serve, make, card)
+    assert gs.stats().spec_rounds > 0
+    plain = SlotScheduler(cfg, params, serve=base, device=card)
+    want = {c.rid: c.tokens for c in plain.run(make(0))}
+    got = {c.rid: c.tokens for c in SlotScheduler(
+        cfg, params, serve=serve, device=card).run(make(0))}
+    for rid in (0, 1, 2, 4):
+        assert np.array_equal(got[rid], want[rid]), rid
