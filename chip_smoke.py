@@ -65,16 +65,19 @@ Phases (one line each; any failure exits non-zero):
                  ServeEngine.generate wraps), launches counted, greedy
                  output checked against a teacher-forced recompute.
                  Every serve phase (serve, spec, long, long-spec) runs
-                 its engines with the decode chunk replayed as CUDA
-                 graphs (the card's default) and again as their eager
-                 twins (graphs=False), each stream twice (timed, then
-                 profiled) and a profiled decode window: the graphed
+                 its engines with the decode and prefill chunks replayed
+                 as CUDA graphs (the card's default) and again as their
+                 eager twins (graphs=False), each stream twice (timed,
+                 then profiled) and a profiled decode window: the graphed
                  engine must equal its twin bitwise (tokens, completion
-                 order, emit flags, allocator books, tail tables, launch
+                 order, emit flags, allocator books, pool rows after the
+                 window's prefill and at the end, tail tables, launch
                  counts, callers' generator states) and capture each
-                 variant once; a [graphs] line gives both engines'
-                 decode chunk ms, busy per step, idle shares, tok/s and
-                 TTFT, the captures and the graphs' pool bytes
+                 variant once (prefill: 1 on a sketch-free engine, at
+                 most 2 on a sketched one); a [graphs] line gives both
+                 engines' decode chunk ms, prefill chunk ms, busy per
+                 step, idle shares, tok/s and TTFT, the captures and both
+                 graph pools' bytes
      spec      — full-width verify_step at spec_k 4 bitwise 5 decode
                  steps; then the serve stream (and two whole-prompt
                  prefix hits) through a plain engine and three spec
@@ -1488,7 +1491,8 @@ def phase_serve(cfg, params, dev, logit_gap):
         total += len(c.tokens)
     n_sampled = sum(1 for r in reqs if r.temperature)
     print(f"[serve] gemma-2b full width, 16 requests ({n_sampled} sampled), "
-          f"decode chunk replayed as CUDA graphs: {ntok} tokens in "
+          f"decode and prefill chunks replayed as CUDA graphs: {ntok} "
+          f"tokens in "
           f"{wall:.4f}s = {ntok / wall:.2f} tok/s, TTFT p50 "
           f"{np.percentile(ttfts, 50) * 1e3:.2f} ms, mean decode "
           f"chunk {run['chunk']:.3f} ms ({run['chunks']} chunks of "
@@ -1563,7 +1567,7 @@ def phase_long_serve(cfg, params, dev):
     print(f"[long] gemma-2b full width, max_seq {LONG['max_seq']}, sketched "
           f"KV window {LONG['window']} ratio {LONG['ratio']} rows "
           f"{LONG['rows']} (C={sched.tail_cols}, T={sched.tail_domain}), "
-          f"decode chunk replayed as CUDA graphs: "
+          f"decode and prefill chunks replayed as CUDA graphs: "
           f"{len(reqs)} requests, prompts {list(LONG_PROMPTS)} (the last "
           f"sampled), {LONG_NEW} new each: {ntok} tokens in {wall:.4f}s = "
           f"{ntok / wall:.2f} tok/s, TTFT p50 "
@@ -1622,10 +1626,10 @@ class LaunchShapes:
     paths), keyed as the kernel phases' geometry tables are, so the run
     can show that each shape the serve paths launched was held against
     its plain version.  Calls that take the plain version on the card
-    (``use_kernel=False``) never reach the wrappers.  A decode chunk
-    replayed as a CUDA graph calls no wrapper; its capture called each one
-    once at every shape the variant launches (and the eager twins of the
-    serve phases call them too), so every shape is still seen."""
+    (``use_kernel=False``) never reach the wrappers.  A decode or prefill
+    chunk replayed as a CUDA graph calls no wrapper; its capture called
+    each one once at every shape the variant launches (and the eager twins
+    of the serve phases call them too), so every shape is still seen."""
 
     KEYS = {
         # (B, Sq, K, R, hd, bs, nb): the geometry less the pool size NB,
@@ -1802,7 +1806,8 @@ def leaked_blocks(sched):
 
 
 # ---------------------------------------------------------------------------
-# the decode chunk as CUDA graphs: each serve phase graphed and eager
+# the decode and prefill chunks as CUDA graphs: each serve phase graphed
+# and eager
 # ---------------------------------------------------------------------------
 
 WINDOW_CHUNKS = 3       # decode chunks in a profiled decode window
@@ -1835,10 +1840,13 @@ def decode_window(sched, reqs):
     and prefilled, then up to WINDOW_CHUNKS dispatch / collect rounds
     (fewer if every request finishes first) under the CUDA-only
     profiler, then the rest drained.  Returns (busy ms, wall ms) per
-    decode step of the window."""
+    decode step of the window and a copy of the pool rows [:, :NB] (both
+    pools of a spec engine) just after the window's prefill."""
     for r in reqs[:sched.serve.max_batch]:
         sched.submit(r)
     sched.admit_pending()
+    pools = [{k: t[:, :sched.num_blocks].clone() for k, t in c["kv"].items()}
+             for c in sched._pools()]
 
     def rounds():
         n = 0
@@ -1852,7 +1860,7 @@ def decode_window(sched, reqs):
     if n == 0:
         fail("decode window: no live slot to dispatch")
     steps = n * sched.serve.decode_chunk
-    return 1e3 * busy / steps, 1e3 * wall / steps
+    return 1e3 * busy / steps, 1e3 * wall / steps, pools
 
 
 def run_twin(front, reqs, dev):
@@ -1880,12 +1888,15 @@ def run_twin(front, reqs, dev):
     peak = torch.cuda.max_memory_allocated()
     stats = sched.stats()
     chunk_ms = list(sched.chunk_ms)
+    prefill_ms = sched.prefill_chunk_ms()
     caps = [sched.decode_compilations]
+    pcaps = [sched.prefill_compilations]
     done2, _, twall, busy = drive_stream(front, streams[1], True)
     caps.append(sched.decode_compilations)
-    busy_step, wall_step = decode_window(sched, window)
+    pcaps.append(sched.prefill_compilations)
+    busy_step, wall_step, pools = decode_window(sched, window)
     torch.cuda.synchronize()
-    g = sched._graphs
+    g, pg = sched._graphs, sched._prefill_graphs
     out = dict(
         sched=sched, done=done, ttfts=ttfts, wall=wall, launches=launches,
         peak=peak, stats=stats, chunk=float(np.mean(chunk_ms)),
@@ -1899,11 +1910,38 @@ def run_twin(front, reqs, dev):
         if sched.sketch_on else [],
         variants=[] if g is None else g.variants(),
         capture_s={} if g is None else dict(g.capture_s),
-        pool=0 if g is None else g.pool_bytes())
+        pool=0 if g is None else g.pool_bytes(),
+        pcaps=pcaps, prefill_ms=prefill_ms, pools=pools,
+        pvariants=[] if pg is None else pg.variants(),
+        preplays={} if pg is None else dict(pg.replays),
+        pcapture_s={} if pg is None else dict(pg.capture_s),
+        ppool=0 if pg is None else pg.pool_bytes(),
+        pools_apart=pg is None or pg._pool != g._pool,
+        gather_ms=None if pg is None else tail_gather_ms(sched))
     out["books"] = (sched.alloc.peak_reserved, sched.alloc.rc.tolist(),
                     sorted(sched.alloc._free))
     out["leaked"] = leaked_blocks(sched)
     return out
+
+
+def tail_gather_ms(sched):
+    """Device ms of the sketched prefill's per-chunk gather of one slot's
+    tails, every pool's (``index_select`` on the slot axis, as its graph
+    replays it), mean of 20 under CUDA events; None on a sketch-free
+    engine."""
+    if not sched.sketch_on:
+        return None
+    idx = torch.zeros((1,), dtype=torch.int64, device=sched.device)
+    tails = [c["tail"] for c in sched._pools()]
+    gather = lambda: [t.index_select(2, idx) for t in tails]
+    gather()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(20):
+        gather()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / 20
 
 
 def twin_streams(what, make_front, reqs, dev):
@@ -1911,10 +1949,13 @@ def twin_streams(what, make_front, reqs, dev):
     card's default) and its eager twin (``make_front(False)``), each by
     ``run_twin``.  Fails unless the graphed engine equals its twin
     bitwise (tokens of both passes, completion order, every chunk's emit
-    flags and the tokens they flag, allocator books, tail tables, kernel
-    launch counts, the callers' generator states) and captured each
-    variant it used once, none more on the second pass.  Prints the
-    ``[graphs]`` line; returns the graphed run."""
+    flags and the tokens they flag, allocator books, pool rows [:, :NB]
+    of both pools after the window's prefill and at the end, tail tables,
+    kernel launch counts, the callers' generator states) and captured
+    each decode and prefill variant it used once, none more on the second
+    pass (prefill: 1 on a sketch-free engine, at most 2 on a sketched
+    one), the prefill graphs in a pool apart from the decode graphs'.
+    Prints the ``[graphs]`` line; returns the graphed run."""
     runs = {}
     for graphs in (None, False):
         runs[graphs] = run_twin(make_front(graphs), reqs, dev)
@@ -1937,6 +1978,16 @@ def twin_streams(what, make_front, reqs, dev):
     if len(g["tails"]) != len(e["tails"]) or not all(
             torch.equal(a, b) for a, b in zip(g["tails"], e["tails"])):
         bad.append("tail tables")
+    gs, es = g["sched"], e["sched"]
+    if len(g["pools"]) != len(e["pools"]) or not all(
+            torch.equal(a[k], b[k]) for a, b in zip(g["pools"], e["pools"])
+            for k in ("k", "v")):
+        bad.append("pool rows after the window's prefill")
+    if not all(torch.equal(a["kv"][k][:, :gs.num_blocks],
+                           b["kv"][k][:, :es.num_blocks])
+               for a, b in zip(gs._pools(), es._pools())
+               for k in ("k", "v")):
+        bad.append("pool rows at the end")
     if g["launches"] != e["launches"] or \
             g["launches_all"] != e["launches_all"]:
         bad.append(f"launches {g['launches']} / {e['launches']}")
@@ -1948,6 +1999,18 @@ def twin_streams(what, make_front, reqs, dev):
             or e["caps"] != [0, 0]:
         bad.append(f"captures {g['caps']} (eager {e['caps']}) for {used} "
                    f"variants used")
+    pused = len(g["preplays"])
+    pmax = 2 if gs.sketch_on else 1
+    if g["pcaps"] != [g["pcaps"][0]] * 2 or g["pcaps"][0] != pused \
+            or not 1 <= pused <= pmax or e["pcaps"] != [0, 0]:
+        bad.append(f"prefill captures {g['pcaps']} (eager {e['pcaps']}) "
+                   f"for {pused} variants used (at most {pmax})")
+    if not g["pools_apart"] or g["ppool"] <= 0:
+        bad.append(f"prefill graphs' pool ({g['ppool']} B) not apart from "
+                   f"the decode graphs'")
+    if not 0 < len(g["prefill_ms"]) == len(e["prefill_ms"]):
+        bad.append(f"prefill chunks timed {len(g['prefill_ms'])} / "
+                   f"{len(e['prefill_ms'])}")
     if g["leaked"] or e["leaked"]:
         bad.append(f"leaked blocks {g['leaked']} / {e['leaked']}")
     if bad:
@@ -1960,7 +2023,9 @@ def twin_streams(what, make_front, reqs, dev):
             wall=f"{r['wall_step']:.4f}",
             widle=f"{100 * (1 - r['busy_step'] / r['wall_step']):.1f}",
             idle=f"{100 * r['idle']:.1f}", tok_s=f"{ntok / r['wall']:.2f}",
-            ttft=f"{np.percentile(r['ttfts'], 50) * 1e3:.2f}")
+            ttft=f"{np.percentile(r['ttfts'], 50) * 1e3:.2f}",
+            pf50=f"{np.percentile(r['prefill_ms'], 50):.3f}",
+            pfmax=f"{max(r['prefill_ms']):.3f}")
 
     fg, fe = figures(g), figures(e)
     pair = {k: f"{fg[k]} / {fe[k]}" for k in fg}
@@ -1970,7 +2035,20 @@ def twin_streams(what, make_front, reqs, dev):
           f"{g['caps'][1]} after the second, {used} after the decode window "
           f"(capture s: "
           + ", ".join(f"{v.name} {t:.3f}" for v, t in g["capture_s"].items())
-          + f"); graphs' pool {g['pool']} B; graphed / eager twin: decode "
+          + f"); graphs' pool {g['pool']} B; prefill variants "
+          f"{', '.join(v.name for v in g['pvariants'])}: "
+          f"prefill_compilations {g['pcaps'][0]} after the first pass, "
+          f"{g['pcaps'][1]} after the second, "
+          f"{sum(g['preplays'].values())} prefill replays in all (capture "
+          f"s: "
+          + ", ".join(f"{v.name} {t:.3f}" for v, t in g["pcapture_s"].items())
+          + f"); prefill graphs' own pool {g['ppool']} B"
+          + ("" if g["gather_ms"] is None else
+             f"; the sketched prefill's tail gather {g['gather_ms']:.4f} ms "
+             f"per chunk (every pool)")
+          + f"; graphed / eager twin: prefill chunk p50 {pair['pf50']} ms, "
+          f"max {pair['pfmax']} ms (device, {len(g['prefill_ms'])} chunks "
+          f"of the first pass), decode "
           f"chunk {pair['chunk']} ms (mean of {g['chunks']} chunks), busy "
           f"per decode step {pair['busy']} ms (wall {pair['wall']} ms, idle "
           f"{pair['widle']}% over up to {WINDOW_CHUNKS} chunks, "
@@ -1980,7 +2058,9 @@ def twin_streams(what, make_front, reqs, dev):
           f"captures included); bitwise equal: tokens of "
           f"{len(g['order'])} requests over both passes and the window, "
           f"emit flags of {len(g['log'])} chunks, completion order, "
-          f"allocator books, {len(g['tails'])} tail tables, launches "
+          f"allocator books, {len(g['pools'])} pools' rows after the "
+          f"window's prefill and at the end, {len(g['tails'])} tail "
+          f"tables, launches "
           f"{g['launches_all']}, {len(g['gens'])} callers' generator "
           f"states; {card()}")
     del runs[False], e

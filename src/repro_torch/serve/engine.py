@@ -137,6 +137,12 @@ class ServeEngine:
         return sum(f.scheduler.decode_compilations
                    for f in self._frontends.values())
 
+    @property
+    def prefill_compilations(self) -> int:
+        """Prefill chunk captures across every live scheduler."""
+        return sum(f.scheduler.prefill_compilations
+                   for f in self._frontends.values())
+
     def stats(self) -> EngineStats:
         """Snapshot merged across every live scheduler."""
         return EngineStats.merge(

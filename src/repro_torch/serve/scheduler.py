@@ -13,7 +13,12 @@ Prefill is chunked: the prompt is fed through ``prefill_chunk`` in
 ``prefill_bucket``-sized chunks at absolute bucket offsets, scattered
 through the slot's table.  A freshly admitted request resumes decode at
 ``pos = S - 1`` by re-feeding its last prompt token, so the first output
-token is sampled by the decode chunk and prefill produces no logits.
+token is sampled by the decode chunk and prefill produces no logits.  The
+host plans the chunks (boundaries, lazy block allocation, the
+fold-through between chunks) and writes each chunk's tokens, table row,
+offset, fold base and slot into one static buffer with one copy; on the
+card the chunk's captured graph replays on it, and without graphs the
+same chunk runs eagerly (``_prefill_one``).
 
 Decode runs ``decode_chunk`` steps per scheduler round as device work
 that never waits on the host: per-slot position, remaining budget,
@@ -30,10 +35,11 @@ neighbours.  A slot's generator takes its request's state at admission
 (``Request.generator``'s, or a seed's) and gives it back to
 ``Request.generator`` when the slot is released.
 
-On the card the chunk is captured once per variant as a CUDA graph and
-replayed (serve/graphs.py; ``graphs=False`` keeps the eager chunk, the
-CPU's path, as the card's twin); ``decode_compilations`` counts the
-captures.
+On the card the decode chunk and the prefill chunk are each captured
+once per variant as CUDA graphs and replayed (serve/graphs.py; the
+prefill graphs in a memory pool of their own); ``decode_compilations``
+and ``prefill_compilations`` count the captures.  ``graphs=False`` keeps
+both chunks eager, the CPU's path, as the card's twin.
 
 Prefix reuse is gated by the count-min admission filter in
 serve/prefix_cache.py and is zero-copy: a hit writes the cached entry's
@@ -87,6 +93,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -100,7 +107,7 @@ from repro_torch.models import layers as ly
 from repro_torch.models.draft import Draft, make_draft
 from repro_torch.serve import kv_sketch as kvs
 from repro_torch.serve import speculative as spec
-from repro_torch.serve.graphs import ChunkGraphs, Variant
+from repro_torch.serve.graphs import ChunkGraphs, PrefillVariant, Variant
 from repro_torch.serve.prefix_cache import SketchPrefixCache
 
 
@@ -155,11 +162,11 @@ def _stat(kind: str) -> Any:
 class EngineStats:
     """One flat snapshot of a scheduler (or, merged, of an engine): queue
     pressure, slot occupancy, pool high-water marks and prefix-cache
-    effectiveness.  Field names match the JAX package's ``EngineStats``,
-    which also has ``prefill_compilations``: not ported (it comes with a
-    captured chunked prefill).  ``decode_compilations`` counts the decode
-    chunk's CUDA graph captures (one per variant an engine used; 0 on the
-    CPU, which runs the chunk eagerly)."""
+    effectiveness.  Field names match the JAX package's ``EngineStats``.
+    ``decode_compilations`` and ``prefill_compilations`` count the decode
+    and prefill chunks' CUDA graph captures (one per variant an engine
+    used; 0 on the CPU, which runs both chunks eagerly), where the
+    reference counts XLA compilations."""
     queue_depth: int = _stat("gauge")
     active_slots: int = _stat("gauge")
     max_batch: int = _stat("gauge")
@@ -169,6 +176,7 @@ class EngineStats:
     preempted: int = _stat("counter")
     decode_steps: int = _stat("counter")
     decode_compilations: int = _stat("counter")
+    prefill_compilations: int = _stat("counter")
     pool_blocks: int = _stat("gauge")
     block_size: int = _stat("geometry")
     blocks_reserved: int = _stat("gauge")
@@ -227,7 +235,8 @@ class EngineStats:
             f"(cancelled={self.cancelled} expired={self.expired} "
             f"preemptions={self.preempted})",
             f"decode: steps={self.decode_steps} "
-            f"compilations={self.decode_compilations}",
+            f"compilations={self.decode_compilations} "
+            f"(prefill: {self.prefill_compilations})",
             f"paged KV: {self.pool_blocks} blocks x {self.block_size} "
             f"tokens, reserved={self.blocks_reserved} (peak "
             f"{self.blocks_peak}, free {self.blocks_free}) — "
@@ -334,6 +343,35 @@ class DecodeState:
     spec_k: torch.Tensor         # (B,) int32 proposals per round
 
 
+@dataclass
+class PrefillInputs:
+    """The prefill chunk's static inputs: one chunk of one slot, views of
+    one int64 buffer at an address fixed for the engine's life, which the
+    host writes with one copy before each chunk."""
+    buf: torch.Tensor            # (bucket + blocks_per_slot + 3,) int64
+    tokens: torch.Tensor         # (1, prefill_bucket) chunk tokens
+    table: torch.Tensor          # (1, blocks_per_slot) table row
+    offset: torch.Tensor         # (1,) absolute row of token 0
+    fold_base: torch.Tensor      # (1,) the slot's first exact row
+    slot: torch.Tensor           # (1,) slot whose tails it attends
+
+    @classmethod
+    def make(cls, bucket: int, width: int, sentinel: int,
+             device: torch.device) -> "PrefillInputs":
+        buf = torch.zeros((bucket + width + 3,), dtype=torch.int64,
+                          device=device)
+        tokens, table, offset, fold_base, slot = buf.split(
+            [bucket, width, 1, 1, 1])
+        table.fill_(sentinel)
+        return cls(buf, tokens.view(1, bucket), table.view(1, width),
+                   offset, fold_base, slot)
+
+
+# device times kept per kind of chunk (``chunk_ms``, ``prefill_ms``): the
+# newest, so a long-lived engine's record stays bounded
+TIMINGS_KEPT = 10_000
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet; "
                                f"see ROADMAP {item}")
@@ -345,10 +383,10 @@ class SlotScheduler:
                  temperature: float = 0.0, device: DeviceLike = None,
                  draft: Optional[Draft] = None,
                  graphs: Optional[bool] = None):
-        """``graphs``: the decode chunk as captured CUDA graphs
-        (serve/graphs.py).  None captures on the card and runs eagerly on
-        the CPU; True demands graphs and raises on the CPU; False runs the
-        eager chunk on either (the card's twin)."""
+        """``graphs``: the decode and prefill chunks as captured CUDA
+        graphs (serve/graphs.py).  None captures on the card and runs
+        eagerly on the CPU; True demands graphs and raises on the CPU;
+        False runs the eager chunks on either (the card's twin)."""
         sv = serve if serve is not None else cfg.serve
         if sv.spec_k > 0 and cfg.family not in tf.ATTN_FAMILIES:
             raise ValueError(f"speculative decode needs a kv-cache family "
@@ -437,7 +475,13 @@ class SlotScheduler:
         # the chunk in flight between dispatch() and collect(): stacked
         # (2, chunk, B) tokens/emits plus its timing events on the card
         self._inflight: Optional[Tuple[torch.Tensor, Any]] = None
-        self.chunk_ms: List[float] = []   # device time per decode chunk
+        # device time per decode chunk, and per prefill chunk (newest
+        # TIMINGS_KEPT of each)
+        self.chunk_ms: deque = deque(maxlen=TIMINGS_KEPT)
+        self.prefill_ms: deque = deque(maxlen=TIMINGS_KEPT)
+        # prefill chunks' timing events not yet read (the last may still
+        # be queued behind a decode chunk)
+        self._prefill_events: deque = deque()
         self.cancellations = 0
         self.expirations = 0
         self.preemptions = 0
@@ -464,6 +508,7 @@ class SlotScheduler:
         # and the paged kernel's split plan, which reads the table width,
         # is the plain engine's, so verify rows are its decode rows
         self.attn_blocks = -(-sv.max_seq // self.block_size)
+        self.prefill_bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
         nb = sv.num_kv_blocks or B * self.blocks_per_slot
         self.num_blocks = nb
         self.sketch_on = bool(sv.kv_sketch_window)
@@ -486,8 +531,7 @@ class SlotScheduler:
             # keeps pace with it (+1 block so a lagging slot catches up)
             self.adv_max = sv.decode_chunk * (self.spec_max + 1)
             self.fold_cap = bs * (-(-self.adv_max // bs) + 1)
-            bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
-            self.prefill_fold_cap = bs * (bucket // bs + 1)
+            self.prefill_fold_cap = bs * (self.prefill_bucket // bs + 1)
             tail = (B, Z, self.tail_cols)
         cache = tf.init_paged_cache(cfg, nb, self.block_size, self.device,
                                     tail=tail)
@@ -520,17 +564,28 @@ class SlotScheduler:
             fold_base=torch.zeros((B,), dtype=torch.int32, device=dev),
             spec_k=torch.zeros((B,), dtype=torch.int32, device=dev),
         )
+        # the prefill chunk's inputs, at addresses fixed for the engine's
+        # life: the prefill chunk reads only these, and the host writes
+        # them before each chunk (``_stage_prefill``)
+        self._pf = PrefillInputs.make(self.prefill_bucket,
+                                      self.blocks_per_slot, nb, dev)
         self._graphs: Optional[ChunkGraphs] = None
+        self._prefill_graphs: Optional[ChunkGraphs] = None
         if graphs is None:
             graphs = self.device.type == "cuda"
         if graphs:
             self._graphs = ChunkGraphs(self._slot_gen)
+            self._prefill_graphs = ChunkGraphs(())
             # every lazy first call of every variant before any capture,
-            # while every slot is idle: sentinel tables send each KV write
-            # to the sink, remaining == 0 keeps every position, and
-            # admission resets ``cur`` and reseeds the slot's generator
+            # while every slot is idle: sentinel tables (the prefill's
+            # static row too) send each KV write to the sink, remaining ==
+            # 0 keeps every position, admission resets ``cur`` and reseeds
+            # the slot's generator, and the sketched prefill only reads
+            # slot 0's tails, zeros until its first admission
             for v in self._usable_variants():
                 self._chunk(v)
+            for pv in self._prefill_variants():
+                self._prefill_static(pv)
 
     def set_observer(self, obs: Any) -> None:
         """The reference's observability hooks are not ported yet."""
@@ -583,6 +638,13 @@ class SlotScheduler:
         draft's in a spec engine."""
         c = self._state.cache
         return [c] + ([c["draft"]] if self.draft is not None else [])
+
+    def _prefill_variants(self) -> List[PrefillVariant]:
+        """The prefill variants this engine can run: the sketch-free
+        chunk, and on a sketched engine the two-span chunk of a slot that
+        has folded rows."""
+        return [PrefillVariant(False)] + (
+            [PrefillVariant(True)] if self.sketch_on else [])
 
     def _usable_variants(self) -> List[Variant]:
         """The chunk variants this engine can dispatch."""
@@ -675,8 +737,7 @@ class SlotScheduler:
             # a sketched request never holds its whole context: its peak
             # is the exact window + one prefill bucket of write frontier +
             # one chunk of decode lookahead (+ speculative overhang)
-            bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
-            peak = (self.kv_window // bs + -(-bucket // bs)
+            peak = (self.kv_window // bs + -(-self.prefill_bucket // bs)
                     + -(-(self.adv_max + self.spec_overhang) // bs) + 2)
             need = min(need, peak)
         if need > self.num_blocks:
@@ -719,45 +780,99 @@ class SlotScheduler:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _chunk_prefill_loop(self, prompt: np.ndarray, table: torch.Tensor,
+    def _stage_prefill(self, tok: np.ndarray, row: np.ndarray, off: int,
+                       fold_base: int, slot: int) -> None:
+        """Write one chunk's values into the static prefill inputs without
+        waiting on the stream: one copy from a fresh pinned tensor per
+        chunk, as ``_to_device`` makes them, since the copy may still be
+        queued behind a chunk in flight when the host stages the next
+        one."""
+        a = np.concatenate([tok.reshape(-1), row, [off, fold_base, slot]])
+        self._pf.buf.copy_(self._to_device(a.astype(np.int64)),
+                           non_blocking=True)
+
+    def _chunk_prefill_loop(self, prompt: np.ndarray, row: np.ndarray,
                             start_off: int) -> None:
         """Feed prompt rows [start_off, S) through bucket-sized prefill
-        chunks.  Starts are always absolute bucket multiples, so a
-        prefix-cache hit resuming mid-prompt replays exactly the chunk
-        boundaries a cold miss used (overlap rows recompute to the values
-        they hold) and both paths write the same cache rows."""
-        sv = self.serve
+        chunks over the slot's table ``row``.  Starts are always absolute
+        bucket multiples, so a prefix-cache hit resuming mid-prompt replays
+        exactly the chunk boundaries a cold miss used (overlap rows
+        recompute to the values they hold) and both paths write the same
+        cache rows."""
         S = len(prompt)
-        bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
+        bucket = self.prefill_bucket
         off = (start_off // bucket) * bucket
         while off < S:
             seg = prompt[off:off + bucket]
             tok = np.zeros((1, bucket), np.int64)
             tok[0, :len(seg)] = seg
-            self._prefill_one(self._to_device(tok), table, off)
+            self._prefill_one(tok, row, off)
             off += bucket
 
-    def _prefill_one(self, tok: torch.Tensor, table: torch.Tensor, off: int,
+    def _prefill_one(self, tok: np.ndarray, row: np.ndarray, off: int,
                      slot: int = 0, fold_base: int = 0) -> None:
-        """One prefill chunk through the target pool and, in lockstep
-        through the same table, the draft's, so a cached prefix's blocks
-        hold both models' rows.  ``fold_base`` > 0: the chunk attends the
-        slot's folded span through its tails."""
-        dev = self.device
-        table = self._attn_tables(table)
-        fb = None
-        if fold_base > 0:
-            fb = torch.full((1,), fold_base, dtype=torch.int32, device=dev)
+        """One prefill chunk: ``tok`` (1, bucket) at absolute row ``off``
+        through the slot's (blocks_per_slot,) table ``row``; ``fold_base``
+        > 0: the chunk attends the slot's folded span through its tails.
+        The host stages the values into the static inputs, then replays
+        the variant's graph (captured here at its first use) or, without
+        graphs, runs the same chunk eagerly.  On the card CUDA events
+        around the chunk time it (``prefill_ms``)."""
+        v = PrefillVariant(fold_base > 0)
+        self._stage_prefill(tok, row, off, fold_base, slot)
+        pg = self._prefill_graphs
+        if pg is not None:
+            pg.ensure(v, lambda: self._prefill_static(v))
+        events = None
+        if self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        if pg is not None:
+            pg.replay(v)
+        else:
+            self._prefill_static(v)
+        if events is not None:
+            events[1].record()
+            self._prefill_events.append(events)
+
+    def _prefill_static(self, v: PrefillVariant) -> None:
+        """The prefill chunk of variant ``v`` on the static inputs alone,
+        so it can be captured once and replayed: the target's pool and, in
+        lockstep through the same table, the draft's, so a cached
+        prefix's blocks hold both models' rows.  The two-span variant
+        gathers the slot's tails by the static slot index (a copy of
+        (2, L, 1, Z, C, K, hd) per pool, which the chunk only reads)."""
+        p = self._pf
+        table = self._attn_tables(p.table)
+        fold_base = p.fold_base.to(torch.int32) if v.sketched else None
         models = [(self.params, self.cfg)]
         if self.draft is not None:
             models.append((self.draft.params, self.draft.cfg))
         for (params, cfg), c in zip(models, self._pools()):
             sketch = None
-            if fb is not None:
-                sketch = self._sketch_state(fb,
-                                            c["tail"][:, :, slot:slot + 1])
-            tf.prefill_chunk(params, c, tok, table, off, cfg,
+            if v.sketched:
+                sketch = self._sketch_state(
+                    fold_base, c["tail"].index_select(2, p.slot))
+            tf.prefill_chunk(params, c, p.tokens, table, p.offset, cfg,
                              kernels=self.use_kernels, sketch=sketch)
+
+    def _read_prefill_events(self, wait: bool = False) -> None:
+        """Move the device times of finished prefill chunks into
+        ``prefill_ms``; ``wait`` waits for the last one."""
+        while self._prefill_events:
+            a, b = self._prefill_events[0]
+            if wait:
+                b.synchronize()
+            elif not b.query():
+                break
+            self.prefill_ms.append(a.elapsed_time(b))
+            self._prefill_events.popleft()
+
+    def prefill_chunk_ms(self) -> List[float]:
+        """Device ms of every prefill chunk so far (waits for the last)."""
+        self._read_prefill_events(wait=True)
+        return list(self.prefill_ms)
 
     def _sketch_prefill_admit(self, slot: int, prompt: np.ndarray,
                               shared: List[int], start_off: int
@@ -771,11 +886,10 @@ class SlotScheduler:
         Returns (slot_ids, first_lblk, ok): the blocks still held (logical
         blocks [first_lblk, ...)), already unreffed when ok is False (the
         caller defers the admission)."""
-        sv = self.serve
         bs, W, NB = self.block_size, self.kv_window, self.num_blocks
         S = len(prompt)
         dev = self.device
-        bucket = max(1, min(sv.prefill_bucket, sv.max_seq))
+        bucket = self.prefill_bucket
         row = np.full((self.blocks_per_slot,), NB, np.int32)
         slot_ids = list(shared)
         row[:len(slot_ids)] = slot_ids
@@ -796,8 +910,7 @@ class SlotScheduler:
                 slot_ids.extend(ids)
             tok = np.zeros((1, bucket), np.int64)
             tok[0, :len(seg)] = seg
-            self._prefill_one(self._to_device(tok), self._to_device(row),
-                              off, slot, fold_base)
+            self._prefill_one(tok, row, off, slot, fold_base)
             # fold whole blocks that aged past the window ([0, end) keeps
             # >= W exact rows; the decode resume row S-1 always stays
             # exact because fold_base <= S - W <= S - 1)
@@ -923,9 +1036,8 @@ class SlotScheduler:
             row = np.full((self.blocks_per_slot,), self.num_blocks,
                           np.int32)
             row[:len(slot_ids)] = slot_ids
-            table = self._to_device(row)
-            st.tables[slot] = table
-            self._chunk_prefill_loop(prompt, table, start_off)
+            st.tables[slot] = self._to_device(row)
+            self._chunk_prefill_loop(prompt, row, start_off)
         self._slot_blocks[slot] = slot_ids
         if admit_plen is not None and first_lblk > 0:
             # fold-through freed leading prompt blocks: the prefix's block
@@ -1289,6 +1401,7 @@ class SlotScheduler:
         host = out.cpu().numpy()
         if events is not None:
             self.chunk_ms.append(events[0].elapsed_time(events[1]))
+            self._read_prefill_events()
         toks, emits = host[0], host[1].astype(bool)
         if toks.ndim == 2:               # plain chunk: one token per step
             toks, emits = toks[:, :, None], emits[:, :, None]
@@ -1341,6 +1454,14 @@ class SlotScheduler:
         runs eagerly)."""
         return 0 if self._graphs is None else self._graphs.captures
 
+    @property
+    def prefill_compilations(self) -> int:
+        """Prefill chunk variants captured as CUDA graphs (0 when prefill
+        runs eagerly): 1 on a sketch-free engine, at most 2 on a sketched
+        one."""
+        return (0 if self._prefill_graphs is None
+                else self._prefill_graphs.captures)
+
     def kv_reserved_bytes(self) -> int:
         """Bytes of pool blocks currently allocated (slots + cache)."""
         return self.alloc.reserved_bytes()
@@ -1386,6 +1507,7 @@ class SlotScheduler:
             preempted=self.preemptions,
             decode_steps=self.decode_steps,
             decode_compilations=self.decode_compilations,
+            prefill_compilations=self.prefill_compilations,
             pool_blocks=self.num_blocks,
             block_size=self.block_size,
             blocks_reserved=self.alloc.reserved,

@@ -793,7 +793,8 @@ def test_sketched_rtpm_launches_both_kernels(card):
 
 
 # ---------------------------------------------------------------------------
-# The decode chunk as CUDA graphs (serve/graphs.py): graphed vs eager twin
+# The decode and prefill chunks as CUDA graphs (serve/graphs.py): graphed vs
+# eager twin
 # ---------------------------------------------------------------------------
 
 
@@ -810,30 +811,47 @@ def _chunk_log(sched):
     return log
 
 
+def _pools_equal(a, b):
+    """Pool rows [:, :NB] of both pools of a spec engine, and the tails."""
+    for ca, cb in zip(a._pools(), b._pools()):
+        for k in ("k", "v"):
+            assert torch.equal(ca["kv"][k][:, :a.num_blocks],
+                               cb["kv"][k][:, :b.num_blocks]), k
+        if a.sketch_on:
+            assert torch.equal(ca["tail"], cb["tail"])
+
+
 def _graphed_and_eager(cfg, params, serve, make_reqs, card, passes=2):
     """The same stream through a graphed engine and its eager twin, in
     ``passes`` passes each: tokens, emit flags (and the tokens they
-    flag), completion order, allocator books, tail tables, kernel launch
-    counts and the callers' generator states bitwise equal; the captures
-    equal the variants used and do not grow after the first pass; no
-    leaked blocks.  Returns the graphed scheduler."""
+    flag), completion order, allocator books, pool rows and tail tables
+    (after the first pass's prefill and decode, and at the end), kernel
+    launch counts and the callers' generator states bitwise equal; the
+    decode and prefill captures each equal the variants used and do not
+    grow after the first pass; no leaked blocks.  Returns the graphed
+    scheduler."""
     from repro_torch.serve.graphs import launch_counters
     out = {}
     for graphs in (True, False):
         sched = SlotScheduler(cfg, params, serve=serve, device=card,
                               graphs=graphs)
         log = _chunk_log(sched)
-        gens, done, caps = [], [], []
+        gens, done, caps, pcaps, pools = [], [], [], [], []
         before = [w.launches for w in launch_counters()]
         for p in range(passes):
             reqs = make_reqs(100 * p)
             gens += [r.generator for r in reqs if r.generator is not None]
             done += sched.run(reqs)
             caps.append(sched.decode_compilations)
+            pcaps.append(sched.prefill_compilations)
+            if p == 0:              # the sink block (index NB) left out
+                pools.append([{k: t[:, :sched.num_blocks].clone()
+                               for k, t in c["kv"].items()}
+                              for c in sched._pools()])
         torch.cuda.synchronize()
         launches = [w.launches - b for w, b in zip(launch_counters(), before)]
         out[graphs] = dict(sched=sched, log=log, done=done, caps=caps,
-                           launches=launches,
+                           pcaps=pcaps, pools=pools, launches=launches,
                            gens=[g.get_state() for g in gens])
     g, e = out[True], out[False]
     assert [c.rid for c in g["done"]] == [c.rid for c in e["done"]]
@@ -850,14 +868,20 @@ def _graphed_and_eager(cfg, params, serve, make_reqs, card, passes=2):
                                         es.alloc.rc.tolist(),
                                         sorted(es.alloc._free))
     assert gs.alloc.reserved == gs.prefix_cache.held_blocks()
-    if gs.sketch_on:
-        for a, b in zip(gs._pools(), es._pools()):
-            assert torch.equal(a["tail"], b["tail"])
+    _pools_equal(gs, es)
+    for a, b in zip(g["pools"][0], e["pools"][0]):
+        assert all(torch.equal(a[k], b[k]) for k in ("k", "v"))
     assert g["launches"] == e["launches"] and g["launches"][0] > 0
     assert all(torch.equal(a, b) for a, b in zip(g["gens"], e["gens"]))
     used = len(gs._graphs.replays)
     assert g["caps"] == [used] * passes and used >= 1
     assert e["caps"] == [0] * passes
+    pused = len(gs._prefill_graphs.replays)
+    assert g["pcaps"] == [pused] * passes
+    assert pused == 1 or (gs.sketch_on and pused == 2)
+    assert e["pcaps"] == [0] * passes
+    assert gs._prefill_graphs.pool_bytes() > 0
+    assert gs._prefill_graphs._pool != gs._graphs._pool
     return gs
 
 
@@ -934,3 +958,94 @@ def test_graphed_spec_engine_is_its_eager_twin(card, ratio):
         cfg, params, serve=serve, device=card).run(make(0))}
     for rid in (0, 1, 2, 4):
         assert np.array_equal(got[rid], want[rid]), rid
+
+
+def test_graphed_prefill_resumes_prefix_hits_as_its_eager_twin(card):
+    """Prompts sharing one base (admission threshold 1, prefix blocks of
+    16, buckets of 32): the prefix hits resume at a bucket boundary, inside
+    a bucket (the overlap rows recompute) and past the whole prompt, and
+    the one captured prefill chunk replays each bitwise as the eager
+    twin runs it."""
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=10, device=card)
+    serve = dataclasses.replace(cfg.serve, max_batch=3, max_seq=128,
+                                prefill_bucket=32, decode_chunk=4,
+                                prefix_block=16, admit_threshold=1)
+
+    def make(r0):
+        rng = np.random.RandomState(r0 + 3)
+        base = rng.randint(0, cfg.vocab_size, 80).astype(np.int32)
+        return [Request(rid=r0 + i, tokens=np.concatenate(
+            [base[:n], rng.randint(0, cfg.vocab_size, t).astype(np.int32)]),
+            max_new=5) for i, (n, t) in enumerate(
+                ((40, 5), (56, 3), (70, 2), (80, 4), (64, 0)))]
+
+    gs = _graphed_and_eager(cfg, params, serve, make, card)
+    assert gs.prefill_compilations == 1
+    assert gs.stats().prefix_hits == 8
+
+
+def test_graphed_sketched_spec_prefill_is_its_eager_twin(card):
+    """A sketched spec engine (window 32, spec_k 2, depth-1 draft) whose
+    prompts fold through prefill: both prefill variants captured once, the
+    draft's pool and tails written in the target's replay, bitwise the
+    eager twin's."""
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=11, device=card)
+    serve = dataclasses.replace(
+        cfg.serve, max_batch=3, max_seq=256, prefill_bucket=16,
+        decode_chunk=4, kv_block_size=16, prefix_block=16,
+        kv_sketch_window=32, admit_threshold=1 << 30, spec_k=2,
+        draft_depth=1)
+    make = lambda r0: _stream(cfg, (12, 70, 90, 55), (3,), r0, card)
+    gs = _graphed_and_eager(cfg, params, serve, make, card)
+    assert gs.prefill_compilations == 2 and gs.fold_rows_total > 0
+    assert float(gs._state.cache["draft"]["tail"].abs().sum()) > 0
+
+
+def test_prefill_replayed_in_the_overlap_window(card):
+    """The front end prefills while a decode chunk is in flight: after
+    ``dispatch`` and before ``collect`` a new admission replays the
+    captured prefill (its own memory pool) several chunks long, and the
+    in-flight chunk's tokens, every later chunk and the pools stay the
+    eager twin's bitwise."""
+    cfg = reduced_config("gemma-2b")
+    params = tf.init_params(cfg, seed=12, device=card)
+    serve = dataclasses.replace(cfg.serve, max_batch=4, max_seq=256,
+                                prefill_bucket=16, decode_chunk=8)
+    out = {}
+    for graphs in (True, False):
+        sched = SlotScheduler(cfg, params, serve=serve, device=card,
+                              graphs=graphs)
+        reqs = _stream(cfg, (20, 33, 150, 120), (1,), 0, card, max_new=24)
+        for r in reqs[:2]:
+            sched.submit(r)
+        sched.admit_pending()
+        assert sched.dispatch()
+        sched.collect()
+        assert sched.dispatch()             # a chunk in flight
+        before = (None if sched._prefill_graphs is None
+                  else dict(sched._prefill_graphs.replays))
+        for r in reqs[2:]:
+            sched.submit(r)
+        assert sched.admit_pending() == 2   # 18 prefill chunks meanwhile
+        window = sched._inflight[0].cpu().numpy()
+        assert window[1][:, 2:].sum() == 0  # the new slots emit nothing
+        if graphs:
+            assert sum(sched._prefill_graphs.replays.values()) - sum(
+                before.values()) == 18
+        sched.collect()
+        sched.drain()
+        torch.cuda.synchronize()
+        out[graphs] = (window, sched, [(c.rid, c.tokens) for c in
+                                       sched.completed])
+    (wg, gs, dg), (we, es, de) = out[True], out[False]
+    # the emit flags and the tokens they flag (an idle slot's unflagged
+    # token depends on the warm-up, which only the graphed engine runs)
+    assert np.array_equal(wg[1], we[1]) and wg[1].any()
+    assert np.array_equal(wg[0][wg[1] > 0], we[0][we[1] > 0])
+    assert len(dg) == len(de) == 4
+    for (ra, ta), (rb, tb) in zip(dg, de):
+        assert ra == rb and np.array_equal(ta, tb)
+    _pools_equal(gs, es)
+    assert gs.prefill_compilations == 1

@@ -222,11 +222,13 @@ def test_long_context_past_pool_capacity_matches_reference(gemma):
     assert _books(ts) == _books(rs)
     assert ts.alloc.reserved_bytes() == 0
     rst, tst = rs.stats(), ts.stats()
-    # decode_compilations counts XLA compilations in the reference and
-    # CUDA graph captures in the port, which runs eagerly on the CPU
+    # decode_ and prefill_compilations count XLA compilations in the
+    # reference and CUDA graph captures in the port, which runs eagerly on
+    # the CPU
     assert (rst.decode_compilations, tst.decode_compilations) == (1, 0)
+    assert (rst.prefill_compilations, tst.prefill_compilations) == (1, 0)
     for f in dataclasses.fields(tst):
-        if f.name == "decode_compilations":
+        if f.name in ("decode_compilations", "prefill_compilations"):
             continue
         assert getattr(tst, f.name) == getattr(rst, f.name), f.name
     rt = bridge.tail_from_reference(

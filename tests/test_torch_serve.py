@@ -73,11 +73,13 @@ def test_stream_and_schedule_equal_reference(served):
     assert [c.prefix_hit for c in served["rdone"]] == \
         [c.prefix_hit for c in served["tdone"]]
     ref, got = served["rs"].stats(), served["ts"].stats()
-    # decode_compilations counts XLA compilations in the reference and
-    # CUDA graph captures in the port, which runs eagerly on the CPU
+    # decode_ and prefill_compilations count XLA compilations in the
+    # reference and CUDA graph captures in the port, which runs eagerly on
+    # the CPU
     assert (ref.decode_compilations, got.decode_compilations) == (1, 0)
+    assert (ref.prefill_compilations, got.prefill_compilations) == (1, 0)
     for f in dataclasses.fields(got):
-        if f.name == "decode_compilations":
+        if f.name in ("decode_compilations", "prefill_compilations"):
             continue
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
     assert got.prefix_hits > 0 and got.prefix_admitted > 0

@@ -539,13 +539,15 @@ def test_spec_engine_matches_reference(gemma, draft):
     assert _books(ts) == (rs.alloc.peak_reserved, rs.alloc.reserved,
                           rs.alloc.rc.tolist(), sorted(rs.alloc._free))
     ref, got = rs.stats(), ts.stats()
-    # decode_compilations counts XLA compilations in the reference and
-    # CUDA graph captures in the port, which runs eagerly on the CPU
+    # decode_ and prefill_compilations count XLA compilations in the
+    # reference and CUDA graph captures in the port, which runs eagerly on
+    # the CPU
     assert (ref.decode_compilations, got.decode_compilations) == (1, 0)
+    assert (ref.prefill_compilations, got.prefill_compilations) == (1, 0)
     for f in dataclasses.fields(got):
         if draft == "random" and f.name.startswith("spec_"):
             continue
-        if f.name == "decode_compilations":
+        if f.name in ("decode_compilations", "prefill_compilations"):
             continue
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
     assert got.spec_rounds > 0 and got.prefix_hits > 0
