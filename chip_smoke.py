@@ -77,7 +77,18 @@ Phases (one line each; any failure exits non-zero):
                  most 2 on a sketched one); a [graphs] line gives both
                  engines' decode chunk ms, prefill chunk ms, busy per
                  step, idle shares, tok/s and TTFT, the captures and both
-                 graph pools' bytes
+                 graph pools' bytes.  Phases serve and long also run a
+                 third engine, graphed, with a full observer
+                 (repro_torch.obs: every request traced, a metrics window
+                 a round, on long the fidelity probe every round; the
+                 eager twin carries one too): it must equal the
+                 unobserved graphed engine bitwise with the same
+                 captures, its observer's counters and histogram samples
+                 must equal the eager twin's and agree with its
+                 EngineStats, its trace must parse with every span
+                 closed; an [obs] line splits its first pass's wall into
+                 the pump's dispatch and collect spans, the prefill
+                 chunks' host launch spans and the rest
      spec      — full-width verify_step at spec_k 4 bitwise 5 decode
                  steps; then the serve stream (and two whole-prompt
                  prefix hits) through a plain engine and three spec
@@ -1450,16 +1461,23 @@ def greedy_shortfall(params, cfg, dev, prompt, toks):
 
 
 
-def phase_serve(cfg, params, dev, logit_gap):
+def serve_stream(cfg):
+    """The serve phase's engine knobs and its 16-request stream."""
     from repro_torch.launch.serve import make_request_stream
-    from repro_torch.serve.frontend import AsyncServeEngine
     serve = dataclasses.replace(cfg.serve, **SERVE)
     reqs = make_request_stream(cfg, np.random.RandomState(SEED + 2), 16, 3,
                                64, 192, 32, sampled_frac=0.25,
                                temperature=0.8, top_k=8)
+    return serve, reqs
+
+
+def phase_serve(cfg, params, dev, logit_gap):
+    from repro_torch.serve.frontend import AsyncServeEngine
+    serve, reqs = serve_stream(cfg)
     run = twin_streams(
-        "serve", lambda graphs: AsyncServeEngine(
-            cfg, params, serve=serve, device=dev, graphs=graphs), reqs, dev)
+        "serve", lambda graphs, obs=None: AsyncServeEngine(
+            cfg, params, serve=serve, device=dev, graphs=graphs, obs=obs),
+        reqs, dev, observe={})
     done, ttfts, wall = run["done"], run["ttfts"], run["wall"]
     launches = run["launches"]["paged_attention"]
     sched = run["sched"]
@@ -1514,8 +1532,8 @@ LONG_NEW = 64
 LONG_BLOCKS = 704           # < half the stream's 1696 blocks of rows
 
 
-def phase_long_serve(cfg, params, dev):
-    from repro_torch.serve.frontend import AsyncServeEngine
+def long_stream(cfg):
+    """The long phase's sketched engine knobs and its 8k stream."""
     from repro_torch.serve.scheduler import Request
     serve = dataclasses.replace(
         cfg.serve, max_batch=8, max_seq=LONG["max_seq"], kv_block_size=16,
@@ -1530,9 +1548,16 @@ def phase_long_serve(cfg, params, dev):
             rid=i, tokens=rng.randint(0, cfg.vocab_size, n).astype(np.int32),
             max_new=LONG_NEW, temperature=0.8 if sampled else 0.0,
             top_k=8 if sampled else 0, seed=SEED + 6 if sampled else None))
+    return serve, reqs
+
+
+def phase_long_serve(cfg, params, dev):
+    from repro_torch.serve.frontend import AsyncServeEngine
+    serve, reqs = long_stream(cfg)
     run = twin_streams(
-        "long", lambda graphs: AsyncServeEngine(
-            cfg, params, serve=serve, device=dev, graphs=graphs), reqs, dev)
+        "long", lambda graphs, obs=None: AsyncServeEngine(
+            cfg, params, serve=serve, device=dev, graphs=graphs, obs=obs),
+        reqs, dev, observe=dict(fidelity_every=1))
     sched, done, ttfts, wall = (run["sched"], run["done"], run["ttfts"],
                                 run["wall"])
     launches = {k: run["launches"][k] for k in (
@@ -1884,6 +1909,8 @@ def run_twin(front, reqs, dev):
         c.launches = 0                       # the stream's launches alone
     torch.cuda.reset_peak_memory_stats()
     done, ttfts, wall, _ = drive_stream(front, streams[0], False)
+    tracer = None if front.obs is None else front.obs.tracer
+    first_events = None if tracer is None else len(tracer)
     launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     stats = sched.stats()
@@ -1917,7 +1944,8 @@ def run_twin(front, reqs, dev):
         pcapture_s={} if pg is None else dict(pg.capture_s),
         ppool=0 if pg is None else pg.pool_bytes(),
         pools_apart=pg is None or pg._pool != g._pool,
-        gather_ms=None if pg is None else tail_gather_ms(sched))
+        gather_ms=None if pg is None else tail_gather_ms(sched),
+        first_events=first_events)
     out["books"] = (sched.alloc.peak_reserved, sched.alloc.rc.tolist(),
                     sorted(sched.alloc._free))
     out["leaked"] = leaked_blocks(sched)
@@ -1944,22 +1972,12 @@ def tail_gather_ms(sched):
     return ev[0].elapsed_time(ev[1]) / 20
 
 
-def twin_streams(what, make_front, reqs, dev):
-    """Serve ``reqs`` through a graphed engine (``make_front(None)``, the
-    card's default) and its eager twin (``make_front(False)``), each by
-    ``run_twin``.  Fails unless the graphed engine equals its twin
-    bitwise (tokens of both passes, completion order, every chunk's emit
-    flags and the tokens they flag, allocator books, pool rows [:, :NB]
-    of both pools after the window's prefill and at the end, tail tables,
-    kernel launch counts, the callers' generator states) and captured
-    each decode and prefill variant it used once, none more on the second
-    pass (prefill: 1 on a sketch-free engine, at most 2 on a sketched
-    one), the prefill graphs in a pool apart from the decode graphs'.
-    Prints the ``[graphs]`` line; returns the graphed run."""
-    runs = {}
-    for graphs in (None, False):
-        runs[graphs] = run_twin(make_front(graphs), reqs, dev)
-    g, e = runs[None], runs[False]
+def twin_differences(g, e):
+    """What differs between two runs of one stream (``run_twin``), each
+    held bitwise: tokens of both passes, completion order, every chunk's
+    emit flags and the tokens they flag, allocator books, tail tables,
+    pool rows [:, :NB] of both pools after the window's prefill and at
+    the end, kernel launch counts, the callers' generator states."""
     bad = []
     if g["order"] != e["order"]:
         bad.append("completion order")
@@ -1994,13 +2012,35 @@ def twin_streams(what, make_front, reqs, dev):
     if len(g["gens"]) != len(e["gens"]) or not all(
             torch.equal(a, b) for a, b in zip(g["gens"], e["gens"])):
         bad.append("callers' generator states")
+    return bad
+
+
+def twin_streams(what, make_front, reqs, dev, observe=None):
+    """Serve ``reqs`` through a graphed engine (``make_front(None)``, the
+    card's default) and its eager twin (``make_front(False)``), each by
+    ``run_twin``.  Fails unless the graphed engine equals its twin
+    bitwise (``twin_differences``) and captured each decode and prefill
+    variant it used once, none more on the second pass (prefill: 1 on a
+    sketch-free engine, at most 2 on a sketched one), the prefill graphs
+    in a pool apart from the decode graphs'.  With ``observe`` (the
+    fidelity probe's knobs) the eager twin carries a full observer
+    (``make_front(False, obs)``) and ``observed_twin`` runs one more
+    graphed engine with one.  Prints the ``[graphs]`` line; returns the
+    graphed run."""
+    runs = {}
+    for graphs in (None, False):
+        runs[graphs] = run_twin(
+            make_front(graphs) if observe is None or graphs is None
+            else make_front(graphs, full_observer(observe)), reqs, dev)
+    g, e = runs[None], runs[False]
+    bad = twin_differences(g, e)
     used = len(g["sched"]._graphs.replays)
     if g["caps"] != [g["caps"][0]] * 2 or not 1 <= g["caps"][0] <= used \
             or e["caps"] != [0, 0]:
         bad.append(f"captures {g['caps']} (eager {e['caps']}) for {used} "
                    f"variants used")
     pused = len(g["preplays"])
-    pmax = 2 if gs.sketch_on else 1
+    pmax = 2 if g["sched"].sketch_on else 1
     if g["pcaps"] != [g["pcaps"][0]] * 2 or g["pcaps"][0] != pused \
             or not 1 <= pused <= pmax or e["pcaps"] != [0, 0]:
         bad.append(f"prefill captures {g['pcaps']} (eager {e['pcaps']}) "
@@ -2063,9 +2103,168 @@ def twin_streams(what, make_front, reqs, dev):
           f"tables, launches "
           f"{g['launches_all']}, {len(g['gens'])} callers' generator "
           f"states; {card()}")
+    if observe is not None:
+        observed_twin(what, make_front, reqs, dev, observe, g, e)
     del runs[False], e
     torch.cuda.empty_cache()
     return g
+
+
+# the counts an observer mirrors from EngineStats that differ between a
+# graphed engine and its eager twin by design (CUDA graph captures)
+CAPTURE_COUNTERS = ("engine.decode_compilations",
+                    "engine.prefill_compilations")
+
+
+def full_observer(observe):
+    """An observer recording everything: every request traced, a metrics
+    window every round, the fidelity probe at ``observe``'s cadence."""
+    from repro_torch.obs import ServeObserver, Tracer
+    return ServeObserver(tracer=Tracer(sample_rate=1.0),
+                         metrics_interval=0.0, **observe)
+
+
+def observer_totals(sched):
+    """The scheduler's observer after a last window with the engine's
+    final stats: ({counter: total}, {gauge: value}, {histogram:
+    samples})."""
+    obs = sched.obs
+    obs.flush(sched.stats())
+    reg = obs.registry
+    return ({n: c.value for n, c in reg.counters.items()},
+            {n: g.value for n, g in reg.gauges.items()},
+            {n: h.count for n, h in reg.hists.items()})
+
+
+def balanced_trace(tracer):
+    """Write the trace to a temporary file, parse it back, and return
+    (events, the (id, name) async spans left open or closed twice)."""
+    from repro_torch.obs import write_trace
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        n = write_trace(tracer, path)
+        with open(path) as fh:
+            ev = json.load(fh)["traceEvents"]
+    if len(ev) != n:
+        fail(f"trace file holds {len(ev)} of {n} events")
+    depth = {}
+    for x in ev:
+        if x["ph"] in ("b", "e"):
+            k = (x["id"], x["name"])
+            depth[k] = depth.get(k, 0) + (1 if x["ph"] == "b" else -1)
+    return ev, sorted(k for k, v in depth.items() if v)
+
+
+def host_split(events, wall_s):
+    """A pass's wall split by its trace events: the pump's ``dispatch``
+    spans (launching a decode replay; a capture lands in its variant's
+    first), its ``collect`` spans (the wait for the chunk and the work
+    queued behind it, then the tokens' accounting), the prefill chunks'
+    host launch spans, and the rest of the wall (admission bookkeeping,
+    delivery, the event loop), in ms."""
+    ms = {n: np.array([x["dur"] / 1e3 for x in events
+                       if x["ph"] == "X" and x["name"] == n])
+          for n in ("dispatch", "collect", "prefill_chunk")}
+    wall = 1e3 * wall_s
+    rest = wall - sum(v.sum() for v in ms.values())
+    q = lambda v: (f"{np.percentile(v, 50):.3f}/{np.percentile(v, 99):.3f}"
+                   if len(v) else "-")
+    pf = ms["prefill_chunk"]
+    return (f"dispatch p50/p99 {q(ms['dispatch'])} ms (sum "
+            f"{ms['dispatch'].sum():.3f} over {len(ms['dispatch'])} "
+            f"rounds), collect p50/p99 {q(ms['collect'])} ms (sum "
+            f"{ms['collect'].sum():.3f}), prefill host {pf.sum():.3f} ms "
+            f"(sum over {len(pf)} chunks, p50/p99 {q(pf)}), rest of wall "
+            f"{rest:.3f} of {wall:.3f} ms")
+
+
+def observed_twin(what, make_front, reqs, dev, observe, g, e):
+    """One more graphed engine, with a full observer, through the stream,
+    passes and window ``g`` (the graphed engine without one) and ``e``
+    (its eager twin, observed) ran.  Fails unless it equals ``g`` bitwise
+    (``twin_differences``) with the same decode and prefill captures; its
+    observer's counters and histogram samples equal the eager twin's (a
+    hook caught inside a captured chunk would run once, at capture, and
+    count less on the graphed engine) and agree with its own
+    ``EngineStats``; the trace it writes parses with every async span
+    closed and nothing dropped; a sketched engine's probe sampled the
+    tails.  Prints the ``[obs]`` line: the first pass's host time split
+    into the pump's dispatch and collect spans, the prefill chunks' host
+    launch spans and the rest of the wall."""
+    t0 = time.perf_counter()
+    o = run_twin(make_front(None, full_observer(observe)), reqs, dev)
+    added = time.perf_counter() - t0
+    sched = o["sched"]
+    bad = twin_differences(g, o)
+    gs = g["sched"]
+    if (o["caps"], o["pcaps"], sched.decode_compilations,
+            sched.prefill_compilations) != (
+            g["caps"], g["pcaps"], gs.decode_compilations,
+            gs.prefill_compilations):
+        bad.append(f"captures {o['caps']} / {o['pcaps']} against "
+                   f"{g['caps']} / {g['pcaps']} unobserved")
+    if o["leaked"]:
+        bad.append(f"leaked blocks {o['leaked']}")
+    oc, og, oh = observer_totals(sched)
+    ec, eg, eh = observer_totals(e["sched"])
+    apart = lambda c: {k: v for k, v in c.items()
+                       if k not in CAPTURE_COUNTERS}
+    if apart(oc) != apart(ec):
+        diff = sorted(k for k in set(oc) | set(ec) if k not in
+                      CAPTURE_COUNTERS and oc.get(k) != ec.get(k))
+        bad.append("observer counters differ from the eager twin's: "
+                   + ", ".join(f"{k} {oc.get(k)} / {ec.get(k)}"
+                               for k in diff))
+    if oh != eh or set(og) != set(eg):
+        bad.append(f"histogram samples {oh} / {eh} or gauges differ from "
+                   f"the eager twin's")
+    st = sched.stats()
+    for f in dataclasses.fields(st):
+        name = f"engine.{f.name}"
+        got = oc.get(name, og.get(name))
+        if got != getattr(st, f.name):
+            bad.append(f"{name} {got} against EngineStats "
+                       f"{getattr(st, f.name)}")
+    want = {
+        "serve.requests_submitted": st.completed,
+        "serve.requests_admitted": st.completed,
+        "serve.completions.ok": st.completed,
+        "serve.decode_rounds": st.decode_steps // sched.serve.decode_chunk,
+        "serve.tokens_committed": sum(len(c.tokens)
+                                      for c in sched.completed),
+        "serve.prefill_chunks": len(sched.prefill_chunk_ms()),
+        "serve.fold_rows": st.fold_rows,
+        "prefix.hit": st.prefix_hits,
+        "prefix.miss": st.prefix_lookups - st.prefix_hits,
+        "prefix.admit": st.prefix_admitted,
+        "prefix.evict": st.prefix_evicted}
+    for k, v in want.items():
+        if oc.get(k, 0.0) != v:
+            bad.append(f"{k} {oc.get(k, 0.0)} against the engine's {v}")
+    probes = oh.get("kv.tail_spread", 0)
+    if observe.get("fidelity_every") and probes < 1:
+        bad.append("the fidelity probe took no kv.tail_spread sample")
+    tracer = sched.obs.tracer
+    ev, unbalanced = balanced_trace(tracer)
+    if unbalanced or tracer.dropped:
+        bad.append(f"trace spans left open {unbalanced[:5]}, dropped "
+                   f"{tracer.dropped}")
+    if bad:
+        fail(f"{what}: the observed graphed engine: " + ", ".join(bad))
+    tok = lambda r: sum(len(c.tokens) for c in r["done"]) / r["wall"]
+    print(f"[obs] {what}: first pass of the graphed engine with a full "
+          f"observer (every request traced, a metrics window a round"
+          + (f", fidelity probe every {observe['fidelity_every']} round"
+             if observe.get("fidelity_every") else "")
+          + f"): {host_split(ev[:o['first_events']], o['wall'])}; tok/s "
+          f"on/off {tok(o):.2f} / "
+          f"{tok(g):.2f}; bitwise the unobserved graphed engine, captures "
+          f"{o['caps']} / {o['pcaps']} as its; {len(oc)} observer counters "
+          f"and {len(oh)} histograms equal the observed eager twin's and "
+          f"agree with EngineStats; trace {len(ev)} events, spans "
+          f"balanced; kv.tail_spread samples {probes}; added "
+          f"{added:.1f} s; {card()}")
 
 
 def phase_spec(cfg, params, dev):

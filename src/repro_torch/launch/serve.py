@@ -30,6 +30,18 @@ the exit summary then has a ``speculative:`` line.  E.g.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --spec-k 3 --draft-depth 1 --draft-sketch-ratio 2
+
+Observability: ``--trace-out trace.json`` records the request lifecycle
+and the pump's host phases as Chrome trace-event JSON (open it in
+Perfetto), ``--metrics-jsonl metrics.jsonl`` streams windowed metrics
+every ``--metrics-interval`` seconds, and with ``--kv-sketch-window``
+``--fidelity-every N`` samples the sketch-fidelity probe of folded slots
+every N decode rounds.  An observer exists only when one of the first
+two is given.  E.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --max-seq 512 --kv-sketch-window 64 --long-context 400 \
+      --trace-out trace.json --metrics-jsonl metrics.jsonl
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ import numpy as np
 from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.obs import ServeObserver, Tracer
 from repro_torch.serve.frontend import AsyncServeEngine
 from repro_torch.serve.scheduler import Request
 
@@ -172,6 +185,23 @@ def main(argv=None):
                     help="append one request with a prompt of this many "
                          "tokens (fold-through prefill and two-span "
                          "decode; needs --kv-sketch-window)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON (load in "
+                         "Perfetto / chrome://tracing) of the request "
+                         "lifecycle and pump phases to this path")
+    ap.add_argument("--trace-sample", type=float, default=1.0,
+                    help="fraction of requests traced (deterministic "
+                         "by rid); engine-level events always record")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append windowed metrics snapshots (counter "
+                         "deltas/rates, latency quantiles, gauges) as "
+                         "JSON lines to this path")
+    ap.add_argument("--metrics-interval", type=float, default=0.5,
+                    help="seconds between metrics windows")
+    ap.add_argument("--fidelity-every", type=int, default=2,
+                    help="sketch-fidelity probe cadence in decode "
+                         "rounds (0 = off; needs --kv-sketch-window; "
+                         "runs only at chunk boundaries)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -190,8 +220,17 @@ def main(argv=None):
         kv_sketch_rows=args.kv_sketch_rows,
         paged_kernels={"auto": None, "on": True, "off": False}[
             args.paged_kernels])
+    obs = None
+    if args.trace_out or args.metrics_jsonl:
+        obs = ServeObserver(
+            tracer=(Tracer(sample_rate=args.trace_sample)
+                    if args.trace_out else None),
+            metrics_path=args.metrics_jsonl,
+            metrics_interval=args.metrics_interval,
+            fidelity_every=(args.fidelity_every
+                            if args.kv_sketch_window > 0 else 0))
     t0 = time.perf_counter()
-    front = AsyncServeEngine(cfg, params, serve=serve, device=dev)
+    front = AsyncServeEngine(cfg, params, serve=serve, device=dev, obs=obs)
     sched = front.scheduler
     if sched.draft is not None:
         print(f"draft: {sched.draft.cfg.num_layers} of {cfg.num_layers} "
@@ -239,6 +278,14 @@ def main(argv=None):
               f"{sched.kv_sketch_exact_bytes()}B live + sketched-tail "
               f"{sched.kv_sketch_tail_bytes()}B fixed")
     print(front.stats().format())
+    if obs is not None:
+        obs.close(stats=front.stats(), trace_path=args.trace_out)
+        if args.trace_out:
+            print(f"trace: {len(obs.tracer)} events -> {args.trace_out} "
+                  f"(open in https://ui.perfetto.dev)")
+        if args.metrics_jsonl:
+            print(f"metrics: {len(obs.windows)} windows -> "
+                  f"{args.metrics_jsonl}")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ output is the streamed output; there is one serving path.  With
 ``cfg.serve.spec_k > 0`` the draft is derived once per weights and
 shared by every scheduler the engine builds.  ``graphs`` is passed to
 each scheduler (serve/graphs.py: None captures the decode chunk as CUDA
-graphs on the card; False keeps the eager chunk).
+graphs on the card; False keeps the eager chunk).  One observer
+(``obs=`` / ``set_observer``, a ``repro_torch.obs.ServeObserver``) is
+shared by every scheduler and front end the engine builds, so the merged
+``EngineStats`` and the observer's series describe the same engine.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_seq: int = 512,
                  max_batch: Optional[int] = None,
                  device: DeviceLike = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, obs=None):
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -60,6 +63,15 @@ class ServeEngine:
         self._frontends = {}         # max_batch -> AsyncServeEngine
         self._draft = None           # derived once per weights
         self._rid = 0
+        self._obs = obs
+
+    def set_observer(self, obs) -> None:
+        """Attach (or detach, with None) an observer: it applies to every
+        live scheduler and front end now and to those built later."""
+        self._obs = obs
+        for f in self._frontends.values():
+            f.scheduler.set_observer(obs)
+            f.obs = obs
 
     def _frontend(self, batch: int) -> AsyncServeEngine:
         """One scheduler (and front-end) per slot count, reused across
@@ -79,7 +91,7 @@ class ServeEngine:
                 self._draft = make_draft(self.params, self.cfg, serve)
             self._frontends[kb] = AsyncServeEngine(scheduler=SlotScheduler(
                 self.cfg, self.params, serve=serve, device=self.device,
-                draft=self._draft, graphs=self.graphs))
+                draft=self._draft, graphs=self.graphs, obs=self._obs))
         return self._frontends[kb]
 
     def generate(self, tokens, max_new: int = 32, temperature: Per = 0.0,

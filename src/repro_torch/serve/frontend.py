@@ -19,6 +19,12 @@ loop stays live while the host waits on the card — and fans the new
 tokens out to the handles.  The pump exits when the scheduler drains and
 restarts on the next submit.  ``submit`` waits (never raises) while
 ``cfg.serve.queue_depth`` requests are already queued.
+
+With an observer (``obs=``, shared with the scheduler) the pump reports
+its host phases as spans: ``dispatch`` (the host time of launching a
+chunk; on the card a graph replay) and ``collect`` (the wait for the
+chunk's tokens plus their accounting), and the front end reports token
+deliveries (TTFT, inter-token gaps) and backpressure waits.
 """
 from __future__ import annotations
 
@@ -80,8 +86,9 @@ class StreamHandle:
 class AsyncServeEngine:
     """The async front door.  Owns a fresh ``SlotScheduler`` (``cfg`` +
     ``params``; ``draft`` and ``graphs`` as the scheduler takes them) or
-    wraps an existing one (``scheduler=``).  Call it from one asyncio
-    event loop at a time."""
+    wraps an existing one (``scheduler=``).  ``obs``: a
+    ``repro_torch.obs.ServeObserver`` for the front end and its
+    scheduler.  Call it from one asyncio event loop at a time."""
 
     def __init__(self, cfg: Optional[ModelConfig] = None,
                  params: Any = None,
@@ -89,7 +96,7 @@ class AsyncServeEngine:
                  scheduler: Optional[SlotScheduler] = None,
                  temperature: float = 0.0, device: DeviceLike = None,
                  draft: Optional[Draft] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, obs: Any = None):
         if scheduler is not None:
             self._sched = scheduler
         else:
@@ -100,6 +107,13 @@ class AsyncServeEngine:
                                         temperature=temperature,
                                         device=device, draft=draft,
                                         graphs=graphs)
+        # observability (repro_torch.obs.ServeObserver or None): an
+        # explicit observer attaches to the scheduler too; otherwise the
+        # front end takes the scheduler's, so front-end and scheduler
+        # hooks always land in the same observer
+        if obs is not None:
+            self._sched.set_observer(obs)
+        self.obs = obs if obs is not None else self._sched.obs
         sv = self._sched.serve
         self.queue_depth = max(1, int(sv.queue_depth))
         self.default_deadline_s = float(sv.default_deadline_s)
@@ -134,9 +148,14 @@ class AsyncServeEngine:
         serve config's default; 0 disables); ``rid`` overrides the
         engine's counter."""
         self._ensure_loop()
+        stalled_at = None
         while self._sched.queue_len >= self.queue_depth:
+            if stalled_at is None:
+                stalled_at = time.perf_counter()
             self._space.clear()
             await self._space.wait()
+        if stalled_at is not None and self.obs is not None:
+            self.obs.backpressure_wait(time.perf_counter() - stalled_at)
         if rid is None:
             rid = self._rid
             self._rid += 1
@@ -190,6 +209,7 @@ class AsyncServeEngine:
 
     async def _pump(self) -> None:
         sched = self._sched
+        obs = self.obs
         while True:
             # pump boundary: no chunk in flight, evictions are safe
             self._apply_cancels()
@@ -197,16 +217,26 @@ class AsyncServeEngine:
                 self._finish(c)
             self._notify_space()
             sched.admit_pending()
+            t0 = time.perf_counter()
             if not sched.dispatch():
                 if not sched.pending:
                     return              # drained; next submit restarts
                 await asyncio.sleep(0)  # transient: let submitters run
                 continue
+            if obs is not None:
+                # host time of launching the chunk (fold planning, the
+                # eager folds, the replay); the device work is in flight
+                obs.pump_span("dispatch", t0, time.perf_counter() - t0)
             # overlap window: the chunk is queued on the card; admit what
             # arrived meanwhile so its prefill overlaps the chunk
             await asyncio.sleep(0)
             sched.admit_pending()
+            t0 = time.perf_counter()
             done = await asyncio.to_thread(sched.collect)
+            if obs is not None:
+                # wall time of the round's one wait on the card, plus the
+                # tokens' accounting and retirement
+                obs.pump_span("collect", t0, time.perf_counter() - t0)
             self._deliver_progress()
             for c in done:
                 self._finish(c)
@@ -229,6 +259,8 @@ class AsyncServeEngine:
                 continue
             for t in toks[h._delivered:]:
                 h._queue.put_nowait(int(t))
+            if self.obs is not None:
+                self.obs.tokens_delivered(rid, len(toks) - h._delivered)
             h._delivered = len(toks)
 
     def _finish(self, c: Completion) -> None:
@@ -236,6 +268,8 @@ class AsyncServeEngine:
         if h is None:
             return
         total = [int(t) for t in c.tokens]
+        if self.obs is not None and len(total) > h._delivered:
+            self.obs.tokens_delivered(c.rid, len(total) - h._delivered)
         for t in total[h._delivered:]:
             h._queue.put_nowait(t)
         h._delivered = len(total)

@@ -263,8 +263,8 @@ def dense_tail_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Fidelity probe: per-row estimate spread (not wired in; ROADMAP Queue 1
-# #10 brings the observer that samples it)
+# Fidelity probe: per-row estimate spread (sampled by the observer at
+# ``SlotScheduler.collect``, ``_probe_fidelity``)
 # ---------------------------------------------------------------------------
 
 

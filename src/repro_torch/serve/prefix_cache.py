@@ -65,6 +65,10 @@ class SketchPrefixCache:
     allocator: Any = None
     block_size: int = 0
     stats: PrefixCacheStats = field(default_factory=PrefixCacheStats)
+    # optional repro_torch.obs.ServeObserver: hit / miss / admit / evict /
+    # defer outcomes stream into its windowed ``prefix.*`` counters
+    # (``stats`` above stays the cumulative record)
+    obs: Any = None
 
     def __post_init__(self):
         if self.block_size <= 0 or self.cfg.prefix_block % self.block_size:
@@ -110,8 +114,12 @@ class SketchPrefixCache:
             key, ent = found
             self._entries.move_to_end(key)
             self.stats.hits += 1
+            if self.obs is not None:
+                self.obs.prefix_event("hit")
             return ent.plen, ent.block_ids
         self.stats.misses += 1
+        if self.obs is not None:
+            self.obs.prefix_event("miss")
         return None
 
     # -- write path --------------------------------------------------------
@@ -142,6 +150,8 @@ class SketchPrefixCache:
         counts = self._count(tokens)
         if counts is None:
             self.stats.rejected += 1
+            if self.obs is not None:
+                self.obs.prefix_event("defer")
             return None
         block = self.cfg.prefix_block
         for m in range(len(counts), 0, -1):
@@ -152,6 +162,8 @@ class SketchPrefixCache:
                     return plen
                 break
         self.stats.rejected += 1
+        if self.obs is not None:
+            self.obs.prefix_event("defer")
         return None
 
     def admit(self, tokens: np.ndarray, plen: int,
@@ -179,6 +191,8 @@ class SketchPrefixCache:
         self._entries[key] = _Entry(plen=plen, block_ids=tuple(block_ids))
         self.stats.bytes = len(self._held) * bb
         self.stats.admitted += 1
+        if self.obs is not None:
+            self.obs.prefix_event("admit")
         while self.stats.bytes > self.cfg.prefix_cache_bytes:
             if not self.evict_one():
                 break
@@ -199,6 +213,8 @@ class SketchPrefixCache:
         self.allocator.unref(ent.block_ids)
         self.stats.bytes = len(self._held) * self.allocator.block_bytes
         self.stats.evicted += 1
+        if self.obs is not None:
+            self.obs.prefix_event("evict")
 
     def evict_one(self, idle_only: bool = False) -> bool:
         """Evict one entry in LRU order, preferring entries no live slot

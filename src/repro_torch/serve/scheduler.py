@@ -86,8 +86,17 @@ holder shares: after admission ``_ensure_exclusive`` forks (copy-on-write,
 both pools) every shared block its decode region reaches, because a
 verify step writes proposals that may be rejected.
 
-Not ported yet (each raises ``NotImplementedError``): recurrent families
-and the observer hooks.
+Observability (``obs=`` / ``set_observer``, a ``repro_torch.obs.
+ServeObserver`` or None): the scheduler and its prefix cache report the
+reference's events at the reference's places — submission, admission and
+deferral, each prefill chunk's host launch time, folds, speculative
+rounds, each collected round, retirement, cancellation and preemption.
+Every hook runs on the host around the launches, outside the captured
+chunks (a hook inside a captured body would run once, at capture), and
+takes host values only; the one device read is the opt-in fidelity probe
+at ``collect()`` (``_probe_fidelity``).
+
+Not ported yet (raises ``NotImplementedError``): recurrent families.
 """
 from __future__ import annotations
 
@@ -215,16 +224,22 @@ class EngineStats:
                 / max(self.spec_rounds, 1))
 
     @staticmethod
+    def field_kinds() -> Dict[str, str]:
+        """field name -> kind tag, the one record ``merge`` and
+        ``repro_torch.obs.MetricsRegistry.update_from_stats`` share."""
+        return {f.name: f.metadata.get("kind", "counter")
+                for f in dataclasses.fields(EngineStats)}
+
+    @staticmethod
     def merge(parts: Sequence["EngineStats"]) -> "EngineStats":
         """Counters and gauges sum; peaks and geometry take the max."""
         out = EngineStats()
+        kinds = EngineStats.field_kinds()
         for p in parts:
-            for f in dataclasses.fields(EngineStats):
-                a, b = getattr(out, f.name), getattr(p, f.name)
-                if f.metadata.get("kind") in ("peak", "geometry"):
-                    setattr(out, f.name, max(a, b))
-                else:
-                    setattr(out, f.name, a + b)
+            for name, kind in kinds.items():
+                a, b = getattr(out, name), getattr(p, name)
+                setattr(out, name, max(a, b) if kind in ("peak", "geometry")
+                        else a + b)
         return out
 
     def format(self) -> str:
@@ -382,11 +397,13 @@ class SlotScheduler:
                  serve: Optional[ServeConfig] = None,
                  temperature: float = 0.0, device: DeviceLike = None,
                  draft: Optional[Draft] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, obs: Any = None):
         """``graphs``: the decode and prefill chunks as captured CUDA
         graphs (serve/graphs.py).  None captures on the card and runs
         eagerly on the CPU; True demands graphs and raises on the CPU;
-        False runs the eager chunks on either (the card's twin)."""
+        False runs the eager chunks on either (the card's twin).
+        ``obs``: a ``repro_torch.obs.ServeObserver`` to report into (see
+        ``set_observer``)."""
         sv = serve if serve is not None else cfg.serve
         if sv.spec_k > 0 and cfg.family not in tf.ATTN_FAMILIES:
             raise ValueError(f"speculative decode needs a kv-cache family "
@@ -490,6 +507,11 @@ class SlotScheduler:
         self.decode_steps = 0
         self.completed: List[Completion] = []
         self._base_seed = int(sv.seed)
+        # observability (repro_torch.obs.ServeObserver or None): every
+        # hook site guards with ``if self.obs is not None`` and passes
+        # host values only; ``_round_idx`` paces the opt-in fidelity probe
+        self.obs: Any = None
+        self._round_idx = 0
 
         self.block_size = max(1, sv.kv_block_size)
         if sv.prefix_block % self.block_size:
@@ -586,10 +608,15 @@ class SlotScheduler:
                 self._chunk(v)
             for pv in self._prefill_variants():
                 self._prefill_static(pv)
+        if obs is not None:
+            self.set_observer(obs)
 
     def set_observer(self, obs: Any) -> None:
-        """The reference's observability hooks are not ported yet."""
-        raise _not_ported("the observer hooks (repro.obs)", "Queue 1 #10")
+        """Attach (or detach, with None) a ``repro_torch.obs.
+        ServeObserver``: the scheduler and its prefix cache report into it
+        from every pump phase.  Safe to call at any pump boundary."""
+        self.obs = obs
+        self.prefix_cache.obs = obs
 
     # ------------------------------------------------------------------
     # Device pieces
@@ -745,6 +772,8 @@ class SlotScheduler:
                              f"{self.block_size}, pool has "
                              f"{self.num_blocks} (raise num_kv_blocks)")
         self._enqueue(req, front=False)
+        if self.obs is not None:
+            self.obs.request_queued(req.rid, S, req.priority)
 
     def _enqueue(self, req: Request, front: bool) -> None:
         """Priority-ordered insertion (descending priority, FIFO within a
@@ -792,7 +821,7 @@ class SlotScheduler:
                            non_blocking=True)
 
     def _chunk_prefill_loop(self, prompt: np.ndarray, row: np.ndarray,
-                            start_off: int) -> None:
+                            start_off: int, slot: int) -> None:
         """Feed prompt rows [start_off, S) through bucket-sized prefill
         chunks over the slot's table ``row``.  Starts are always absolute
         bucket multiples, so a prefix-cache hit resuming mid-prompt replays
@@ -806,7 +835,11 @@ class SlotScheduler:
             seg = prompt[off:off + bucket]
             tok = np.zeros((1, bucket), np.int64)
             tok[0, :len(seg)] = seg
-            self._prefill_one(tok, row, off)
+            t0 = time.perf_counter()
+            self._prefill_one(tok, row, off, slot)
+            if self.obs is not None:
+                self.obs.prefill_span(slot, off, len(seg),
+                                      time.perf_counter() - t0)
             off += bucket
 
     def _prefill_one(self, tok: np.ndarray, row: np.ndarray, off: int,
@@ -910,7 +943,11 @@ class SlotScheduler:
                 slot_ids.extend(ids)
             tok = np.zeros((1, bucket), np.int64)
             tok[0, :len(seg)] = seg
+            t0 = time.perf_counter()
             self._prefill_one(tok, row, off, slot, fold_base)
+            if self.obs is not None:
+                self.obs.prefill_span(slot, off, len(seg),
+                                      time.perf_counter() - t0)
             # fold whole blocks that aged past the window ([0, end) keeps
             # >= W exact rows; the decode resume row S-1 always stays
             # exact because fold_base <= S - W <= S - 1)
@@ -936,6 +973,8 @@ class SlotScheduler:
                 first_lblk += k
                 fold_base += k * bs
                 self.fold_rows_total += k * bs
+                if self.obs is not None:
+                    self.obs.fold(slot, k * bs)
                 n_elig -= k
             off += bucket
         return slot_ids, first_lblk, True
@@ -1037,7 +1076,7 @@ class SlotScheduler:
                           np.int32)
             row[:len(slot_ids)] = slot_ids
             st.tables[slot] = self._to_device(row)
-            self._chunk_prefill_loop(prompt, row, start_off)
+            self._chunk_prefill_loop(prompt, row, start_off, slot)
         self._slot_blocks[slot] = slot_ids
         if admit_plen is not None and first_lblk > 0:
             # fold-through freed leading prompt blocks: the prefix's block
@@ -1097,6 +1136,8 @@ class SlotScheduler:
         self._slot_admit_seq[slot] = self._admit_seq
         self._admit_seq += 1
         self._slot_spec[slot] = eff_spec if temp == 0.0 else 0
+        if self.obs is not None:
+            self.obs.request_admitted(req.rid, slot, hit is not None)
         return True
 
     def _complete(self, slot: int, status: str) -> Completion:
@@ -1166,6 +1207,9 @@ class SlotScheduler:
                 freed.append(s)
         self._release_slot_state(freed)
         self.completed.extend(done)
+        if self.obs is not None:
+            for c in done:
+                self.obs.request_finished(c.rid, c.status, len(c.tokens))
         return done
 
     def cancel(self, rid: int, status: str = "cancelled"
@@ -1195,6 +1239,9 @@ class SlotScheduler:
         else:
             self.cancellations += 1
         self.completed.append(comp)
+        if self.obs is not None:
+            self.obs.request_finished(comp.rid, comp.status,
+                                      len(comp.tokens))
         return comp
 
     def expire_deadlines(self, now: Optional[float] = None
@@ -1236,6 +1283,8 @@ class SlotScheduler:
             max_new=req.max_new - len(out), generator=gen)
         self._release_slot_state([slot], deactivate=True)
         self.preemptions += 1
+        if self.obs is not None:
+            self.obs.request_preempted(req.rid, slot, len(out))
         # the continuation must not re-feed the count-min tracker
         self._admit_memo[req.rid] = None
         self._enqueue(cont, front=True)
@@ -1336,6 +1385,8 @@ class SlotScheduler:
             del self._slot_blocks[s][:n]
             self._slot_first_lblk[s] = first + n
             self.fold_rows_total += n * self.block_size
+            if self.obs is not None:
+                self.obs.fold(s, n * self.block_size)
         self.alloc.unref(dead)
 
     # ------------------------------------------------------------------
@@ -1356,6 +1407,10 @@ class SlotScheduler:
                 slot = self._preempt_for(head) \
                     if self._inflight is None else None
             if slot is None or not self._admit(slot, head):
+                if slot is not None and self.obs is not None:
+                    # a free slot existed but the pool couldn't serve the
+                    # head request now: a deferral stall
+                    self.obs.admission_deferred(head.rid)
                 break
             self._queue.pop(0)
             admitted += 1
@@ -1405,6 +1460,7 @@ class SlotScheduler:
         toks, emits = host[0], host[1].astype(bool)
         if toks.ndim == 2:               # plain chunk: one token per step
             toks, emits = toks[:, :, None], emits[:, :, None]
+        round_tokens = 0
         for t in range(toks.shape[0]):
             for s in range(toks.shape[1]):
                 if self._slot_req[s] is None:
@@ -1415,12 +1471,44 @@ class SlotScheduler:
                 self._slot_out[s].extend(int(x) for x in
                                          toks[t, s][emits[t, s]])
                 self._slot_pos[s] += e
+                round_tokens += e
                 # one verify round: spec_k proposed, e - 1 survived
                 rr, pp, aa = spec.round_accounting(self._slot_spec[s], e)
-                self.spec_rounds += rr
-                self.spec_proposed += pp
-                self.spec_accepted += aa
-        return self._retire()
+                if rr:
+                    self.spec_rounds += rr
+                    self.spec_proposed += pp
+                    self.spec_accepted += aa
+                    if self.obs is not None:
+                        self.obs.spec_round(self._slot_req[s].rid, pp, aa)
+        done = self._retire()
+        if self.obs is not None:
+            self._round_idx += 1
+            self.obs.chunk_collected(
+                round_tokens, len(self._queue),
+                sum(r is not None for r in self._slot_req))
+            if (self.sketch_on and self.obs.fidelity_every > 0
+                    and self._round_idx % self.obs.fidelity_every == 0):
+                self._probe_fidelity()
+            self.obs.maybe_flush(self.stats)
+        return done
+
+    def _probe_fidelity(self) -> None:
+        """Opt-in sketch-fidelity probe: per-slot relative spread of the Z
+        hash rows' tail energies (``kv_sketch.tail_row_spread`` over the
+        target's stacked tails), reported for every sketched slot that
+        has folded rows.  It runs only here, after the round's tokens
+        reached the host, and only at the observer's ``fidelity_every``
+        cadence, on the stream the replays use, so it orders after the
+        round's folds and any prefill launched meanwhile; the captured
+        chunks are untouched."""
+        sp = kvs.tail_row_spread(self._state.cache["tail"]).cpu().numpy()
+        for s, req in enumerate(self._slot_req):
+            if req is None or not self._slot_use_sketch[s]:
+                continue
+            folded = self._slot_first_lblk[s] * self.block_size
+            if folded <= 0:
+                continue
+            self.obs.fidelity(s, req.rid, folded, float(sp[s]))
 
     def step(self) -> List[Completion]:
         """One synchronous round: expire, admit, dispatch, collect."""

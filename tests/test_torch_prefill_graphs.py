@@ -156,9 +156,9 @@ def test_prefill_captured_once_over_two_passes_with_prefix_hits(gemma):
     starts = []
     loop = sched._chunk_prefill_loop
 
-    def spy(prompt, row, start_off):
+    def spy(prompt, row, start_off, *rest):
         starts.append(start_off)
-        return loop(prompt, row, start_off)
+        return loop(prompt, row, start_off, *rest)
 
     sched._chunk_prefill_loop = spy
     want, got, caps = [], [], []

@@ -189,8 +189,14 @@ async def _aenumerate(it):
 
 
 def test_not_ported_options_raise(served):
+    # the observer hooks are ported (tests/test_torch_obs.py): attaching
+    # none is accepted; a family the port does not serve still raises
+    served["ts"].set_observer(None)
+    assert served["ts"].obs is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        served["ts"].set_observer(object())
+        SlotScheduler(dataclasses.replace(served["tcfg"], family="ssm"),
+                      served["tparams"], serve=_serve(served["tcfg"]),
+                      device="cpu")
 
 
 def _drive(capsys, *args):
