@@ -3,16 +3,18 @@ the sources in this checkout, holds each against its plain version, runs
 the paper's sketched CP decompositions and codecs at the paper's sizes,
 checks the full-width model against its plain path, serves full-width
 gemma-2b (at 512, speculatively, and, sketched, at 8k context, plainly
-and speculatively) and trains full-width yi-9b through the port's main
-paths.
+and speculatively), trains full-width yi-9b and serves the moe family and
+the other attention configs (granite-moe and deepseek-moe at full width
+and depth, four more at full width) through the port's main paths.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero):
   1. build     — nvcc for sm_90a, one process per source, all at once
   2. kernel    — paged attention vs its plain version at the decode and
-                 chunked-prefill geometries at max_seq 512 and 8192, a
-                 reduced (hd=16) one and the verify step at spec_k 4 and
+                 chunked-prefill geometries at max_seq 512 and 8192 (and
+                 at 512 for each (K, R, hd) of phase moe's six configs),
+                 a reduced (hd=16) one and the verify step at spec_k 4 and
                  8 (each verify row also bitwise the Sq = 1 call at its
                  position), with its split plan (blocks,
                  splits), two launches held bitwise equal, kernel / plain
@@ -117,6 +119,23 @@ Phases (one line each; any failure exits non-zero):
                  params bitwise from the kernel's tables); one profiled
                  step split by kernel, sketch_update's per step against
                  its bound
+  6. moe       — after yi-9b is freed: granite-moe-3b-a800m at full width
+                 and depth (the serve phase's 16-request stream; no drop
+                 is possible, so its greedy tokens are held to a
+                 teacher-forced recompute of a dropless copy, forced onto
+                 the experts the served rows chose, which the eager twin
+                 records), deepseek-moe-16b at full width and depth (8
+                 requests) and minitron-4b, qwen2.5-32b, musicgen-medium
+                 and internvl2-2b at full width cut to 2 layers (4 each),
+                 every engine graphed and as its eager twin, bitwise; a
+                 decode step's and a chunk's logits, kernel path vs plain
+                 path on the kernel path's routing (deepseek-moe's
+                 through its first 16 layers), within 3% of max|logit|,
+                 every routing decision the plain path would change
+                 within NEAR_TIE of a tie; a [profile] and a [moe]
+                 line per config (tok/s, TTFT, chunk ms, captures, the FFN
+                 weight bytes a decode step reads); its paged-attention
+                 launches are all at shapes phase 2 holds
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -216,6 +235,16 @@ GEOMETRIES = {
     "verify_k8": (8, 9, 1, 8, 256, 256, 16, 32),
     "verify_k2_8k": (8, 3, 1, 8, 256, 4096, 16, 512),
 }
+# phase moe's engines (max_seq 512, blocks of 16): the decode and the
+# 32-token chunk prefill of each config's (K, R, hd) — granite-moe (8, 3,
+# 64), deepseek-moe (16, 1, 128), minitron (8, 3, 128), qwen2.5 (8, 5,
+# 128), musicgen (24, 1, 64), internvl2 (8, 2, 128)
+MOE_HEADS = {"granite": (8, 3, 64), "deepseek": (16, 1, 128),
+             "minitron": (8, 3, 128), "qwen": (8, 5, 128),
+             "musicgen": (24, 1, 64), "internvl2": (8, 2, 128)}
+for _name, (_K, _R, _hd) in MOE_HEADS.items():
+    GEOMETRIES[f"decode_{_name}"] = (8, 1, _K, _R, _hd, 256, 16, 32)
+    GEOMETRIES[f"chunk_prefill_{_name}"] = (1, 32, _K, _R, _hd, 256, 16, 32)
 
 
 def paged_inputs(B, Sq, K, R, hd, NB, bs, nb, seed):
@@ -2656,6 +2685,310 @@ def phase_train(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: moe, and the other attention configs, on the paged slot engine
+# ---------------------------------------------------------------------------
+
+MOE_FULL = ("granite-moe-3b-a800m", "deepseek-moe-16b")
+# the largest router-logit gap by which a routing decision of one path
+# may trail the other path's own choice: a near-tie that rounding flips,
+# not a wrong expert (full-width router logits spread about 1).  Measured
+# (tools/moe_drift.py, PERF.md section 6): up to 0.0662 for the plain
+# path on the kernel path's experts at deepseek-moe's 28 layers, 0.0428
+# for granite's recompute on the served experts
+NEAR_TIE = 0.1
+# the layers of a config that its kernel-vs-plain logit check runs (the
+# first ones; the others: all).  Two bf16 paths drift apart with depth
+# even on one routing (tools/moe_drift.py: deepseek-moe, kernel vs plain
+# on the kernel's experts, 1.62 / 2.35 / 3.06% of max|logit| at 8 / 16 /
+# 28 layers, each path 2.7-2.9% from an f32 plain path at 28, the kernel
+# path no further than the plain one), so deepseek-moe's check runs 16
+PARITY_LAYERS = {"deepseek-moe-16b": 16}
+# full width, depth cut to CUT_LAYERS layers (the kernels see every layer
+# alike; the cut keeps the phase near two minutes)
+CUT = ("minitron-4b", "qwen2.5-32b", "musicgen-medium", "internvl2-2b")
+CUT_LAYERS = 2
+# the serve phase's stream shape (3 shared 64-token prefixes), with
+# shorter tails and outputs: each engine's eager twin launches every
+# kernel of its 28-32 layers from the host, ~10x its graphed time
+MOE_TAIL, MOE_NEW = 32, 8
+
+
+def dropless(cfg):
+    """``cfg`` with capacity_factor E / K, so C >= group_size: no choice
+    is ever dropped."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def step_weight_bytes(cfg):
+    """Weight bytes a decode step reads in its FFNs: every expert's GLU
+    weights (the dispatch runs each expert's C rows, full or not) and the
+    shared experts', or the dense GLU's."""
+    if cfg.family != "moe":
+        return cfg.num_layers * 3 * cfg.d_model * cfg.d_ff * 2
+    m = cfg.moe
+    return (cfg.num_layers * (m.num_experts + m.num_shared_experts) * 3
+            * cfg.d_model * m.expert_d_ff * 2)
+
+
+def parity_inputs(cfg, params, dev):
+    """The inputs of ``logit_parity``: a paged cache of 8 slots (one
+    idle; contexts of up to 63 tokens prefilled in 32-token chunks on the
+    kernel path), a decode step's tokens and positions, and a 32-token
+    chunk of new tokens into slot 1 at its last chunk's offset:
+    {"cache", "tables", "cur", "pos", "chunk", "start"}."""
+    from repro_torch.models import transformer as tf
+    B, NB, bs, nbs = 8, 256, 16, 32
+    rng = np.random.RandomState(SEED + 21)
+    cache = tf.init_paged_cache(cfg, NB, bs, dev)
+    tables = torch.full((B, nbs), NB, dtype=torch.int32, device=dev)
+    lens = rng.randint(1, 64, B)
+    lens[0] = 0
+    nxt = 0
+    for b in range(1, B):
+        n = -(-(int(lens[b]) + 1) // bs)
+        tables[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+        prompt = rng.randint(0, cfg.vocab_size, int(lens[b]))
+        for off in range(0, int(lens[b]), 32):
+            tok = np.zeros((1, 32), np.int64)
+            seg = prompt[off:off + 32]
+            tok[0, :len(seg)] = seg
+            tf.prefill_chunk(params, cache, torch.as_tensor(tok, device=dev),
+                             tables[b], off, cfg)
+    pos = torch.as_tensor(lens.astype(np.int32), device=dev)
+    cur = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, 1)), device=dev)
+    off = int(lens[1]) // 32 * 32
+    chunk = torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, 32)),
+                            device=dev)
+    start = torch.full((1,), off, dtype=torch.int32, device=dev)
+    return dict(cache=cache, tables=tables, cur=cur, pos=pos, chunk=chunk,
+                start=start)
+
+
+def parity_logits(cfg, params, inp, kernels, blocks=None):
+    """The decode step's logits of slots 1..7 and the chunk's, over the
+    real vocab, on clones of ``inp``'s cache (``kernels`` as in
+    ``tf.forward``; ``blocks``: the first that many layers only)."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    if blocks is not None:
+        params = dict(params, blocks=params["blocks"][:blocks])
+    clone = lambda c: {"kv": {k: v.clone() for k, v in c["kv"].items()}}
+    B = inp["cur"].shape[0]
+    ld, _ = tf.decode_step(params, clone(inp["cache"]), inp["cur"],
+                           inp["pos"], cfg, inp["tables"], kernels=kernels,
+                           rows=ly.padded_rows(B))
+    y, _ = tf.forward(params, tf.embed_inputs(params, inp["chunk"]), cfg,
+                      mode="chunk", cache=clone(inp["cache"]),
+                      index=inp["start"], tables=inp["tables"][1:2],
+                      kernels=kernels)
+    return (ld[1:, :cfg.vocab_size],
+            ly.logits_fn(params, y, cfg)[0, :, :cfg.vocab_size])
+
+
+def logit_parity(cfg, params, dev, what, flush, bad, layers=None):
+    """A decode step of 8 slots and a 32-token chunk's logits
+    (``parity_inputs``) through the first ``layers`` layers (None: all),
+    kernel path vs plain path on identical caches, the plain path forced
+    onto the kernel path's experts (models/routing.py): within 3% of
+    max|logit|, and greedy argmax equal where the plain path's margin
+    exceeds twice that.  A failed check is appended to ``bad``."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.routing import RoutingProbe
+    inp = parity_inputs(cfg, params, dev)
+    out = {}
+    with RoutingProbe() as own:
+        out[None] = parity_logits(cfg, params, inp, None, layers)
+    with RoutingProbe(own.forcing()) as routing:
+        out[False] = parity_logits(cfg, params, inp, False, layers)
+    cache, tables, cur, pos = (inp[k] for k in ("cache", "tables", "cur",
+                                                "pos"))
+    B = cur.shape[0]
+    clone = lambda c: {"kv": {k: v.clone() for k, v in c["kv"].items()}}
+    # where a decode step's time goes (kernel path, the engine's rows)
+    c = clone(cache)
+    busy, by_name, wall = device_ms(
+        lambda: tf.decode_step(params, c, cur, pos, cfg, tables,
+                               rows=ly.padded_rows(B)), 2, flush)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[profile] {what} decode_step B=8 at {ly.padded_rows(B)} padded "
+          f"rows: wall {wall:.3f} ms/step, device busy {busy:.3f} ms "
+          f"({100 * (1 - busy / wall):.1f}% idle), {len(by_name)} kernel "
+          f"names; top kernels "
+          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
+    del c
+    gaps = [] if layers is None else [f"first {layers} layers"]
+    if cfg.family == "moe":
+        if routing.worst > NEAR_TIE:
+            bad.append(f"{what}: the plain path's own routing differs from "
+                       f"the kernel path's by {routing.worst} (> "
+                       f"{NEAR_TIE})")
+        gaps.append(f"plain path on the kernel path's experts: its own "
+                    f"top-k differs in {routing.differ}/{routing.rows} "
+                    f"routed rows, by at most {routing.worst:.3e} in router "
+                    f"logits")
+    for (lk, lp), name in zip(zip(out[None], out[False]), ("decode",
+                                                            "chunk")):
+        diff = (lk - lp).abs().max().item()
+        tol = 0.03 * lp.abs().max().item()
+        top2 = lp.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        if not torch.isfinite(lk).all() or diff > tol or not bool(
+                (lk.argmax(-1) == lp.argmax(-1))[sure].all()):
+            bad.append(f"{what}: {name} logits, kernel vs plain: max|dlogit| "
+                       f"{diff} (tol {tol})")
+        gaps.append(f"{name} max|dlogit| {diff:.4e} (tol {tol:.4e}, "
+                    f"{100 * diff / lp.abs().max().item():.2f}% of "
+                    f"max|logit|)")
+    del cache, inp
+    return "; ".join(gaps)
+
+
+def phase_moe(dev):
+    """The attention configs beyond gemma-2b on the paged slot engine,
+    each graphed and as its eager twin (``twin_streams``).  granite-moe
+    at full width and depth serves the serve phase's stream; it provably
+    drops nothing (a chunk of prefill_bucket rows or a decode step of
+    max_batch rows puts at most that many choices on one expert, both <=
+    C), so its greedy tokens are held to a teacher-forced recompute of a
+    dropless copy.  deepseek-moe (C 20 < 32: chunk prefill may drop) at
+    full width and depth serves 8 requests; the four other configs at
+    full width, cut to CUT_LAYERS layers, serve 4.  Each also holds a
+    decode step's and a chunk's logits, kernel path vs plain path
+    (deepseek-moe's through its first PARITY_LAYERS layers)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import make_request_stream
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.routing import RoutingProbe, ServedRouting
+    from repro_torch.serve.frontend import AsyncServeEngine
+    launches = 0
+    bad = []                  # failed logit checks, reported at the end
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    for arch in MOE_FULL + CUT:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cut = ""
+        if arch in CUT:
+            cfg = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+            cut = f", depth cut to {CUT_LAYERS} layers"
+        params = tf.init_params(cfg, seed=SEED, device=dev)
+        secs = [time.perf_counter()]
+        parity = logit_parity(cfg, params, dev, arch, flush, bad,
+                              PARITY_LAYERS.get(arch))
+        secs.append(time.perf_counter())
+        serve = dataclasses.replace(cfg.serve, **SERVE)
+        n = {"granite-moe-3b-a800m": 16, "deepseek-moe-16b": 8}.get(arch, 4)
+        reqs = make_request_stream(cfg, np.random.RandomState(SEED + 2), n,
+                                   3, 64, MOE_TAIL, MOE_NEW,
+                                   sampled_frac=0.25, temperature=0.8,
+                                   top_k=8)
+        served = []
+
+        def make_front(graphs):
+            if graphs is not False or cfg.family != "moe":
+                return AsyncServeEngine(cfg, params, serve=serve,
+                                        device=dev, graphs=graphs)
+            # the eager twin (bitwise the graphed engine) records which
+            # experts each request's rows chose; active once it is built
+            served.append(ServedRouting(cfg.num_layers, serve.max_batch))
+            front = AsyncServeEngine(cfg, params, serve=serve, device=dev,
+                                     graphs=False, obs=served[0])
+            served[0].__enter__()
+            return front
+
+        try:
+            run = twin_streams(arch, make_front, reqs, dev)
+        finally:
+            for r in served:
+                r.__exit__()
+        secs.append(time.perf_counter())
+        done, st = run["done"], run["stats"]
+        ok = [c for c in done if c.status == "ok"
+              and len(c.tokens) == MOE_NEW
+              and ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()]
+        pa = run["launches"]["paged_attention"]
+        # the count-min filter admits a prefix on its second sighting:
+        # only granite's 16 requests are sure to hit
+        if pa <= 0 or len(ok) != len(reqs) or (
+                len(reqs) == 16 and st.prefix_hits <= 0):
+            fail(f"{arch}: launches {pa}, completed ok {len(ok)}/"
+                 f"{len(reqs)}, prefix hits {st.prefix_hits}")
+        launches += pa
+        oracle = ""
+        if arch == "granite-moe-3b-a800m":
+            C = moe.capacity(cfg)
+            if max(serve.prefill_bucket, serve.max_batch) > C:
+                fail(f"{arch}: a chunk of {serve.prefill_bucket} or a step "
+                     f"of {serve.max_batch} rows may fill an expert's {C}")
+            byrid = {r.rid: r for r in reqs}
+            prompts = {r.rid: r.tokens for r in reqs}
+            free = dropless(cfg)
+            exact = total = differ = rows = 0
+            worst = tie = 0.0
+            for c in [c for c in done if not byrid[c.rid].temperature][:3]:
+                req = byrid[c.rid]
+                toks = np.concatenate([req.tokens, c.tokens[:-1]])
+                with RoutingProbe(served[0].forcing_of(
+                        toks, c.rid, prompts, free, dev)) as r:
+                    short, tol, n_top1 = greedy_shortfall(
+                        params, free, dev, req.tokens, c.tokens)
+                if short > tol:
+                    fail(f"{arch}: rid {c.rid} served a token {short} below "
+                         f"the dropless recompute's top-1 (tol {tol})")
+                if r.worst > NEAR_TIE:
+                    fail(f"{arch}: rid {c.rid}: the recompute's own routing "
+                         f"differs from the served experts by {r.worst} in "
+                         f"router logits "
+                         f"(> {NEAR_TIE})")
+                worst = max(worst, short / tol)
+                tie = max(tie, r.worst)
+                differ += r.differ
+                rows += r.rows
+                exact += n_top1
+                total += len(c.tokens)
+            oracle = (f"; no drop possible (chunk {serve.prefill_bucket} and "
+                      f"step {serve.max_batch} rows <= C {C}): greedy vs "
+                      f"the dropless recompute (capacity_factor "
+                      f"{free.moe.capacity_factor}, C "
+                      f"{moe.capacity(free)}) on the served experts: "
+                      f"{exact}/{total} its top-1, worst shortfall "
+                      f"{worst:.2f} of tol; its own top-k differs from the "
+                      f"served in {differ}/{rows} routed rows, by at most "
+                      f"{tie:.3e} in router logits")
+        elif cfg.family == "moe":
+            oracle = f"; C {moe.capacity(cfg)}"
+        secs.append(time.perf_counter())
+        ntok = sum(len(c.tokens) for c in done)
+        wb = step_weight_bytes(cfg)
+        print(f"[moe] {arch} full width{cut}: {cfg.param_count()} params, "
+              f"{len(reqs)} requests "
+              f"({sum(1 for r in reqs if r.temperature)} sampled), graphed: "
+              f"{ntok / run['wall']:.2f} tok/s, TTFT p50 "
+              f"{np.percentile(run['ttfts'], 50) * 1e3:.2f} ms, decode chunk "
+              f"{run['chunk']:.3f} ms ({serve.decode_chunk} steps), prefill "
+              f"chunk p50 {np.percentile(run['prefill_ms'], 50):.3f} ms, "
+              f"captures {run['caps'][0]} decode / {run['pcaps'][0]} "
+              f"prefill, prefix hits {st.prefix_hits}/{st.prefix_lookups}, "
+              f"paged_attention launches {pa}; FFN weights read per decode "
+              f"step {wb} B (>= {wb / HBM_BYTES_PER_S * 1e3:.3f} ms at the "
+              f"memory rate){oracle}; kernel vs plain: {parity}; "
+              f"{time.perf_counter() - t0:.1f}s (init {secs[0] - t0:.1f}, "
+              f"logits {secs[1] - secs[0]:.1f}, streams "
+              f"{secs[2] - secs[1]:.1f}, oracle {secs[3] - secs[2]:.1f}); "
+              f"{card()}")
+        del run, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if bad:
+        fail("; ".join(bad))
+    return launches
+
+
 def main() -> None:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2684,29 +3017,52 @@ def main() -> None:
         print(f"[mem] after {after}: {before} B allocated, "
               f"{torch.cuda.memory_allocated()} B after gc.collect()")
 
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"[time] {what} {laps[-1] - laps[-2]:.1f}s (at "
+              f"{laps[-1] - t_run:.1f}s)", flush=True)
+
     rows = phase_kernel(flush)
+    lap("phase kernel, paged_attention")
     sk_rows = phase_sketch_kernel(flush)
     fold_rows, score_rows = phase_kv_kernels(flush)
     cs_rows, un_rows = phase_cs_kernels(flush)
     held("the kernel phases (the 256 MB flush buffer held)")
+    lap("phases kernel (sketch_update), kv, cs")
     cpd_launches = phase_cpd(dev)
     held("cpd")
+    lap("phase cpd")
 
     cfg = get_config("gemma-2b")
     params = tf.init_params(cfg, seed=SEED, device=dev)
     gap = phase_model(cfg, params, dev, flush)
     phase_sketch_model(cfg, params, dev, flush)
     del flush
+    lap("phase model")
     with LaunchShapes() as shapes:
         launches = phase_serve(cfg, params, dev, gap)
+        lap("phase serve")
         spec_launches = phase_spec(cfg, params, dev)
+        lap("phase spec")
         long_launches = phase_long_serve(cfg, params, dev)
+        lap("phase long")
         long_spec_launches = phase_long_spec(cfg, params, dev)
+        lap("phase long-spec")
     shapes.check("phases serve, spec, long and long-spec")
     del params                               # free gemma-2b for training
     torch.cuda.empty_cache()
     held("serve and long, gemma-2b freed")
     sk_launches = phase_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held("train, yi-9b freed")
+    lap("phase train")
+    with LaunchShapes() as shapes:
+        moe_launches = phase_moe(dev)
+    shapes.check("phase moe")
+    lap("phase moe")
 
     d = rows["decode"]
     sk = sk_rows[SKETCH_MAIN]
@@ -2719,6 +3075,8 @@ def main() -> None:
         # (draft micro-steps, verify, prefill) and the sketched spec run
         "spec_launches": spec_launches["paged_attention"]
         + long_spec_launches["paged_attention"],
+        # phase moe's six engines (their graphed first passes)
+        "moe_launches": moe_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],

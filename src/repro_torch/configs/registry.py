@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the dense attention configurations are ported so far; the other
-families of the JAX package raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The attention families (dense, moe, audio, vlm) are ported; the
+recurrent families of the JAX package raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -13,19 +13,19 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "yi-9b": "repro_torch.configs.yi_9b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
 }
 
 # arch id -> the ROADMAP Queue 1 item that ports its family
 _NOT_PORTED = {
-    "granite-moe-3b-a800m": "Queue 1 #12 (MoE family)",
-    "deepseek-moe-16b": "Queue 1 #12 (MoE family)",
-    "musicgen-medium": "Queue 1 #12 (audio frontend stub)",
-    "minitron-4b": "Queue 1 #12 (remaining dense configs)",
-    "qwen2.5-32b": "Queue 1 #12 (remaining dense configs)",
     "xlstm-1.3b": "Queue 1 #12 (recurrent families)",
-    "internvl2-2b": "Queue 1 #12 (vision frontend stub)",
     "zamba2-2.7b": "Queue 1 #12 (recurrent families)",
 }
 
@@ -55,8 +55,7 @@ def all_configs() -> Dict[str, ModelConfig]:
 
 def reduced_config(arch: str) -> ModelConfig:
     cfg = get_config(arch)
-    return dataclasses.replace(
-        cfg,
+    changes: dict = dict(
         d_model=64,
         num_heads=4,
         num_kv_heads=max(1, min(cfg.num_kv_heads, 2)),
@@ -65,3 +64,8 @@ def reduced_config(arch: str) -> ModelConfig:
         vocab_size=512,
         num_layers=2,
     )
+    if cfg.family == "moe":
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=8, top_k=2, expert_d_ff=64, group_size=32,
+            num_shared_experts=min(cfg.moe.num_shared_experts, 1))
+    return dataclasses.replace(cfg, **changes)

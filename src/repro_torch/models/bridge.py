@@ -7,7 +7,9 @@ imports nothing of JAX — and returns the port's parameter dict
 (models/transformer.py), computing the same function.  bf16 leaves
 arrive as ``ml_dtypes.bfloat16`` arrays; their bits are reinterpreted
 as ``torch.bfloat16``, which is exact.  The stacked (L, ...) block leaves
-of the reference's scan-over-layers layout are split per layer.
+of the reference's scan-over-layers layout are split per layer (the
+attention biases of a ``qkv_bias`` config and the moe family's f32
+router and stacked experts with them).
 
 ``opt_state_from_reference`` carries the reference's optimizer state
 (``AdamWState`` or ``SketchedAdamWState``, converted the same way) into
@@ -58,6 +60,9 @@ def from_reference(tree: Any, cfg: ModelConfig,
     dev = resolve_device(device)
     blocks = tree["blocks"]
     L = cfg.num_layers
+    # the family's FFN subtree: the experts and the f32 router of the moe
+    # family, the GLU of the others
+    ffn = "moe" if cfg.family == "moe" else "ffn"
 
     def layer(sub: dict, i: int) -> dict:
         return {k: to_torch(v[i], dev) for k, v in sub.items()}
@@ -68,7 +73,7 @@ def from_reference(tree: Any, cfg: ModelConfig,
                  else to_torch(tree["head"], dev)),
         "final_norm": to_torch(tree["final_norm"], dev),
         "blocks": [{"attn": layer(blocks["attn"], i),
-                    "ffn": layer(blocks["ffn"], i),
+                    ffn: layer(blocks[ffn], i),
                     "norm1": to_torch(blocks["norm1"][i], dev),
                     "norm2": to_torch(blocks["norm2"][i], dev)}
                    for i in range(L)],

@@ -1,0 +1,162 @@
+"""GShard-style grouped top-k MoE with capacity, shared experts and the
+load-balance aux loss (the reference's ``repro/models/moe.py``).
+
+Tokens are routed in groups of g = min(group_size, T) (T = B*S, zero rows
+appended to a whole number of groups) and every expert takes at most C =
+``capacity(cfg)`` (token, choice) pairs a group.  C follows from
+``group_size``, not from g, so a decode step of a few rows runs each
+expert at the same C rows as a full group.  A token's choices queue
+k-major: every token's first choice is placed ahead of any token's
+second choice, tokens in group order within a choice, so a choice past
+its expert's C rows is dropped (contributes nothing) by that priority.
+
+The reference expresses dispatch and combine as one-hot einsums.  Here
+the same function runs as index work with fixed shapes: an integer
+scatter builds each group's (E, C) slot -> token table (a slot has at
+most one writer), the slots' rows are gathered, each projection is one
+``bmm`` over the experts, and each token gathers its K expert outputs
+back and sums them, weighted by its combine weights in bf16, in f32.
+No step reads a value on the host, sizes a tensor by data, or adds
+floats with atomics, so the decode and prefill chunks that run it can be
+captured as CUDA graphs and replay bitwise as their eager twins.
+
+Top-k takes a stable descending sort: ties (the zero pad rows' uniform
+probabilities) go to the lower expert index, as ``jax.lax.top_k``'s do.
+
+The load-balance aux loss is ``aux_loss``, apart from the forward: the
+port serves moe models and does not train them, so no forward pays for
+it.  ``probe`` (models/routing.py) sees every call's routing under its
+layer and may replace it; it is None outside oracles and tests.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as ly
+
+# called as probe(layer, positions, routing, cfg) -> routing; see the
+# module docstring
+probe: Optional[Callable] = None
+
+
+def init_moe(cfg: ModelConfig, normal: Callable[..., torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """One layer's MoE parameters at the reference's scales: the router
+    f32 (d, E), the experts' GLU weights bf16 (E, d, f) / (E, f, d) and,
+    with shared experts, their GLU weights (d, n f) / (n f, d).
+    ``normal(shape, std, dtype)`` draws the scaled normals."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.expert_d_ff, m.num_experts
+    sd, sf = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"router": normal((d, E), sd, torch.float32),
+         "we_gate": normal((E, d, f), sd),
+         "we_up": normal((E, d, f), sd),
+         "we_down": normal((E, f, d), sf)}
+    if m.num_shared_experts:
+        fs = m.num_shared_experts * f
+        p.update(ws_gate=normal((d, fs), sd), ws_up=normal((d, fs), sd),
+                 ws_down=normal((fs, d), sf))
+    return p
+
+
+def capacity(cfg: ModelConfig) -> int:
+    """Rows per expert and group: ceil(group_size K / E x capacity_factor)
+    rounded up to a multiple of 4, at least 4."""
+    m = cfg.moe
+    c = int(math.ceil(m.group_size * m.top_k / m.num_experts
+                      * m.capacity_factor))
+    return max(4, ((c + 3) // 4) * 4)
+
+
+def queue(topi: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Places of the choices topi (G, g, K) in their experts' k-major
+    queues: (pos (G, g, K) int64, keep (G, g, K) bool: pos < C)."""
+    G, g, K = topi.shape
+    E = cfg.moe.num_experts
+    # (G, K, g, E) one-hot of each choice, k-major: a running count over
+    # the K*g choices gives each choice its place in its expert
+    kmaj = topi.transpose(1, 2)
+    onehot = (kmaj[..., None] == torch.arange(E, device=topi.device)).to(
+        torch.int32)
+    count = torch.cumsum(onehot.reshape(G, K * g, E), dim=1)
+    pos = torch.gather(count.reshape(G, K, g, E), 3, kmaj[..., None])[
+        ..., 0].transpose(1, 2) - 1
+    return pos, pos < capacity(cfg)
+
+
+def route(p: Dict[str, torch.Tensor], xg: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, ...]:
+    """Routing of grouped tokens xg (G, g, d).  Returns (probs (G, g, E)
+    f32, topw (G, g, K) f32 renormalized to sum to 1, topi (G, g, K)
+    int64, pos, keep: ``queue(topi)``)."""
+    K = cfg.moe.top_k
+    probs = torch.softmax(xg.float() @ p["router"], dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = srt.values[..., :K], srt.indices[..., :K]
+    return (probs, topw / topw.sum(dim=-1, keepdim=True), topi,
+            *queue(topi, cfg))
+
+
+def aux_loss(probs: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """The load-balance aux loss (Switch) of one call's routing, probs
+    (G, g, E) and topi (G, g, K) from ``route``: router_aux_weight * E *
+    sum_e f_e * P_e, meaned over the groups, f32 scalar."""
+    m = cfg.moe
+    E = m.num_experts
+    chosen = topi[..., None] == torch.arange(E, device=topi.device)
+    f_e = chosen.sum(dim=2).float().mean(dim=1)               # (G, E)
+    p_e = probs.mean(dim=1)
+    return m.router_aux_weight * E * (f_e * p_e).sum(dim=-1).mean()
+
+
+def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+            layer: int = 0, positions: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """x: (B, S, d) bf16 -> out (B, S, d).  ``layer`` and ``positions``
+    ((B, S) absolute positions of x's rows, or None) only reach
+    ``probe``."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, K = m.num_experts, m.top_k
+    T = B * S
+    g = min(m.group_size, T)
+    G = -(-T // g)
+    C = capacity(cfg)
+    dev = x.device
+    xg = ly.pad_rows(x.reshape(T, d), G * g).view(G, g, d)
+    routing = route(p, xg, cfg)
+    if probe is not None:
+        routing = probe(layer, positions, routing, cfg)
+    _, topw, topi, pos, keep = routing
+
+    # slot -> token table of each group; slot E*C takes the dropped
+    # choices and is cut off, and token index g is a zero row
+    slot = torch.where(keep, topi * C + pos, E * C).reshape(G, g * K)
+    tok = torch.arange(g, device=dev).repeat_interleave(K).expand(G, g * K)
+    table = torch.full((G, E * C + 1), g, dtype=torch.int64, device=dev)
+    table.scatter_(1, slot, tok)
+    grp = torch.arange(G, device=dev)[:, None]
+    xz = torch.cat([xg, xg.new_zeros((G, 1, d))], dim=1)
+    ein = xz[grp, table[:, :E * C]]                           # (G, E*C, d)
+    ein = ein.view(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    h = ly._act(cfg.act, torch.bmm(ein, p["we_gate"])) * torch.bmm(
+        ein, p["we_up"])
+    eout = torch.bmm(h, p["we_down"])                         # (E, G*C, d)
+    eout = eout.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+
+    # combine: each token's K outputs, weighted in bf16, summed in f32
+    w = torch.where(keep, topw.to(ly.PDTYPE), 0).float()      # (G, g, K)
+    rows = eout[grp, torch.where(keep.reshape(G, g * K), slot, 0)]
+    y = (rows.view(G, g, K, d).float() * w[..., None]).sum(dim=2)
+    y = y.to(x.dtype)
+    if m.num_shared_experts:
+        y = y + ly.glu_ffn({"w_gate": p["ws_gate"], "w_up": p["ws_up"],
+                            "w_down": p["ws_down"]}, xg, cfg.act)
+
+    return y.reshape(G * g, d)[:T].view(B, S, d)

@@ -1,15 +1,20 @@
-"""Dense attention model assembly (``repro/models/transformer.py``, the
-attention stack only): parameter init, the paged slot cache, the
-full-sequence (training) / decode / verify / chunked-prefill forward
-paths, and the training loss.
+"""Attention model assembly (``repro/models/transformer.py``, the
+attention stack of the dense, moe, audio and vlm families): parameter
+init, the paged slot cache, the full-sequence (training) / decode /
+verify / chunked-prefill forward paths, and the training loss.  The
+audio and vlm families are the dense stack behind a frontend stub whose
+precomputed embeddings only their training batches carry; they serve
+token ids like the dense family.
 
 Parameter layout (plain dicts of tensors; ``models/bridge.py`` builds the
 same layout from the JAX package's parameter tree):
 
   {"embed": (Vp, d), "head": (d, Vp) | (J, Vp) (FCS-sketched head,
    models/layers.py:_head_io) | None (tied), "final_norm": (d,),
-   "blocks": [ {"attn": {"wq", "wk", "wv", "wo"}, "ffn": {"w_gate",
-                "w_up", "w_down"}, "norm1": (d,), "norm2": (d,)}, ... ]}
+   "blocks": [ {"attn": {"wq", "wk", "wv", "wo"[, "bq", "bk", "bv"]},
+                "ffn": {"w_gate", "w_up", "w_down"} (the moe family:
+                "moe": models/moe.py:init_moe), "norm1": (d,),
+                "norm2": (d,)}, ... ]}
 
 The reference stacks every block parameter as one (L, ...) leaf; the
 port keeps L per-layer tensors.  ``param_leaves`` lists the reference's
@@ -34,10 +39,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as ly
+from repro_torch.models import moe
 
 Params = Dict[str, Any]
 
-ATTN_FAMILIES = ("dense",)
+ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -94,6 +100,13 @@ def _check_family(cfg: ModelConfig) -> None:
             f"#12")
 
 
+def _trainable(cfg: ModelConfig) -> None:
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "training the moe family (the router's aux loss and its "
+            "backward) is not ported yet; see ROADMAP Queue 1 #20")
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -112,9 +125,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
 
-    def normal(shape, std):
+    def normal(shape, std, dtype=ly.PDTYPE):
         w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-        return (w.mul_(std)).to(ly.PDTYPE)
+        return (w.mul_(std)).to(dtype)
 
     def zeros(n):
         return torch.zeros((n,), dtype=ly.PDTYPE, device=dev)
@@ -129,14 +142,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         }
         if cfg.qkv_bias:
             attn.update(bq=zeros(H * hd), bk=zeros(K * hd), bv=zeros(K * hd))
-        blocks.append({
-            "attn": attn,
-            "ffn": {"w_gate": normal((d, ff), 1.0 / math.sqrt(d)),
-                    "w_up": normal((d, ff), 1.0 / math.sqrt(d)),
-                    "w_down": normal((ff, d), 1.0 / math.sqrt(ff))},
-            "norm1": zeros(d),
-            "norm2": zeros(d),
-        })
+        blk = {"attn": attn, "norm1": zeros(d), "norm2": zeros(d)}
+        if cfg.family == "moe":
+            blk["moe"] = moe.init_moe(cfg, normal)
+        else:
+            blk["ffn"] = {"w_gate": normal((d, ff), 1.0 / math.sqrt(d)),
+                          "w_up": normal((d, ff), 1.0 / math.sqrt(d)),
+                          "w_down": normal((ff, d), 1.0 / math.sqrt(ff))}
+        blocks.append(blk)
     head = None
     if cfg.sketch.sketched_head:
         # the projection lives in the J-dim sketch space (paper Section
@@ -174,15 +187,33 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ---------------------------------------------------------------------------
 
 
-def _ffn_residual(p_l: dict, x: torch.Tensor, cfg: ModelConfig):
+def _ffn_residual(p_l: dict, x: torch.Tensor, cfg: ModelConfig,
+                  live: Optional[Tuple[int, int]] = None, layer: int = 0,
+                  positions: Optional[torch.Tensor] = None):
+    """x plus the block's FFN (GLU, or MoE for the moe family) of its
+    norm.  x is (B, S, d), or (rows, d) holding the B*S rows of ``live``
+    = (B, S) first and zero padding after (the paged paths' layout).
+    The MoE routes only those B*S rows, in (B, S) order: the padding
+    would change the group size, and its zero rows, tied across every
+    expert, would all pick the first K experts and fill their capacity;
+    the padding rows' output stays zero.  ``layer`` and ``positions``
+    ((B, S)) reach the MoE's routing probe (models/moe.py)."""
     h = ly.rms_norm(x, p_l["norm2"], cfg.norm_eps)
-    return x + ly.glu_ffn(p_l["ffn"], h, cfg.act)
+    if cfg.family != "moe":
+        return x + ly.glu_ffn(p_l["ffn"], h, cfg.act)
+    if live is None:
+        return x + moe.moe_ffn(p_l["moe"], h, cfg, layer, positions)
+    B, S = live
+    f = moe.moe_ffn(p_l["moe"], h[:B * S].view(B, S, -1), cfg, layer,
+                    positions)
+    return x + ly.pad_rows(f.view(B * S, -1), x.shape[0])
 
 
-def _train_block(p_l: dict, x: torch.Tensor, cfg: ModelConfig):
+def _train_block(p_l: dict, x: torch.Tensor, cfg: ModelConfig,
+                 layer: int = 0):
     h = ly.rms_norm(x, p_l["norm1"], cfg.norm_eps)
     return _ffn_residual(p_l, x + ly.causal_attention(p_l["attn"], h, cfg),
-                         cfg)
+                         cfg, layer=layer)
 
 
 def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -217,8 +248,9 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """
     _check_family(cfg)
     if mode == "train":
-        for p_l in params["blocks"]:
-            x = checkpoint(_train_block, p_l, x, cfg, use_reentrant=False)
+        for i, p_l in enumerate(params["blocks"]):
+            x = checkpoint(_train_block, p_l, x, cfg, i,
+                           use_reentrant=False)
         return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), None
     if mode not in ("decode", "verify", "chunk"):
         raise ValueError(f"mode {mode!r} is not ported (train / decode / "
@@ -254,7 +286,7 @@ def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
         a = ly.paged_self_attention(p_l["attn"], a, cfg, kv["k"][i],
                                     kv["v"][i], positions, tables,
                                     fold_base, kernels, tail, sketch)
-        h = _ffn_residual(p_l, h + a, cfg)
+        h = _ffn_residual(p_l, h + a, cfg, (B, S), i, positions)
     return ly.rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -265,8 +297,10 @@ def embed_inputs(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch`` {"tokens", "labels"}
-    (B, S) int: the reference's ``loss_fn`` for the dense family (its MoE
-    aux loss is 0 here)."""
+    (B, S) int: the reference's ``loss_fn`` for the families without an
+    aux loss.  The moe family's loss adds the router's load-balance aux
+    loss, which is not ported: it raises."""
+    _trainable(cfg)
     y, _ = forward(params, embed_inputs(params, batch["tokens"]), cfg,
                    mode="train")
     return ly.cross_entropy(params, y, batch["labels"], cfg)

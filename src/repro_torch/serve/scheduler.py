@@ -96,7 +96,15 @@ chunks (a hook inside a captured body would run once, at capture), and
 takes host values only; the one device read is the opt-in fidelity probe
 at ``collect()`` (``_probe_fidelity``).
 
-Not ported yet (raises ``NotImplementedError``): recurrent families.
+Families: dense, moe (models/moe.py), audio and vlm (dense stacks that
+serve token ids).  The chunk prefill's tail is padded with token 0, and
+for the moe family those pad rows route and take expert capacity, as in
+the reference; ``prefill_bucket=1`` gives exact-length chunks.  Decode
+and verify route only their B*S live rows (models/transformer.py).
+
+Not ported yet (raises ``NotImplementedError``): the recurrent families,
+and speculative decoding of the moe family or of a model with
+attention biases (``qkv_bias``).
 """
 from __future__ import annotations
 
@@ -411,6 +419,13 @@ class SlotScheduler:
                              f"{cfg.family!r}")
         if cfg.family not in tf.ATTN_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "Queue 1 #12")
+        if sv.spec_k > 0 and (cfg.family == "moe" or cfg.qkv_bias):
+            # a moe draft's per-expert hash seeds and f32 router, capacity
+            # drops under verify, and a draft's attention bias leaves
+            raise _not_ported(
+                "speculative decoding of a moe model" if cfg.family == "moe"
+                else "speculative decoding with attention biases",
+                "Queue 1 #20")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine "

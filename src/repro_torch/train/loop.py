@@ -60,6 +60,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         raise NotImplementedError(
             "FCS gradient compression (train/grad_compress.py) is not "
             "ported yet; see ROADMAP Queue 1 #13")
+    tf._trainable(cfg)
     dev = resolve_device(device)
     params = tf.init_params(cfg, seed=seed, device=dev)
     opt_init, opt_update = make_optimizer(cfg, lr=lr)

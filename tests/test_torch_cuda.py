@@ -6,10 +6,11 @@ kernels), verify rows bitwise decode rows, the speculative engine's
 greedy tokens bitwise the plain engine's (its draft through count_sketch
 and unsketch), the decode chunk replayed as CUDA graphs bitwise its eager
 twin (plain, sketched and speculative engines), the sketched optimizer
-launching sketch_update, and sketched RTPM launching count_sketch and
-unsketch.  Every test carries the
-``cuda`` marker and skips without a card; the file imports nothing of
-JAX, so it runs on the card's machine:
+launching sketch_update, sketched RTPM launching count_sketch and
+unsketch, and the reduced moe configs graphed bitwise their eager twins
+with kernel-path logits within tolerance of the plain path.  Every test
+carries the ``cuda`` marker and skips without a card; the file imports
+nothing of JAX, so it runs on the card's machine:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -914,6 +915,70 @@ def test_graphed_plain_engine_is_its_eager_twin(card):
                     + _stream(cfg, (23, 12, 30), (1, 2), r0 + 10, card)),
         card)
     assert {v.sampled for v in gs._graphs.replays} == {False, True}
+
+
+MOE_ARCHS = ["granite-moe-3b-a800m", "deepseek-moe-16b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_graphed_moe_engine_is_its_eager_twin(card, arch):
+    """Reduced moe configs (deepseek's with a shared expert): the routed
+    decode and prefill chunks, captured, replay bitwise as their eager
+    twins — routing, the integer slot table, the gathers and the f32
+    combine are fixed-shape and atomic-free."""
+    cfg = reduced_config(arch)
+    params = tf.init_params(cfg, seed=7, device=card)
+    serve = dataclasses.replace(cfg.serve, max_batch=3, max_seq=96,
+                                prefill_bucket=16, decode_chunk=4)
+    gs = _graphed_and_eager(
+        cfg, params, serve,
+        lambda r0: (_stream(cfg, (5, 16, 9), (), r0, card)
+                    + _stream(cfg, (23, 12, 30), (1, 2), r0 + 10, card)),
+        card)
+    assert {v.sampled for v in gs._graphs.replays} == {False, True}
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_logits_kernel_vs_plain(card, arch):
+    """Reduced moe decode (rows padded as an engine's) and chunk logits on
+    the card, the kernel path against the plain path on identical caches,
+    the plain path forced onto the kernel path's experts
+    (models/routing.py): 3% of max|logit|, as the CPU model parity tests,
+    and every routing decision the plain path would have made otherwise
+    within 0.1 router logits of a tie."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models.routing import RoutingProbe
+    cfg = reduced_config(arch)
+    params = tf.init_params(cfg, seed=1, device=card)
+    NB, bs, nbs = 16, 8, 6
+    cache = tf.init_paged_cache(cfg, NB, bs, card)
+    tables = torch.full((3, nbs), NB, dtype=torch.int32, device=card)
+    tables[0, :4] = torch.tensor([3, 7, 1, 9], dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 32), device=card,
+                           generator=torch.Generator(card).manual_seed(0))
+    for off in (0, 8, 16):
+        tf.prefill_chunk(params, cache, prompt[:, off:off + 8], tables[0],
+                         off, cfg)
+    pos = torch.tensor([24, 0, 0], dtype=torch.int32, device=card)
+    cur = torch.tensor([[5], [6], [7]], device=card)
+    start = torch.tensor([24], dtype=torch.int32, device=card)
+    clone = lambda c: {"kv": {k: v.clone() for k, v in c["kv"].items()}}
+    out = []
+    routing = None
+    for kernels in (None, False):
+        with RoutingProbe(None if routing is None
+                          else routing.forcing()) as routing:
+            ld, _ = tf.decode_step(params, clone(cache), cur, pos, cfg,
+                                   tables, kernels=kernels, rows=64)
+            y, _ = tf.forward(params, tf.embed_inputs(params, prompt[:, 24:]),
+                              cfg, mode="chunk", cache=clone(cache),
+                              index=start, tables=tables[:1],
+                              kernels=kernels)
+        out.append((ld[:2], ly.logits_fn(params, y, cfg)))
+    assert routing.worst <= 0.1, routing.worst
+    for lk, lp in zip(*out):
+        torch.testing.assert_close(lk, lp, rtol=0,
+                                   atol=0.03 * lp.abs().max().item())
 
 
 def test_graphed_sketched_engine_is_its_eager_twin(card):
