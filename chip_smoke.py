@@ -3,9 +3,11 @@ the sources in this checkout, holds each against its plain version, runs
 the paper's sketched CP decompositions and codecs at the paper's sizes,
 checks the full-width model against its plain path, serves full-width
 gemma-2b (at 512, speculatively, and, sketched, at 8k context, plainly
-and speculatively), trains full-width yi-9b and serves the moe family and
+and speculatively), trains full-width yi-9b, serves the moe family and
 the other attention configs (granite-moe and deepseek-moe at full width
-and depth, four more at full width) through the port's main paths.
+and depth, four more at full width) and the recurrent families
+(xlstm-1.3b and zamba2-2.7b at full width and depth) through the port's
+main paths.
 
     python3 chip_smoke.py
 
@@ -92,7 +94,8 @@ Phases (one line each; any failure exits non-zero):
                  the pump's dispatch and collect spans, the prefill
                  chunks' host launch spans and the rest
      spec      — full-width verify_step at spec_k 4 bitwise 5 decode
-                 steps; then the serve stream (and two whole-prompt
+                 steps; then, at full width cut to SPEC_LAYERS of the 18
+                 layers, the serve stream (and two whole-prompt
                  prefix hits) through a plain engine and three spec
                  engines (truncated draft of depth 2; that draft
                  count-sketch-compressed at ratio 4 with the sketched
@@ -136,6 +139,24 @@ Phases (one line each; any failure exits non-zero):
                  line per config (tok/s, TTFT, chunk ms, captures, the FFN
                  weight bytes a decode step reads); its paged-attention
                  launches are all at shapes phase 2 holds
+  7. recurrent — after the moe models are freed: xlstm-1.3b and
+                 zamba2-2.7b at full width and depth, each config's own
+                 serve geometry (max_batch 8, max_seq 512, decode_chunk
+                 8), 16 requests at once (prompts of 1-448 tokens, 1-4
+                 among them, 32 new each, a quarter sampled), each engine
+                 graphed and as its eager twin, both passes and a decode
+                 window bitwise (tokens, order, emit flags, every slot
+                 state leaf after the window's admissions and at the end,
+                 callers' generator states); one decode capture per
+                 variant used, none on the second pass, no prefill
+                 capture; every request completes; every greedy token
+                 within REC_TOL of the top-1 of a full-sequence recompute
+                 by the port's own forward; decode_step after a prefill
+                 of S tokens within REC_TOL of the (S + 1)-token forward;
+                 none of the six kernels launched; a [recurrent] and a
+                 [profile] line per config (tok/s, TTFT, decode chunk ms,
+                 prefill ms, busy per step, idle shares, state bytes, a
+                 decode step's top kernels)
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -1654,6 +1675,12 @@ def phase_long_serve(cfg, params, dev):
 SERVE = dict(max_batch=8, max_seq=512, kv_block_size=16, prefill_bucket=32,
              decode_chunk=8, prefix_block=16)
 SPEC_K = 4
+# the spec phase's engines serve gemma-2b at full width cut to this many
+# of its 18 layers (its verify check runs all 18): the four engines'
+# eager twins are host-bound, and the cut keeps the whole run, phase
+# recurrent included, well inside its time limit.  No launch shape
+# depends on the depth.
+SPEC_LAYERS = 4
 # name: (serve knobs, per-request spec_k cycled over the stream or None)
 SPEC_ENGINES = {
     "truncated_depth2": (dict(spec_k=SPEC_K, draft_depth=2), None),
@@ -1895,12 +1922,16 @@ def decode_window(sched, reqs):
     (fewer if every request finishes first) under the CUDA-only
     profiler, then the rest drained.  Returns (busy ms, wall ms) per
     decode step of the window and a copy of the pool rows [:, :NB] (both
-    pools of a spec engine) just after the window's prefill."""
+    pools of a spec engine; a recurrent engine's whole slot state) just
+    after the window's prefill."""
     for r in reqs[:sched.serve.max_batch]:
         sched.submit(r)
     sched.admit_pending()
-    pools = [{k: t[:, :sched.num_blocks].clone() for k, t in c["kv"].items()}
-             for c in sched._pools()]
+    if sched.is_kv:
+        pools = [{k: t[:, :sched.num_blocks].clone()
+                  for k, t in c["kv"].items()} for c in sched._pools()]
+    else:
+        pools = [_clone_tree(sched._state.cache)]
 
     def rounds():
         n = 0
@@ -2001,6 +2032,20 @@ def tail_gather_ms(sched):
     return ev[0].elapsed_time(ev[1]) / 20
 
 
+def flags_equal(glog, elog):
+    """Every chunk's emit flags, and the tokens they flag, equal."""
+    return len(glog) == len(elog) and all(
+        np.array_equal(x[1], y[1])
+        and np.array_equal(x[0][x[1] > 0], y[0][y[1] > 0])
+        for x, y in zip(glog, elog))
+
+
+def gens_equal(ggens, egens):
+    """The callers' generator states equal."""
+    return len(ggens) == len(egens) and all(
+        torch.equal(a, b) for a, b in zip(ggens, egens))
+
+
 def twin_differences(g, e):
     """What differs between two runs of one stream (``run_twin``), each
     held bitwise: tokens of both passes, completion order, every chunk's
@@ -2014,11 +2059,7 @@ def twin_differences(g, e):
         if a.keys() != b.keys() or any(not np.array_equal(a[r], b[r])
                                        for r in a):
             bad.append(f"tokens of pass {k + 1}")
-    flags = len(g["log"]) == len(e["log"]) and all(
-        np.array_equal(x[1], y[1])
-        and np.array_equal(x[0][x[1] > 0], y[0][y[1] > 0])
-        for x, y in zip(g["log"], e["log"]))
-    if not flags:
+    if not flags_equal(g["log"], e["log"]):
         bad.append("emit flags or flagged tokens")
     if g["books"] != e["books"]:
         bad.append("allocator books")
@@ -2038,8 +2079,7 @@ def twin_differences(g, e):
     if g["launches"] != e["launches"] or \
             g["launches_all"] != e["launches_all"]:
         bad.append(f"launches {g['launches']} / {e['launches']}")
-    if len(g["gens"]) != len(e["gens"]) or not all(
-            torch.equal(a, b) for a, b in zip(g["gens"], e["gens"])):
+    if not gens_equal(g["gens"], e["gens"]):
         bad.append("callers' generator states")
     return bad
 
@@ -2297,10 +2337,10 @@ def observed_twin(what, make_front, reqs, dev, observe, g, e):
 
 
 def phase_spec(cfg, params, dev):
-    """Speculative decoding at full width: the verify contract, then the
-    serve phase's 16-request stream (and two requests whose whole prompt
-    is a cached prefix) through a plain engine and three spec
-    engines (truncated draft; count-sketch-compressed draft with the
+    """Speculative decoding at full width: the verify contract at full
+    depth, then, at SPEC_LAYERS layers, the serve phase's 16-request
+    stream (and two requests whose whole prompt is a cached prefix)
+    through a plain engine and three spec engines (truncated draft; count-sketch-compressed draft with the
     sketched head; per-request spec_k 0 / 4), each graphed and as its
     eager twin (``twin_streams``: timed, then again under a CUDA-only
     profiler for its idle share, then a decode window).  Every greedy
@@ -2311,6 +2351,8 @@ def phase_spec(cfg, params, dev):
     from repro_torch.models.draft import make_draft
     from repro_torch.serve.frontend import AsyncServeEngine
     verify_vs_decode(cfg, params, dev)
+    cfg = dataclasses.replace(cfg, num_layers=SPEC_LAYERS)
+    params = dict(params, blocks=params["blocks"][:SPEC_LAYERS])
     base = dataclasses.replace(cfg.serve, **SERVE)
     from repro_torch.serve.scheduler import Request
     reqs = make_request_stream(cfg, np.random.RandomState(SEED + 2), 16, 3,
@@ -2989,6 +3031,396 @@ def phase_moe(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the recurrent families on the slot engine
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("xlstm-1.3b", "zamba2-2.7b")
+# prompt lengths of the recurrent stream (shuffled by the seed): the
+# conv-stash edges 1-4 (a 1-token prompt prefills nothing and zeroes its
+# slot), then up to 448, which with 32 new tokens fills max_seq 512
+REC_PROMPTS = (1, 2, 3, 4, 7, 16, 31, 64, 96, 128, 192, 256, 300, 352, 400,
+               448)
+REC_NEW = 32
+# the lengths S at which REC_GAP_STEPS teacher-forced decode_steps after
+# a prefill of S tokens (S = 0: from a zero state) are held to the
+# forward (eager steps: ~0.1 s each at full width)
+REC_CHECK_LENS = (0, 7, 63, 447)
+REC_GAP_STEPS = 8
+# How far the served (decode) form may sit from the full-sequence forward,
+# % of the forward's max|logit|, over REC_NEW tokens (which bounds the
+# gap over the first REC_GAP_STEPS).  Measured by
+# tools/recurrent_drift.py at these lengths on an H100 (PERF.md section
+# 6, run BS): in f32 the two forms agree within 0.534% (xlstm-1.3b) and
+# 0.0014% (zamba2-2.7b); in bf16 zamba2's sit 3.1-5.4% apart at the first
+# token and 8.3% over 32, while xlstm-1.3b's random-init bf16 logits move
+# by 66-106% of max|logit| from f32 (and between the forms): its mLSTM
+# normaliser max(|q.n|, exp(-m)) divides by near-cancelling sums, so a
+# rounding difference flips whole rows.  A bf16 recompute therefore
+# cannot tell a right xlstm token from a wrong one; its serve path is
+# held to an f32 recompute through an f32 engine (same code, f32 weights
+# and state), and the bf16 engine to its eager twin bitwise.  Each
+# tolerance is about three times the largest reading, rounded up.
+REC_TOL_F32 = 1.5
+REC_TOL_BF16 = {"xlstm-1.3b": None, "zamba2-2.7b": 25.0}
+
+
+def recurrent_stream(cfg):
+    """The phase's 16 requests: REC_PROMPTS in a seeded order, REC_NEW new
+    tokens each, every fourth sampled (temperature 0.8, top-k 8)."""
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.RandomState(SEED + 41)
+    lens = rng.permutation(REC_PROMPTS)
+    reqs = []
+    for i, n in enumerate(lens):
+        sampled = i % 4 == 3
+        reqs.append(Request(
+            rid=i, tokens=rng.randint(0, cfg.vocab_size, int(n)).astype(
+                np.int32), max_new=REC_NEW,
+            temperature=0.8 if sampled else 0.0, top_k=8 if sampled else 0,
+            seed=int(rng.randint(1 << 30)) if sampled else None))
+    return reqs
+
+
+def bits(t):
+    """``t``'s bits as integers, so a bitwise comparison treats NaN like
+    any other pattern (an idle slot decodes junk state)."""
+    return t.view({4: torch.int32, 2: torch.int16, 8: torch.int64,
+                   1: torch.uint8}[t.element_size()])
+
+
+def states_equal(a, b):
+    from repro_torch.models import transformer as tf
+    same = []
+    tf.tree_map(lambda x, y: same.append(
+        x.dtype == y.dtype and torch.equal(bits(x), bits(y))), a, b)
+    return all(same)
+
+
+def run_recurrent(front, reqs, dev, profiled):
+    """A recurrent engine through the phase's stream with fresh caller
+    generators: the first pass timed; with ``profiled`` (the graphed
+    engine) a second pass under the CUDA-only profiler and a decode
+    window (``decode_window``: max_batch requests admitted, then profiled
+    rounds).  What the graphed engine and its eager twin are held equal
+    on is taken after the first pass."""
+    sched = front.scheduler
+    log = chunk_log(sched)
+    first = with_generators(reqs, dev)
+    gens = [r.generator for r in first if r.generator is not None]
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    done, ttfts, wall, _ = drive_stream(front, first, False)
+    torch.cuda.synchronize()
+    out = dict(
+        sched=sched, done=done, ttfts=ttfts, wall=wall,
+        peak=torch.cuda.max_memory_allocated(), stats=sched.stats(),
+        chunk=float(np.mean(sched.chunk_ms)), chunks=len(sched.chunk_ms),
+        prefill_ms=sched.prefill_chunk_ms(),
+        caps=[sched.decode_compilations],
+        pcaps=[sched.prefill_compilations], log=list(log),
+        tokens={c.rid: c.tokens for c in done},
+        order=[c.rid for c in sched.completed],
+        gens=[t.get_state() for t in gens],
+        state=_clone_tree(sched._state.cache))
+    if profiled:
+        second = with_generators(reqs, dev)
+        _, _, twall, busy = drive_stream(front, second, True)
+        out["caps"].append(sched.decode_compilations)
+        out["pcaps"].append(sched.prefill_compilations)
+        window = with_generators([dataclasses.replace(r, rid=r.rid + 10_000)
+                                  for r in reqs], dev)
+        out["busy_step"], out["wall_step"], _ = decode_window(sched, window)
+        out["idle"] = 1 - busy / twall
+        out["caps"].append(sched.decode_compilations)
+    torch.cuda.synchronize()
+    g = sched._graphs
+    out.update(used=0 if g is None else len(g.replays),
+               variants=[] if g is None else g.variants(),
+               pool=0 if g is None else g.pool_bytes(),
+               launches={k: c.launches for k, c in counters.items()})
+    return out
+
+
+def recurrent_differences(g, e):
+    """What differs between the graphed and the eager engine's first pass
+    of one stream: tokens, completion order, every chunk's emit flags and
+    the tokens they flag, every slot state leaf at the end (bitwise; every
+    slot has held a request by then, so neither the graphed engine's
+    warm-up nor an idle slot's junk can differ), the callers' generator
+    states."""
+    bad = []
+    if g["order"] != e["order"]:
+        bad.append("completion order")
+    a, b = g["tokens"], e["tokens"]
+    if a.keys() != b.keys() or any(not np.array_equal(a[r], b[r])
+                                   for r in a):
+        bad.append("tokens")
+    if not flags_equal(g["log"], e["log"]):
+        bad.append("emit flags or flagged tokens")
+    if not states_equal(g["state"], e["state"]):
+        bad.append("slot state at the end")
+    if not gens_equal(g["gens"], e["gens"]):
+        bad.append("callers' generator states")
+    return bad
+
+
+def decode_vs_forward(params, cfg, seq, S, dtype):
+    """The recurrent families' two forms over seq's tokens S, S + 1, ...:
+    (the full-sequence forward's logits at those positions, teacher-forced
+    ``decode_step``s' from a ``prefill`` of the first S tokens, or from a
+    zero state when S = 0), each (B, T, V) over the real vocab, f32.
+    ``dtype``: the slot state's."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    B, T = seq.shape[0], seq.shape[1] - S
+    with torch.no_grad():
+        y, _ = tf.forward(params, tf.embed_inputs(params, seq), cfg)
+        fwd = ly.logits_fn(params, y[:, S:], cfg)
+        cache = tf.init_cache(cfg, B, S + T, seq.device, dtype)
+        if S > 0:
+            _, pre = tf.prefill(params, seq[:, :S], cfg)
+            tf.tree_map(lambda dst, src: dst[:, :, :src.shape[2]].copy_(src),
+                        cache, pre)
+        dec = []
+        for t in range(S, S + T):
+            index = torch.full((B,), t, dtype=torch.int32, device=seq.device)
+            lg, _ = tf.decode_step(params, cache, seq[:, t:t + 1], index, cfg)
+            dec.append(lg)
+    V = cfg.vocab_size
+    return fwd[..., :V].float(), torch.stack(dec, 1)[..., :V].float()
+
+
+def form_gaps(params, cfg, dev, dtype, tol_pct, what):
+    """decode_vs_forward over REC_GAP_STEPS tokens at each REC_CHECK_LENS
+    S, four sequences each: the gap as % of the forward's max|logit|,
+    failing past ``tol_pct`` (None: reported only).  Returns a
+    summary."""
+    rng = np.random.RandomState(SEED + 31)
+    gaps = []
+    for S in REC_CHECK_LENS:
+        seq = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                          (4, S + REC_GAP_STEPS)), device=dev)
+        fwd, dec = decode_vs_forward(params, cfg, seq, S, dtype)
+        gap = 100 * (dec - fwd).abs().max().item() / fwd.abs().max().item()
+        if not torch.isfinite(dec).all() or (tol_pct is not None
+                                             and gap > tol_pct):
+            fail(f"{cfg.name}: {what} decode_steps after a prefill of {S} "
+                 f"tokens sit {gap:.4f}% of max|logit| from the forward "
+                 f"(tol {tol_pct}%)")
+        gaps.append(f"S {S} {gap:.4f}%")
+    return ", ".join(gaps)
+
+
+def recurrent_recompute(params, cfg, dev, reqs, done, tol_pct):
+    """Every served greedy token against the port's own full-sequence
+    forward over the served context (prompt and tokens so far, one padded
+    batch; trailing pad cannot reach earlier positions): its logit may
+    fall at most ``tol_pct`` % of the row's max|logit| below the
+    recompute's top-1 (a tie within tolerance passes; None: reported
+    only).  Returns (top-1 agreements, tokens, worst shortfall in % of
+    max|logit|)."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    byrid = {r.rid: r for r in reqs}
+    greedy = [c for c in done if not byrid[c.rid].temperature]
+    seqs = [np.concatenate([byrid[c.rid].tokens, c.tokens[:-1]])
+            for c in greedy]
+    batch = np.zeros((len(seqs), max(map(len, seqs))), np.int64)
+    for i, q in enumerate(seqs):
+        batch[i, :len(q)] = q
+    with torch.no_grad():
+        y, _ = tf.forward(params, tf.embed_inputs(
+            params, torch.as_tensor(batch, device=dev)), cfg)
+    exact = total = 0
+    worst = 0.0
+    for i, c in enumerate(greedy):
+        S = len(byrid[c.rid].tokens)
+        with torch.no_grad():
+            lg = ly.logits_fn(params, y[i:i + 1, S - 1:S - 1 + len(c.tokens)],
+                              cfg)[0, :, :cfg.vocab_size].float()
+        got = lg.gather(1, torch.as_tensor(c.tokens, device=dev).long()[
+            :, None])[:, 0]
+        short = 100 * (lg.max(-1).values - got).max().item() / \
+            lg.abs().max().item()
+        if tol_pct is not None and short > tol_pct:
+            fail(f"{cfg.name}: rid {c.rid} (prompt {S}) served a token "
+                 f"{short:.4f}% of max|logit| below the recompute's top-1 "
+                 f"(tol {tol_pct}%)")
+        worst = max(worst, short)
+        exact += int((lg.argmax(-1).cpu().numpy() == c.tokens).sum())
+        total += len(c.tokens)
+    return exact, total, worst
+
+
+def phase_recurrent(dev):
+    """The recurrent families at full width and depth on the slot engine:
+    a graphed engine (two passes and a decode window) and its eager twin
+    (one pass), bitwise on the first pass (tokens, order, emit flags,
+    slot state, generator states); one decode capture per variant used,
+    none more after, no prefill capture; every request completes; none
+    of the six kernels launches.  The serve path's function is held to
+    the full-sequence forward in f32 (an f32 engine's greedy tokens, and
+    decode after prefill, within REC_TOL_F32) and, where bf16 allows
+    (REC_TOL_BF16), in bf16 too."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.frontend import AsyncServeEngine
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    for arch in RECURRENT:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        params = tf.init_params(cfg, seed=SEED, device=dev)
+        serve = cfg.serve
+        B = serve.max_batch
+        reqs = recurrent_stream(cfg)
+        secs = [time.perf_counter()]
+        g = run_recurrent(AsyncServeEngine(cfg, params, serve=serve,
+                                           device=dev), reqs, dev, True)
+        e = run_recurrent(AsyncServeEngine(cfg, params, serve=serve,
+                                           device=dev, graphs=False),
+                          reqs, dev, False)
+        secs.append(time.perf_counter())
+        bad = recurrent_differences(g, e)
+        if g["caps"] != [g["used"]] * 3 or not 1 <= g["used"] <= 2 \
+                or e["caps"] != [0]:
+            bad.append(f"decode captures {g['caps']} (eager {e['caps']}) "
+                       f"for {g['used']} variants used")
+        if g["pcaps"] != [0, 0] or e["pcaps"] != [0]:
+            bad.append(f"prefill captures {g['pcaps']} / {e['pcaps']}")
+        ok = [c for c in g["done"] if c.status == "ok"
+              and len(c.tokens) == REC_NEW
+              and ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()]
+        if len(ok) != len(reqs):
+            bad.append(f"completed ok {len(ok)}/{len(reqs)}")
+        launched = {k: n for k, n in {**g["launches"],
+                                      **e["launches"]}.items() if n}
+        if launched:
+            bad.append(f"kernels launched on a recurrent path: {launched}")
+        sched = g["sched"]
+        rows = tf.tree_map(lambda t: tuple(t.shape), sched._state.cache)
+        padded = [t.shape for t in _leaves(sched._state.cache)
+                  if t.shape[1] != B]
+        if padded:
+            bad.append(f"state leaves not of max_batch {B} rows: {padded}")
+        if bad:
+            fail(f"{arch}: the graphed engine differs from its eager twin "
+                 f"or the stream failed: " + ", ".join(bad))
+        state_bytes = sched.kv_cache_bytes()
+        # the eager twin's figures, before it is freed
+        e_tok_s = sum(len(c.tokens) for c in e["done"]) / e["wall"]
+        e_ttft = np.percentile(e["ttfts"], 50) * 1e3
+        e_chunk = e["chunk"]
+        e_pf50 = np.percentile(e["prefill_ms"], 50)
+        e_pfmax = max(e["prefill_ms"])
+        tol16 = REC_TOL_BF16[arch]
+        b16 = recurrent_recompute(params, cfg, dev, reqs, g["done"], tol16)
+        gaps16 = ("not run (tools/recurrent_drift.py measures them)"
+                  if tol16 is None else
+                  form_gaps(params, cfg, dev, torch.bfloat16, tol16, "bf16"))
+        rng = np.random.RandomState(SEED + 51)
+        state = tf.init_cache(cfg, B, serve.max_seq, dev)
+        cur = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, 1)),
+                              device=dev)
+        pos = torch.as_tensor(rng.randint(0, 400, B).astype(np.int32),
+                              device=dev)
+        busy, by_name, wall = device_ms(
+            lambda: tf.decode_step(params, state, cur, pos, cfg), 3, flush)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        del g["sched"], e, sched, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs.append(time.perf_counter())
+        # the same path in f32: an f32 engine (graphed) serves max_batch
+        # of the greedy requests, one wave, held to the f32 forward
+        p32 = tf.tree_map(lambda t: t.float(), params)
+        del params
+        greedy = [r for r in reqs if not r.temperature][:B]
+        f = run_recurrent(AsyncServeEngine(cfg, p32, serve=serve,
+                                           device=dev), greedy, dev, False)
+        if f["caps"] != [1] or len(f["done"]) != len(greedy):
+            fail(f"{arch}: f32 engine captures {f['caps']}, completed "
+                 f"{len(f['done'])}/{len(greedy)}")
+        b32 = recurrent_recompute(p32, cfg, dev, greedy, f["done"],
+                                  REC_TOL_F32)
+        gaps32 = form_gaps(p32, cfg, dev, torch.float32, REC_TOL_F32, "f32")
+        del f, p32
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs.append(time.perf_counter())
+
+        ntok = sum(len(c.tokens) for c in g["done"])
+        tol_txt = ("reported only: bf16 cannot tell" if tol16 is None
+                   else f"tol {tol16}%")
+        print(f"[recurrent] {arch} full width and depth: "
+              f"{cfg.param_count()} params, {len(reqs)} requests (prompts "
+              f"{min(REC_PROMPTS)}-{max(REC_PROMPTS)}, "
+              f"{sum(1 for r in reqs if r.temperature)} sampled, {REC_NEW} "
+              f"new each), max_batch {B}, max_seq {serve.max_seq}, "
+              f"decode_chunk {serve.decode_chunk}; graphed (eager twin): "
+              f"{ntok / g['wall']:.2f} "
+              f"({e_tok_s:.2f}) tok/s, "
+              f"TTFT p50 {np.percentile(g['ttfts'], 50) * 1e3:.2f} "
+              f"({e_ttft:.2f}) ms, decode chunk {g['chunk']:.3f} "
+              f"({e_chunk:.3f}) ms (mean of {g['chunks']}), prefill ms p50 "
+              f"{np.percentile(g['prefill_ms'], 50):.3f} ({e_pf50:.3f}), max "
+              f"{max(g['prefill_ms']):.3f} ({e_pfmax:.3f}) "
+              f"({len(g['prefill_ms'])} eager prefills of S - 1 tokens); "
+              f"decode captures {g['caps']} after each pass and the window "
+              f"({', '.join(v.name for v in g['variants'])}), prefill "
+              f"captures 0, graphs' pool {g['pool']} B; slot state "
+              f"{state_bytes} B, leaves {rows}; peak allocated {g['peak']} "
+              f"B; bitwise equal, first pass: tokens of {len(g['order'])} "
+              f"requests, emit flags of {len(g['log'])} chunks, completion "
+              f"order, every state leaf, {len(g['gens'])} callers' "
+              f"generator states; none of the six kernels launched; "
+              f"{card()}")
+        print(f"[recurrent] {arch} oracles: f32 engine's greedy tokens vs "
+              f"the f32 recompute {b32[0]}/{b32[1]} its top-1, worst "
+              f"shortfall {b32[2]:.4f}% of max|logit| (tol {REC_TOL_F32}%); "
+              f"f32 decode after prefill vs forward over {REC_GAP_STEPS} "
+              f"tokens: "
+              f"{gaps32} (tol {REC_TOL_F32}%); bf16 engine's greedy tokens "
+              f"vs the bf16 recompute {b16[0]}/{b16[1]} its top-1, worst "
+              f"shortfall {b16[2]:.4f}% ({tol_txt}); bf16 decode after "
+              f"prefill vs forward: {gaps16} ({tol_txt}); "
+              f"{time.perf_counter() - t0:.1f}s (init {secs[0] - t0:.1f}, "
+              f"streams {secs[1] - secs[0]:.1f}, bf16 checks "
+              f"{secs[2] - secs[1]:.1f}, f32 engine and checks "
+              f"{secs[3] - secs[2]:.1f}); {card()}")
+        print(f"[profile] {arch}: graphed, busy per decode step "
+              f"{g['busy_step']:.4f} ms (wall {g['wall_step']:.4f} ms, "
+              f"window idle "
+              f"{100 * (1 - g['busy_step'] / g['wall_step']):.1f}% over up "
+              f"to {WINDOW_CHUNKS} chunks, {B} slots live), stream idle "
+              f"{100 * g['idle']:.1f}% (second pass); one eager "
+              f"decode_step of {B} slots, L2 flushed: wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms; weights {wbytes} B + state "
+              f"{state_bytes} B (>= "
+              f"{(wbytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"to read both and write the state at the memory rate); top "
+              f"kernels " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top)
+              + f"; {card()}", flush=True)
+        del g
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    from repro_torch.models import transformer as tf
+    out = []
+    tf.tree_map(out.append, tree)
+    return out
+
+
+def _clone_tree(tree):
+    from repro_torch.models import transformer as tf
+    return tf.tree_map(torch.clone, tree)
+
+
 def main() -> None:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3063,6 +3495,9 @@ def main() -> None:
         moe_launches = phase_moe(dev)
     shapes.check("phase moe")
     lap("phase moe")
+    held("moe, its models freed")
+    phase_recurrent(dev)
+    lap("phase recurrent")
 
     d = rows["decode"]
     sk = sk_rows[SKETCH_MAIN]

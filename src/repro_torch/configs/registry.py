@@ -1,8 +1,6 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution.
-
-The attention families (dense, moe, audio, vlm) are ported; the
-recurrent families of the JAX package raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+"""Architecture registry of the port: ``--arch <id>`` resolution, the
+JAX package's ten configs: the attention families (dense, moe, audio,
+vlm) and the recurrent ones (ssm: xlstm-1.3b; hybrid: zamba2-2.7b).
 """
 from __future__ import annotations
 
@@ -20,23 +18,15 @@ _ARCH_MODULES = {
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "internvl2-2b": "repro_torch.configs.internvl2_2b",
-}
-
-# arch id -> the ROADMAP Queue 1 item that ports its family
-_NOT_PORTED = {
-    "xlstm-1.3b": "Queue 1 #12 (recurrent families)",
-    "zamba2-2.7b": "Queue 1 #12 (recurrent families)",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP "
-            f"{_NOT_PORTED[arch]}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
@@ -62,10 +52,22 @@ def reduced_config(arch: str) -> ModelConfig:
         head_dim=16,
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=512,
-        num_layers=2,
     )
     if cfg.family == "moe":
+        changes["num_layers"] = 2
         changes["moe"] = dataclasses.replace(
             cfg.moe, num_experts=8, top_k=2, expert_d_ff=64, group_size=32,
             num_shared_experts=min(cfg.moe.num_shared_experts, 1))
+    elif cfg.family == "ssm":
+        # one whole xLSTM[7:1] group
+        changes["num_layers"] = cfg.xlstm.m_per_group + cfg.xlstm.s_per_group
+        changes["num_heads"] = 2
+        changes["num_kv_heads"] = 2
+    elif cfg.family == "hybrid":
+        # two groups, so both shared blocks apply
+        changes["num_layers"] = 2 * cfg.hybrid.mamba_per_group
+        changes["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
+                                             chunk=16)
+    else:
+        changes["num_layers"] = 2
     return dataclasses.replace(cfg, **changes)

@@ -31,6 +31,10 @@ the exit summary then has a ``speculative:`` line.  E.g.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --spec-k 3 --draft-depth 1 --draft-sketch-ratio 2
 
+The recurrent families serve through the same engine: ``--arch
+xlstm-1.3b`` or ``--arch zamba2-2.7b`` (their slot state is prefilled at
+each prompt's exact length; no prefix cache, sketch or speculation).
+
 Observability: ``--trace-out trace.json`` records the request lifecycle
 and the pump's host phases as Chrome trace-event JSON (open it in
 Perfetto), ``--metrics-jsonl metrics.jsonl`` streams windowed metrics
@@ -266,11 +270,16 @@ def main(argv=None):
     statuses = {}
     for c in done:
         statuses[c.status] = statuses.get(c.status, 0) + 1
-    kernel = (sched.use_kernels if sched.use_kernels is not None
-              else dev.type == "cuda")
-    print(f"statuses: {statuses}; paged attention: "
-          f"{'CUDA kernel' if kernel else 'plain version'} "
-          f"(--paged-kernels {args.paged_kernels})")
+    if sched.is_kv:
+        kernel = (sched.use_kernels if sched.use_kernels is not None
+                  else dev.type == "cuda")
+        print(f"statuses: {statuses}; paged attention: "
+              f"{'CUDA kernel' if kernel else 'plain version'} "
+              f"(--paged-kernels {args.paged_kernels})")
+    else:
+        print(f"statuses: {statuses}")
+        print(f"recurrent family ({cfg.family}): slot-scheduled state, "
+              f"prefix cache n/a; state {sched.kv_cache_bytes()} B")
     if sched.sketch_on:
         print(f"kv sketch: window={serve.kv_sketch_window} rows "
               f"(ratio={serve.kv_sketch_ratio}, rows={serve.kv_sketch_rows}"

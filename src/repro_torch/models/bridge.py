@@ -15,6 +15,12 @@ router and stacked experts with them).
 (``AdamWState`` or ``SketchedAdamWState``, converted the same way) into
 the port's, so a run of the reference can be continued by the port.
 
+For the recurrent families the stacked leaves of each block kind
+(``mlstm`` / ``slstm``; ``mamba`` and the stacked ``shared`` blocks)
+split into per-layer dicts the same way.  ``state_from_reference``
+carries a recurrent family's slot state (``init_cache`` or ``prefill``
+output) into the port's layout.
+
 ``tail_from_reference`` carries a sketched engine's tail tables
 (the reference's ``cache["tail"]``, {"k", "v"} of (L, B, Z, C, K, hd))
 into the port's stacked (2, L, B, Z, C, K, hd) layout.
@@ -34,7 +40,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hashes import ModeHash, mode_hash_from_coeffs
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import Params, _check_family
+from repro_torch.models.transformer import (RECURRENT_FAMILIES, Params,
+                                            _check_family, tree_map)
 from repro_torch.sketch.csvec import CSVec
 from repro_torch.sketch.optimizer import (DenseMoments, SketchedAdamWState,
                                           SketchedMoments)
@@ -59,6 +66,24 @@ def from_reference(tree: Any, cfg: ModelConfig,
     _check_family(cfg)
     dev = resolve_device(device)
     blocks = tree["blocks"]
+    top = {"embed": to_torch(tree["embed"], dev),
+           "head": (None if tree.get("head") is None
+                    else to_torch(tree["head"], dev)),
+           "final_norm": to_torch(tree["final_norm"], dev)}
+    if cfg.family in RECURRENT_FAMILIES:
+        def pick(node: Any, i: int) -> Any:
+            if isinstance(node, dict):
+                return {k: pick(v, i) for k, v in node.items()}
+            return to_torch(node[i], dev)
+
+        def depth(node: Any) -> int:
+            while isinstance(node, dict):
+                node = next(iter(node.values()))
+            return len(node)
+
+        return {**top, "blocks": {
+            kind: [pick(sub, i) for i in range(depth(sub))]
+            for kind, sub in blocks.items()}}
     L = cfg.num_layers
     # the family's FFN subtree: the experts and the f32 router of the moe
     # family, the GLU of the others
@@ -68,10 +93,7 @@ def from_reference(tree: Any, cfg: ModelConfig,
         return {k: to_torch(v[i], dev) for k, v in sub.items()}
 
     return {
-        "embed": to_torch(tree["embed"], dev),
-        "head": (None if tree.get("head") is None
-                 else to_torch(tree["head"], dev)),
-        "final_norm": to_torch(tree["final_norm"], dev),
+        **top,
         "blocks": [{"attn": layer(blocks["attn"], i),
                     ffn: layer(blocks[ffn], i),
                     "norm1": to_torch(blocks["norm1"][i], dev),
@@ -125,6 +147,15 @@ def opt_state_from_reference(state: Any, cfg: ModelConfig,
             moments.append(DenseMoments(m=pieces(mo.m, path),
                                         v=pieces(mo.v, path)))
     return SketchedAdamWState(step=step, moments=moments)
+
+
+def state_from_reference(state: Any, device: DeviceLike = None) -> dict:
+    """A recurrent family's slot state from the reference (numpy leaves of
+    ``init_cache`` or ``prefill`` output: ``jax.tree.map(np.asarray,
+    cache)``) -> the port's, exactly; both stack every leaf on a leading
+    layer (or group) axis, so only the arrays change."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: to_torch(a, dev), state)
 
 
 def tail_from_reference(tail: Any, device: DeviceLike = None

@@ -1,5 +1,6 @@
 """Shared layers of the port (``repro/models/layers.py``): norms, RoPE,
 GQA/MQA attention over the paged KV pool (decode and chunked prefill),
+over a dense per-slot cache (the hybrid family's decode),
 full-sequence causal attention (the training path), the GLU FFN,
 embeddings, the LM head (dense, tied or FCS-sketched) and the training
 loss.
@@ -190,6 +191,45 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if x.ndim == 2:
         return pad_rows(o.reshape(B * S, H * hd), x.shape[0]) @ p["wo"]
     return o.reshape(B, S, H * hd) @ p["wo"]
+
+
+def init_kv_cache(cfg: ModelConfig, n: int, batch: int, max_seq: int,
+                  dev: torch.device,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
+    """n stacked dense slot caches {"k", "v"}: (n, batch, max_seq, K, hd)
+    zeros, one row per slot and position (the hybrid family's shared
+    attention, one cache per application of a shared block)."""
+    shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def dense_decode_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           index: torch.Tensor) -> torch.Tensor:
+    """Single-token decode against a dense per-slot cache (the reference's
+    ``decode_attention`` with ``tables=None`` and a (B,) ``index``).
+    x: (B, 1, d); cache_k / cache_v: (B, S_max, K, hd), updated in place:
+    slot b writes its new row at its own ``index[b]`` and attends keys
+    ``arange(S_max) <= index[b]``, f32 scores and softmax.  Rows above
+    ``index[b]`` (an earlier occupant's, or never written) are masked.
+    Returns (B, 1, d)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    q, kn, vn = _project_qkv_rope(p, x, cfg, index[:, None])
+    slots = torch.arange(B, device=x.device)
+    cache_k.index_put_((slots, index.long()), kn[:, 0].to(cache_k.dtype))
+    cache_v.index_put_((slots, index.long()), vn[:, 0].to(cache_v.dtype))
+    S = cache_k.shape[1]
+    qg = q.reshape(B, K, H // K, hd)                          # Sq = 1
+    s = torch.einsum("bkrh,bskh->bkrs", qg, cache_k).float() * (
+        1.0 / math.sqrt(hd))
+    visible = torch.arange(S, device=x.device)[None, :] <= index[:, None]
+    s = s.masked_fill(~visible[:, None, None, :], -1e30)
+    pr = torch.softmax(s, dim=-1).to(cache_v.dtype)
+    o = torch.einsum("bkrs,bskh->bkrh", pr, cache_v)
+    return o.reshape(B, 1, H * hd) @ p["wo"]
 
 
 def causal_attention(p: dict, x: torch.Tensor,

@@ -1,10 +1,13 @@
-"""Attention model assembly (``repro/models/transformer.py``, the
-attention stack of the dense, moe, audio and vlm families): parameter
-init, the paged slot cache, the full-sequence (training) / decode /
-verify / chunked-prefill forward paths, and the training loss.  The
-audio and vlm families are the dense stack behind a frontend stub whose
-precomputed embeddings only their training batches carry; they serve
-token ids like the dense family.
+"""Model assembly (``repro/models/transformer.py``): parameter init,
+slot caches, the full-sequence (training) / prefill / decode / verify /
+chunked-prefill forward paths and the training loss, for the attention
+stack of the dense, moe, audio and vlm families and for the recurrent
+families, ssm (xLSTM: groups of mLSTM blocks then sLSTM blocks) and
+hybrid (Zamba2: groups of Mamba-2 blocks, each followed by one of the
+shared attention blocks, round-robin; models/ssm.py).  The audio and vlm
+families are the dense stack behind a frontend stub whose precomputed
+embeddings only their training batches carry; they serve token ids like
+the dense family.
 
 Parameter layout (plain dicts of tensors; ``models/bridge.py`` builds the
 same layout from the JAX package's parameter tree):
@@ -16,17 +19,30 @@ same layout from the JAX package's parameter tree):
                 "moe": models/moe.py:init_moe), "norm1": (d,),
                 "norm2": (d,)}, ... ]}
 
+and for the recurrent families "blocks" is a dict of per-layer lists:
+{"mlstm": [...], "slstm": [...]} (ssm) or {"mamba": [...], "shared":
+[ {"attn", "ffn", "norm1", "norm2"}, ... ]} (hybrid).
+
 The reference stacks every block parameter as one (L, ...) leaf; the
 port keeps L per-layer tensors.  ``param_leaves`` lists the reference's
 leaves in its flatten order (sorted keys; a tied ``None`` head drops out)
 with each stacked leaf as its L per-layer pieces — the order and grouping
 the optimizers' state follows.
 
-Paged cache: {"kv": {"k": (L, NB + 1, bs, K, hd), "v": ...}} — the pool
-plus one write-sink block per layer (see models/layers.py) — and, for a
-sketched long-context engine, "tail": the (2, L, B, Z, C, K, hd) f32 FCS
-tail tables (serve/kv_sketch.py).  The decode and prefill paths update
-the pool in place and only read the tail.
+Paged cache (attention families): {"kv": {"k": (L, NB + 1, bs, K, hd),
+"v": ...}} — the pool plus one write-sink block per layer (see
+models/layers.py) — and, for a sketched long-context engine, "tail": the
+(2, L, B, Z, C, K, hd) f32 FCS tail tables (serve/kv_sketch.py).  The
+decode and prefill paths update the pool in place and only read the
+tail.
+
+Slot cache of the recurrent families (``init_cache``), as the
+reference's: ssm {"mlstm": {"C", "n", "m", "conv"}, "slstm": {"c", "n",
+"h", "m"}}, hybrid {"mamba": {"ssm", "conv_x", "conv_BC"}, "shared_kv":
+{"k", "v"}: (G, B, max_seq, K, hd), one dense cache per group}, every
+leaf stacked on a leading layer (or group) axis.  ``decode_step``
+advances it in place; ``prefill`` returns a new one of batch B whose
+shared KV holds the prompt's S rows.
 """
 from __future__ import annotations
 
@@ -40,10 +56,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models import moe
+from repro_torch.models import ssm
 
 Params = Dict[str, Any]
 
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -76,28 +94,33 @@ def param_leaves(params: Params) -> List[Tuple[str, List[torch.Tensor]]]:
         else:
             out.append((path, [node]))
 
+    def stacked(nodes: List[Any], path: str) -> None:
+        if isinstance(nodes[0], dict):
+            for kk in sorted(nodes[0]):
+                stacked([n[kk] for n in nodes], f"{path}/{kk}")
+        else:
+            out.append((path, list(nodes)))
+
     for k in sorted(params):
         if k != "blocks":
             walk(params[k], k)
-            continue
-        blocks = params["blocks"]
-
-        def stacked(nodes: List[Any], path: str) -> None:
-            if isinstance(nodes[0], dict):
-                for kk in sorted(nodes[0]):
-                    stacked([n[kk] for n in nodes], f"{path}/{kk}")
-            else:
-                out.append((path, list(nodes)))
-
-        stacked(blocks, "blocks")
+        elif isinstance(params[k], dict):        # the recurrent families
+            for kk in sorted(params[k]):
+                stacked(params[k][kk], f"blocks/{kk}")
+        else:
+            stacked(params[k], "blocks")
     return out
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ATTN_FAMILIES + RECURRENT_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _paged_family(cfg: ModelConfig) -> None:
     if cfg.family not in ATTN_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP Queue 1 "
-            f"#12")
+        raise ValueError(f"paged KV needs an attention family, got "
+                         f"{cfg.family!r}")
 
 
 def _trainable(cfg: ModelConfig) -> None:
@@ -105,6 +128,11 @@ def _trainable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "training the moe family (the router's aux loss and its "
             "backward) is not ported yet; see ROADMAP Queue 1 #20")
+    if cfg.family in RECURRENT_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family} family (the backward through its "
+            f"recurrences, the sLSTM's time loop included) is not ported "
+            f"yet; see ROADMAP Queue 1 #21")
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +157,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
         return (w.mul_(std)).to(dtype)
 
+    def uniform(shape):
+        return torch.rand(shape, generator=g, device=dev,
+                          dtype=torch.float32)
+
     def zeros(n):
         return torch.zeros((n,), dtype=ly.PDTYPE, device=dev)
 
-    blocks = []
-    for _ in range(cfg.num_layers):
+    def attn_block():
         attn = {
             "wq": normal((d, H * hd), 1.0 / math.sqrt(d)),
             "wk": normal((d, K * hd), 1.0 / math.sqrt(d)),
@@ -149,7 +180,20 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             blk["ffn"] = {"w_gate": normal((d, ff), 1.0 / math.sqrt(d)),
                           "w_up": normal((d, ff), 1.0 / math.sqrt(d)),
                           "w_down": normal((ff, d), 1.0 / math.sqrt(ff))}
-        blocks.append(blk)
+        return blk
+
+    if cfg.family == "ssm":
+        n_m, n_s = _xlstm_counts(cfg)
+        blocks: Any = {
+            "mlstm": [ssm.init_mlstm(cfg, normal, dev) for _ in range(n_m)],
+            "slstm": [ssm.init_slstm(cfg, normal, dev) for _ in range(n_s)]}
+    elif cfg.family == "hybrid":
+        blocks = {"mamba": [ssm.init_mamba2(cfg, normal, uniform, dev)
+                            for _ in range(cfg.num_layers)],
+                  "shared": [attn_block() for _ in
+                             range(cfg.hybrid.num_shared_blocks)]}
+    else:
+        blocks = [attn_block() for _ in range(cfg.num_layers)]
     head = None
     if cfg.sketch.sketched_head:
         # the projection lives in the J-dim sketch space (paper Section
@@ -170,7 +214,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     """Shared (L, num_blocks + 1, block_size, K, hd) KV block pool; block
     ``num_blocks`` of each layer is the write sink.  ``tail`` = (batch,
     rows, cols) adds the zeroed FCS tail tables of a sketched engine."""
-    _check_family(cfg)
+    _paged_family(cfg)
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
@@ -245,8 +289,21 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     ``rows`` (paged modes only): run the B*S rows padded with zero rows
     to this count (models/layers.py, row padding).
+
+    The recurrent families run "train" (the full sequence from a zero
+    state), "prefill" (the same, returning the state after the last token
+    as a new cache of x's batch) and "decode" (one token per slot at
+    positions ``index`` (B,), advancing ``cache`` (``init_cache``) in
+    place and returning it).
     """
     _check_family(cfg)
+    if cfg.family in RECURRENT_FAMILIES:
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode {mode!r} needs a kv-cache family, got "
+                             f"{cfg.family!r}")
+        run = _forward_xlstm if cfg.family == "ssm" else _forward_zamba
+        y, new_cache = run(params, x, cfg, mode, cache, index)
+        return ly.rms_norm(y, params["final_norm"], cfg.norm_eps), new_cache
     if mode == "train":
         for i, p_l in enumerate(params["blocks"]):
             x = checkpoint(_train_block, p_l, x, cfg, i,
@@ -290,6 +347,123 @@ def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return ly.rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
+def _xlstm_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(mLSTM, sLSTM) layer counts of an xLSTM config."""
+    xl = cfg.xlstm
+    G = cfg.num_layers // (xl.m_per_group + xl.s_per_group)
+    return G * xl.m_per_group, G * xl.s_per_group
+
+
+def _stack_states(states: List[dict]) -> dict:
+    """Per-layer states -> one state whose leaves stack them on axis 0."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _forward_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                   mode: str, cache: Optional[dict],
+                   index: Optional[torch.Tensor]):
+    """xLSTM[m:s]: each group runs its m_per_group mLSTM blocks, then its
+    s_per_group sLSTM blocks, each a residual branch.  Returns (hidden
+    before the final norm, cache)."""
+    xl = cfg.xlstm
+    m_per, s_per = xl.m_per_group, xl.s_per_group
+    blocks = params["blocks"]
+    want = mode == "prefill"
+    decode = mode == "decode"
+    states: Dict[str, List[dict]] = {"mlstm": [], "slstm": []}
+    h = x
+    for g in range(cfg.num_layers // (m_per + s_per)):
+        for kind, n, block in (("mlstm", m_per, ssm.mlstm_block),
+                               ("slstm", s_per, ssm.slstm_block)):
+            for i in range(g * n, (g + 1) * n):
+                st = ssm.layer_view(cache[kind], i) if decode else None
+                out, ns = block(blocks[kind][i], h, cfg, state=st,
+                                want_state=want)
+                h = h + out
+                if want:
+                    states[kind].append(ns)
+    if want:
+        return h, {k: _stack_states(v) for k, v in states.items()}
+    return h, cache if decode else None
+
+
+def _forward_zamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                   mode: str, cache: Optional[dict],
+                   index: Optional[torch.Tensor]):
+    """Zamba2: group g runs its mamba_per_group Mamba-2 blocks, then the
+    shared block g % num_shared_blocks (attention and GLU FFN, each a
+    residual branch) against group g's own KV cache.  Returns (hidden
+    before the final norm, cache)."""
+    hb = cfg.hybrid
+    per = hb.mamba_per_group
+    blocks = params["blocks"]
+    want = mode == "prefill"
+    decode = mode == "decode"
+    mamba: List[dict] = []
+    kv: Dict[str, List[torch.Tensor]] = {"k": [], "v": []}
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = x
+    for g in range(cfg.num_layers // per):
+        for i in range(g * per, (g + 1) * per):
+            st = ssm.layer_view(cache["mamba"], i) if decode else None
+            out, ns = ssm.mamba2_block(blocks["mamba"][i], h, cfg, state=st,
+                                       want_state=want)
+            h = h + out
+            if want:
+                mamba.append(ns)
+        p_s = blocks["shared"][g % hb.num_shared_blocks]
+        a_in = ly.rms_norm(h, p_s["norm1"], cfg.norm_eps)
+        if decode:
+            a = ly.dense_decode_attention(
+                p_s["attn"], a_in, cfg, cache["shared_kv"]["k"][g],
+                cache["shared_kv"]["v"][g], index)
+        else:
+            a = ly.causal_attention(p_s["attn"], a_in, cfg)
+            if want:
+                # the prompt's roped K and V rows for the decode cache
+                _, k, v = ly._project_qkv_rope(p_s["attn"], a_in, cfg,
+                                               positions)
+                kv["k"].append(k)
+                kv["v"].append(v)
+        h = _ffn_residual(p_s, h + a, cfg)
+    if want:
+        return h, {"mamba": _stack_states(mamba),
+                   "shared_kv": {k: torch.stack(v) for k, v in kv.items()}}
+    return h, cache if decode else None
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The zero slot cache of a recurrent family (see the module
+    docstring): ``batch`` slots, every leaf stacked on a leading layer
+    (or group) axis; the hybrid family's shared KV holds ``max_seq`` rows
+    a slot.  The attention families' slot cache is ``init_paged_cache``."""
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        n_m, n_s = _xlstm_counts(cfg)
+        return {"mlstm": ssm.init_mlstm_state(cfg, n_m, batch, dev, dtype),
+                "slstm": ssm.init_slstm_state(cfg, n_s, batch, dev)}
+    if cfg.family == "hybrid":
+        G = cfg.num_layers // cfg.hybrid.mamba_per_group
+        return {"mamba": ssm.init_mamba2_state(cfg, cfg.num_layers, batch,
+                                               dev, dtype),
+                "shared_kv": ly.init_kv_cache(cfg, G, batch, max_seq, dev,
+                                              dtype)}
+    raise ValueError(f"init_cache builds a recurrent family's slot state; "
+                     f"{cfg.family!r} uses init_paged_cache")
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence prefill of a recurrent family: tokens (B, S) ->
+    (last-token logits (B, Vp) f32, the cache after the last token, a new
+    one of batch B; the hybrid family's shared KV holds the S rows)."""
+    y, cache = forward(params, embed_inputs(params, tokens), cfg,
+                       mode="prefill")
+    return ly.logits_fn(params, y[:, -1:], cfg)[:, 0], cache
+
+
 def embed_inputs(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return ly.embed_tokens(params["embed"], tokens)
 
@@ -308,13 +482,19 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
 
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                 index: torch.Tensor, cfg: ModelConfig,
-                tables: torch.Tensor, kernels: Optional[bool] = None,
+                tables: Optional[torch.Tensor] = None,
+                kernels: Optional[bool] = None,
                 sketch: Optional[dict] = None, rows: Optional[int] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """tokens: (B, 1) int; index: (B,) int32 positions; tables: (B, nb)
-    int32; ``sketch``: optional two-span state, ``rows`` the padded row
-    count (see forward).  Returns (logits (B, Vp) f32, cache updated in
-    place)."""
+    int32 (attention families; None for the recurrent ones, whose slot
+    cache is ``init_cache``'s); ``sketch``: optional two-span state,
+    ``rows`` the padded row count (see forward).  Returns (logits (B, Vp)
+    f32, cache updated in place)."""
+    if cfg.family in RECURRENT_FAMILIES:
+        y, cache = forward(params, embed_inputs(params, tokens), cfg,
+                           mode="decode", cache=cache, index=index)
+        return ly.logits_fn(params, y, cfg)[:, 0], cache
     logits, cache = verify_step(params, cache, tokens, index, cfg, tables,
                                 kernels=kernels, sketch=sketch, rows=rows)
     return logits[:, 0], cache

@@ -1,5 +1,5 @@
-"""Continuous-batching slot scheduler over a paged KV pool (port of
-``repro/serve/scheduler.py`` for the dense attention path).
+"""Continuous-batching slot scheduler over a paged KV pool, or over the
+recurrent families' slot state (port of ``repro/serve/scheduler.py``).
 
 The engine owns ``max_batch`` slots.  KV lives in one shared
 (L, num_kv_blocks + 1, kv_block_size, K, hd) block pool on the device
@@ -102,9 +102,30 @@ for the moe family those pad rows route and take expert capacity, as in
 the reference; ``prefill_bucket=1`` gives exact-length chunks.  Decode
 and verify route only their B*S live rows (models/transformer.py).
 
-Not ported yet (raises ``NotImplementedError``): the recurrent families,
-and speculative decoding of the moe family or of a model with
-attention biases (``qkv_bias``).
+The recurrent families (ssm: xlstm-1.3b; hybrid: zamba2-2.7b) keep no
+pool: the slot state is ``transformer.init_cache(cfg, max_batch,
+max_seq)``, every leaf (n, max_batch, ...) with no row padding (it needs
+none: these engines do not speculate), and there is no allocator,
+prefix cache or sketch (``alloc`` and ``prefix_cache`` are None, the
+block geometry 0).  Admission prefills the first S - 1 prompt tokens at
+their exact length (a pad token would enter the recurrence) and copies
+the resulting state into the slot in place, or zeroes the slot for a
+1-token prompt: either way every leaf of the slot is rewritten (the
+hybrid family's KV rows from S - 1 up stay masked until decode writes
+them), so an earlier occupant's state is never observed.  Decode resumes
+at ``pos = S - 1`` with the last prompt token, which the first decode
+step consumes exactly once.  The decode chunk is the same chunk without
+tables, captured once per variant like the attention families'.  The
+prefill runs eagerly: the reference compiles it once per distinct prompt
+length, and a graph per length would keep a private pool per length
+without bound, so ``prefill_compilations`` is 0 here.  The observer sees
+the same events as the reference's, which emits no prefill, prefix or
+fold event for these families.
+
+Not ported yet (raises ``NotImplementedError``): speculative decoding of
+the moe family or of a model with attention biases (``qkv_bias``).
+Speculation needs a kv-cache family: a recurrent one raises
+``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -183,7 +204,11 @@ class EngineStats:
     ``decode_compilations`` and ``prefill_compilations`` count the decode
     and prefill chunks' CUDA graph captures (one per variant an engine
     used; 0 on the CPU, which runs both chunks eagerly), where the
-    reference counts XLA compilations."""
+    reference counts XLA compilations.  A recurrent engine's prefill runs
+    eagerly, so its ``prefill_compilations`` is 0 where the reference
+    counts one compilation per distinct prompt length.  As in the
+    reference, a recurrent engine's pool, KV byte and prefix fields stay
+    0 (``SlotScheduler.kv_cache_bytes`` gives its state's bytes)."""
     queue_depth: int = _stat("gauge")
     active_slots: int = _stat("gauge")
     max_batch: int = _stat("gauge")
@@ -355,8 +380,10 @@ class DecodeState:
     """Device-resident slot state; every tensor keeps its shape for the
     engine's lifetime and is updated in place."""
     cache: Dict[str, Any]        # {"kv": {"k", "v"}} block pool (+ sink),
-                                 # "tail", and a spec engine's "draft"
+                                 # "tail", and a spec engine's "draft"; a
+                                 # recurrent family's stacked slot state
     tables: torch.Tensor         # (B, blocks_per_slot) int32 block tables
+                                 # ((B, 0) for a recurrent family)
     cur: torch.Tensor            # (B, 1) int64 next token to feed
     pos: torch.Tensor            # (B,) int32 write/attend position
     remaining: torch.Tensor      # (B,) int32 output tokens still owed
@@ -415,10 +442,9 @@ class SlotScheduler:
         sv = serve if serve is not None else cfg.serve
         if sv.spec_k > 0 and cfg.family not in tf.ATTN_FAMILIES:
             raise ValueError(f"speculative decode needs a kv-cache family "
-                             f"the port serves {tf.ATTN_FAMILIES}, got "
-                             f"{cfg.family!r}")
-        if cfg.family not in tf.ATTN_FAMILIES:
-            raise _not_ported(f"family {cfg.family!r}", "Queue 1 #12")
+                             f"{tf.ATTN_FAMILIES}, got {cfg.family!r}")
+        if cfg.family not in tf.ATTN_FAMILIES + tf.RECURRENT_FAMILIES:
+            raise ValueError(f"unknown family {cfg.family!r}")
         if sv.spec_k > 0 and (cfg.family == "moe" or cfg.qkv_bias):
             # a moe draft's per-expert hash seeds and f32 router, capacity
             # drops under verify, and a draft's attention bias leaves
@@ -442,11 +468,14 @@ class SlotScheduler:
         self.temperature = float(temperature)   # default for requests
         # paged attention implementation: None picks by device
         self.use_kernels = sv.paged_kernels
+        self.is_kv = cfg.family in tf.ATTN_FAMILIES
         B = sv.max_batch
         # speculative decode: an explicit draft wins; else one derived from
         # the serve knobs (None when spec_k == 0)
         self.draft = draft if draft is not None else make_draft(params, cfg,
                                                                  sv)
+        if self.draft is not None and not self.is_kv:
+            raise ValueError("speculative decode needs a kv-cache family")
         self.spec_max = int(sv.spec_k) if self.draft is not None else 0
         # decode and verify steps run their rows padded to one count, the
         # plain engine's of this max_batch, so a verify row is bitwise
@@ -528,6 +557,56 @@ class SlotScheduler:
         self.obs: Any = None
         self._round_idx = 0
 
+        if self.is_kv:
+            cache, tables = self._init_pool(cfg, sv, B)
+        else:
+            cache, tables = self._init_recurrent(cfg, sv, B)
+        dev = self.device
+        self._state = DecodeState(
+            cache=cache,
+            tables=tables,
+            cur=torch.zeros((B, 1), dtype=torch.int64, device=dev),
+            pos=torch.zeros((B,), dtype=torch.int32, device=dev),
+            remaining=torch.zeros((B,), dtype=torch.int32, device=dev),
+            temp=torch.zeros((B,), dtype=torch.float32, device=dev),
+            top_k=torch.zeros((B,), dtype=torch.int32, device=dev),
+            fold_base=torch.zeros((B,), dtype=torch.int32, device=dev),
+            spec_k=torch.zeros((B,), dtype=torch.int32, device=dev),
+        )
+        # the prefill chunk's inputs, at addresses fixed for the engine's
+        # life: the prefill chunk reads only these, and the host writes
+        # them before each chunk (``_stage_prefill``)
+        self._pf = (PrefillInputs.make(self.prefill_bucket,
+                                       self.blocks_per_slot, self.num_blocks,
+                                       dev) if self.is_kv else None)
+        self._graphs: Optional[ChunkGraphs] = None
+        self._prefill_graphs: Optional[ChunkGraphs] = None
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs:
+            self._graphs = ChunkGraphs(self._slot_gen)
+            if self.is_kv:
+                self._prefill_graphs = ChunkGraphs(())
+            # every lazy first call of every variant before any capture,
+            # while every slot is idle: sentinel tables (the prefill's
+            # static row too) send each KV write to the sink, remaining ==
+            # 0 keeps every position, admission resets ``cur`` and reseeds
+            # the slot's generator, and the sketched prefill only reads
+            # slot 0's tails, zeros until its first admission (a recurrent
+            # engine's idle slots decode junk state, which the next
+            # admission rewrites whole)
+            for v in self._usable_variants():
+                self._chunk(v)
+            for pv in self._prefill_variants():
+                self._prefill_static(pv)
+        if obs is not None:
+            self.set_observer(obs)
+
+    def _init_pool(self, cfg: ModelConfig, sv: ServeConfig, B: int
+                   ) -> Tuple[dict, torch.Tensor]:
+        """The attention families' paged pool (and tails, and a spec
+        engine's draft pool), its allocator and prefix cache, and the
+        sentinel block tables."""
         self.block_size = max(1, sv.kv_block_size)
         if sv.prefix_block % self.block_size:
             raise ValueError(f"kv_block_size {self.block_size} must divide "
@@ -588,50 +667,35 @@ class SlotScheduler:
         self.alloc = BlockAllocator(nb, block_bytes)
         self.prefix_cache = SketchPrefixCache(
             sv, allocator=self.alloc, block_size=self.block_size)
-        dev = self.device
-        self._state = DecodeState(
-            cache=cache,
-            tables=torch.full((B, self.blocks_per_slot), nb,
-                              dtype=torch.int32, device=dev),
-            cur=torch.zeros((B, 1), dtype=torch.int64, device=dev),
-            pos=torch.zeros((B,), dtype=torch.int32, device=dev),
-            remaining=torch.zeros((B,), dtype=torch.int32, device=dev),
-            temp=torch.zeros((B,), dtype=torch.float32, device=dev),
-            top_k=torch.zeros((B,), dtype=torch.int32, device=dev),
-            fold_base=torch.zeros((B,), dtype=torch.int32, device=dev),
-            spec_k=torch.zeros((B,), dtype=torch.int32, device=dev),
-        )
-        # the prefill chunk's inputs, at addresses fixed for the engine's
-        # life: the prefill chunk reads only these, and the host writes
-        # them before each chunk (``_stage_prefill``)
-        self._pf = PrefillInputs.make(self.prefill_bucket,
-                                      self.blocks_per_slot, nb, dev)
-        self._graphs: Optional[ChunkGraphs] = None
-        self._prefill_graphs: Optional[ChunkGraphs] = None
-        if graphs is None:
-            graphs = self.device.type == "cuda"
-        if graphs:
-            self._graphs = ChunkGraphs(self._slot_gen)
-            self._prefill_graphs = ChunkGraphs(())
-            # every lazy first call of every variant before any capture,
-            # while every slot is idle: sentinel tables (the prefill's
-            # static row too) send each KV write to the sink, remaining ==
-            # 0 keeps every position, admission resets ``cur`` and reseeds
-            # the slot's generator, and the sketched prefill only reads
-            # slot 0's tails, zeros until its first admission
-            for v in self._usable_variants():
-                self._chunk(v)
-            for pv in self._prefill_variants():
-                self._prefill_static(pv)
-        if obs is not None:
-            self.set_observer(obs)
+        tables = torch.full((B, self.blocks_per_slot), nb, dtype=torch.int32,
+                            device=self.device)
+        return cache, tables
+
+    def _init_recurrent(self, cfg: ModelConfig, sv: ServeConfig, B: int
+                        ) -> Tuple[dict, torch.Tensor]:
+        """A recurrent family's slot state, B rows: no pool, allocator,
+        prefix cache or sketch; paging and prefix reuse are KV-cache
+        concepts, and misuse fails on None.  Its bf16 leaves take the
+        weights' dtype."""
+        self.block_size = self.blocks_per_slot = self.num_blocks = 0
+        self.spec_overhang = self.attn_blocks = 0
+        self.alloc = None
+        self.prefix_cache = None
+        self.sketch_on = False
+        # the state's bf16 leaves (conv buffers, the hybrid KV) take the
+        # weights' dtype, so f32 weights serve wholly in f32
+        cache = tf.init_cache(cfg, B, sv.max_seq, self.device,
+                              self.params["embed"].dtype)
+        return cache, torch.zeros((B, 0), dtype=torch.int32,
+                                  device=self.device)
 
     def set_observer(self, obs: Any) -> None:
         """Attach (or detach, with None) a ``repro_torch.obs.
         ServeObserver``: the scheduler and its prefix cache report into it
         from every pump phase.  Safe to call at any pump boundary."""
         self.obs = obs
-        self.prefix_cache.obs = obs
+        if self.prefix_cache is not None:
+            self.prefix_cache.obs = obs
 
     # ------------------------------------------------------------------
     # Device pieces
@@ -684,7 +748,10 @@ class SlotScheduler:
     def _prefill_variants(self) -> List[PrefillVariant]:
         """The prefill variants this engine can run: the sketch-free
         chunk, and on a sketched engine the two-span chunk of a slot that
-        has folded rows."""
+        has folded rows.  A recurrent engine has none: it prefills
+        eagerly."""
+        if not self.is_kv:
+            return []
         return [PrefillVariant(False)] + (
             [PrefillVariant(True)] if self.sketch_on else [])
 
@@ -735,7 +802,8 @@ class SlotScheduler:
             sketch, draft_sketch = ([
                 self._sketch_state(st.fold_base, c["tail"])
                 for c in self._pools()] + [None])[:2]
-        tables = self._attn_tables(st.tables)
+        tables = self._attn_tables(st.tables) if self.is_kv else None
+        rows = self.step_rows if self.is_kv else None
         if self.spec_max > 0:
             return spec.spec_chunk(
                 self.params, self.draft, cfg, st, tables,
@@ -748,7 +816,7 @@ class SlotScheduler:
             logits, _ = tf.decode_step(self.params, st.cache, st.cur, st.pos,
                                        cfg, tables,
                                        kernels=self.use_kernels,
-                                       sketch=sketch, rows=self.step_rows)
+                                       sketch=sketch, rows=rows)
             nxt = sample(logits[:, :cfg.vocab_size])
             step = running.to(torch.int32)
             st.pos.add_(step)
@@ -771,8 +839,16 @@ class SlotScheduler:
         if S + req.max_new > sv.max_seq:
             raise ValueError(f"prompt {S} + max_new {req.max_new} exceeds "
                              f"max_seq {sv.max_seq}")
-        # reject up front what the pool can never serve, so it can't
-        # head-of-line-block the queue
+        if self.is_kv:
+            self._check_pool_fits(req)
+        self._enqueue(req, front=False)
+        if self.obs is not None:
+            self.obs.request_queued(req.rid, S, req.priority)
+
+    def _check_pool_fits(self, req: Request) -> None:
+        """Reject up front what the pool can never serve, so it can't
+        head-of-line-block the queue."""
+        S = len(req.tokens)
         bs = self.block_size
         need = -(-(S + req.max_new + self.spec_overhang) // bs)
         if self.sketch_on and req.kv_sketch is not False:
@@ -786,9 +862,6 @@ class SlotScheduler:
             raise ValueError(f"request needs {need} KV blocks of "
                              f"{self.block_size}, pool has "
                              f"{self.num_blocks} (raise num_kv_blocks)")
-        self._enqueue(req, front=False)
-        if self.obs is not None:
-            self.obs.request_queued(req.rid, S, req.priority)
 
     def _enqueue(self, req: Request, front: bool) -> None:
         """Priority-ordered insertion (descending priority, FIFO within a
@@ -1037,8 +1110,50 @@ class SlotScheduler:
 
     def _admit(self, slot: int, req: Request) -> bool:
         """Try to admit ``req`` into ``slot``; False when the block pool
-        can't reserve the request's KV now (it stays queued)."""
+        can't reserve the request's KV now (it stays queued).  A recurrent
+        engine always admits."""
         prompt = np.asarray(req.tokens, np.int32)
+        S = len(prompt)
+        st = self._state
+        if self.is_kv:
+            ok, hit = self._admit_kv(slot, req, prompt)
+            if not ok:
+                return False
+        else:
+            hit = None
+            self._admit_recurrent(slot, prompt)
+        temp = (self.temperature if req.temperature is None
+                else float(req.temperature))
+        eff_spec = 0
+        if self.spec_max:
+            eff_spec = (self.serve.spec_k if req.spec_k is None
+                        else int(req.spec_k))
+            eff_spec = max(0, min(eff_spec, self.spec_max))
+        st.spec_k[slot] = eff_spec
+        st.cur[slot, 0] = int(prompt[S - 1])
+        st.pos[slot] = S - 1
+        st.remaining[slot] = req.max_new
+        st.temp[slot] = temp
+        st.top_k[slot] = int(req.top_k)
+        self._slot_pos[slot] = S - 1
+        self._slot_req[slot] = req
+        self._slot_out[slot] = []
+        self._slot_hit[slot] = hit is not None
+        self._slot_temp[slot] = temp
+        if temp > 0.0:
+            self._seed_slot_generator(slot, req)
+        self._slot_admit_seq[slot] = self._admit_seq
+        self._admit_seq += 1
+        self._slot_spec[slot] = eff_spec if temp == 0.0 else 0
+        if self.obs is not None:
+            self.obs.request_admitted(req.rid, slot, hit is not None)
+        return True
+
+    def _admit_kv(self, slot: int, req: Request, prompt: np.ndarray
+                  ) -> Tuple[bool, Optional[Tuple[int, Any]]]:
+        """An attention family's half of ``_admit``: the prefix-cache hit,
+        the slot's blocks, the chunked prefill and its table row.
+        Returns (admitted, the prefix hit or None)."""
         S = len(prompt)
         bs = self.block_size
         st = self._state
@@ -1074,7 +1189,7 @@ class SlotScheduler:
                         f"kv pool ({self.num_blocks} blocks of {bs}) too "
                         f"small for sketched prompt {S} with window "
                         f"{self.kv_window}")
-                return False
+                return False, None
         else:
             n_total = -(-(S + req.max_new + self.spec_overhang) // bs)
             new_ids = self._take_blocks(n_total - len(shared))
@@ -1085,7 +1200,7 @@ class SlotScheduler:
                     raise RuntimeError(
                         f"kv pool ({self.num_blocks} blocks of {bs}) too "
                         f"small for prompt {S} + max_new {req.max_new}")
-                return False
+                return False, None
             slot_ids = shared + new_ids
             row = np.full((self.blocks_per_slot,), self.num_blocks,
                           np.int32)
@@ -1114,7 +1229,7 @@ class SlotScheduler:
             self.alloc.unref(slot_ids)
             self._slot_blocks[slot] = []
             self._admit_memo[req.rid] = None
-            return False
+            return False, None
         row = np.full((self.blocks_per_slot,), self.num_blocks, np.int32)
         row[first_lblk:first_lblk + len(slot_ids)] = slot_ids
         st.tables[slot] = self._to_device(row)
@@ -1128,32 +1243,35 @@ class SlotScheduler:
         self.peak_used_rows = max(self.peak_used_rows, self._used_rows)
         self._admit_memo.pop(req.rid, None)
 
-        temp = (self.temperature if req.temperature is None
-                else float(req.temperature))
-        eff_spec = 0
-        if self.spec_max:
-            eff_spec = (self.serve.spec_k if req.spec_k is None
-                        else int(req.spec_k))
-            eff_spec = max(0, min(eff_spec, self.spec_max))
-        st.spec_k[slot] = eff_spec
-        st.cur[slot, 0] = int(prompt[S - 1])
-        st.pos[slot] = S - 1
-        st.remaining[slot] = req.max_new
-        st.temp[slot] = temp
-        st.top_k[slot] = int(req.top_k)
-        self._slot_pos[slot] = S - 1
-        self._slot_req[slot] = req
-        self._slot_out[slot] = []
-        self._slot_hit[slot] = hit is not None
-        self._slot_temp[slot] = temp
-        if temp > 0.0:
-            self._seed_slot_generator(slot, req)
-        self._slot_admit_seq[slot] = self._admit_seq
-        self._admit_seq += 1
-        self._slot_spec[slot] = eff_spec if temp == 0.0 else 0
-        if self.obs is not None:
-            self.obs.request_admitted(req.rid, slot, hit is not None)
-        return True
+        return True, hit
+
+    def _admit_recurrent(self, slot: int, prompt: np.ndarray) -> None:
+        """A recurrent family's half of ``_admit``: prefill the first
+        S - 1 tokens at their exact length and copy the state into the
+        slot in place (a 1-token prompt zeroes the slot), so every leaf of
+        the slot is rewritten.  Decode consumes the last token: a
+        recurrent step is not idempotent, so unlike a KV row it must run
+        exactly once.  On the card CUDA events time the prefill
+        (``prefill_ms``)."""
+        S = len(prompt)
+        events = None
+        if self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        cache = self._state.cache
+        if S > 1:
+            tokens = self._to_device(prompt[None, :-1].astype(np.int64))
+            _, pre = tf.prefill(self.params, tokens, self.cfg)
+            # every leaf is (n, B, ...) in the slot state and (n, 1, ...)
+            # in the prefill's; the hybrid KV holds only the S - 1 rows
+            tf.tree_map(lambda dst, src: dst[:, slot, :src.shape[2]].copy_(
+                src[:, 0]), cache, pre)
+        else:
+            tf.tree_map(lambda dst: dst[:, slot].zero_(), cache)
+        if events is not None:
+            events[1].record()
+            self._prefill_events.append(events)
 
     def _complete(self, slot: int, status: str) -> Completion:
         """Completion for ``slot``'s occupant, folding in output emitted
@@ -1194,16 +1312,19 @@ class SlotScheduler:
                 # the caller's generator ends where the slot's draws left
                 # it, as if the slot had drawn from it
                 req.generator.set_state(self._slot_gen[s].get_state())
-            # sentinel the row BEFORE its blocks can be freed and reused:
-            # an idle slot still runs the decode write every step
-            self._state.tables[s] = self.num_blocks
-            # the fold frontier resets with the slot; the tail sums are
-            # zeroed at the next admission
-            self._state.fold_base[s] = 0
+            if self.is_kv:
+                # sentinel the row BEFORE its blocks can be freed and
+                # reused: an idle slot still runs the decode write every
+                # step (a recurrent slot's state is rewritten whole at its
+                # next admission instead)
+                self._state.tables[s] = self.num_blocks
+                # the fold frontier resets with the slot; the tail sums
+                # are zeroed at the next admission
+                self._state.fold_base[s] = 0
+                self.alloc.unref(self._slot_blocks[s])
             self._slot_first_lblk[s] = 0
             self._slot_use_sketch[s] = False
             self._slot_pos[s] = 0
-            self.alloc.unref(self._slot_blocks[s])
             self._slot_blocks[s] = []
             self._used_rows -= self._slot_rows[s]
             self._slot_rows[s] = 0
@@ -1561,24 +1682,41 @@ class SlotScheduler:
     def prefill_compilations(self) -> int:
         """Prefill chunk variants captured as CUDA graphs (0 when prefill
         runs eagerly): 1 on a sketch-free engine, at most 2 on a sketched
-        one."""
+        one, 0 on a recurrent one (its prefill is eager)."""
         return (0 if self._prefill_graphs is None
                 else self._prefill_graphs.captures)
 
+    def kv_cache_bytes(self) -> int:
+        """Bytes of the slot cache: the whole pool (and tails, and a spec
+        engine's draft pool) of an attention family, the stacked
+        recurrent state otherwise."""
+        leaves: List[torch.Tensor] = []
+        tf.tree_map(leaves.append, self._state.cache)
+        return sum(t.numel() * t.element_size() for t in leaves)
+
     def kv_reserved_bytes(self) -> int:
-        """Bytes of pool blocks currently allocated (slots + cache)."""
+        """Bytes of pool blocks currently allocated (slots + cache); a
+        recurrent engine's whole state."""
+        if not self.is_kv:
+            return self.kv_cache_bytes()
         return self.alloc.reserved_bytes()
 
     def kv_peak_reserved_bytes(self) -> int:
+        if not self.is_kv:
+            return self.kv_cache_bytes()
         return self.alloc.peak_reserved_bytes()
 
     def kv_peak_used_bytes(self) -> int:
         """High-water mark of the KV row demand of live requests."""
+        if not self.is_kv:
+            return self.kv_cache_bytes()
         row_bytes = self.alloc.block_bytes / self.block_size
         return int(row_bytes * self.peak_used_rows)
 
     def kv_dense_equiv_bytes(self) -> int:
         """Bytes a dense (L, max_batch, max_seq, K, hd) cache would hold."""
+        if not self.is_kv:
+            return self.kv_cache_bytes()
         row_bytes = self.alloc.block_bytes / self.block_size
         return int(row_bytes * self.serve.max_seq * self.serve.max_batch)
 
@@ -1599,8 +1737,9 @@ class SlotScheduler:
                    if self._slot_use_sketch[s])
 
     def stats(self) -> EngineStats:
-        pc = self.prefix_cache.stats
-        return EngineStats(
+        """The unified snapshot.  A recurrent engine's pool, KV byte and
+        prefix fields stay 0, as in the reference."""
+        st = EngineStats(
             queue_depth=len(self._queue),
             active_slots=sum(r is not None for r in self._slot_req),
             max_batch=self.serve.max_batch,
@@ -1611,23 +1750,26 @@ class SlotScheduler:
             decode_steps=self.decode_steps,
             decode_compilations=self.decode_compilations,
             prefill_compilations=self.prefill_compilations,
-            pool_blocks=self.num_blocks,
-            block_size=self.block_size,
-            blocks_reserved=self.alloc.reserved,
-            blocks_free=self.alloc.free_count,
-            blocks_peak=self.alloc.peak_reserved,
-            kv_reserved_bytes=self.kv_reserved_bytes(),
-            kv_peak_reserved_bytes=self.kv_peak_reserved_bytes(),
-            kv_peak_used_bytes=self.kv_peak_used_bytes(),
-            kv_dense_equiv_bytes=self.kv_dense_equiv_bytes(),
-            prefix_lookups=pc.lookups,
-            prefix_hits=pc.hits,
-            prefix_admitted=pc.admitted,
-            prefix_evicted=pc.evicted,
-            prefix_cached_bytes=pc.bytes,
             fold_rows=self.fold_rows_total,
             kv_sketch_tail_bytes=self.kv_sketch_tail_bytes(),
             spec_rounds=self.spec_rounds,
             spec_proposed=self.spec_proposed,
             spec_accepted=self.spec_accepted,
         )
+        if self.is_kv:
+            pc = self.prefix_cache.stats
+            st.pool_blocks = self.num_blocks
+            st.block_size = self.block_size
+            st.blocks_reserved = self.alloc.reserved
+            st.blocks_free = self.alloc.free_count
+            st.blocks_peak = self.alloc.peak_reserved
+            st.kv_reserved_bytes = self.kv_reserved_bytes()
+            st.kv_peak_reserved_bytes = self.kv_peak_reserved_bytes()
+            st.kv_peak_used_bytes = self.kv_peak_used_bytes()
+            st.kv_dense_equiv_bytes = self.kv_dense_equiv_bytes()
+            st.prefix_lookups = pc.lookups
+            st.prefix_hits = pc.hits
+            st.prefix_admitted = pc.admitted
+            st.prefix_evicted = pc.evicted
+            st.prefix_cached_bytes = pc.bytes
+        return st

@@ -7,8 +7,11 @@ greedy tokens bitwise the plain engine's (its draft through count_sketch
 and unsketch), the decode chunk replayed as CUDA graphs bitwise its eager
 twin (plain, sketched and speculative engines), the sketched optimizer
 launching sketch_update, sketched RTPM launching count_sketch and
-unsketch, and the reduced moe configs graphed bitwise their eager twins
-with kernel-path logits within tolerance of the plain path.  Every test
+unsketch, the reduced moe configs graphed bitwise their eager twins
+with kernel-path logits within tolerance of the plain path, and the
+reduced recurrent configs' engines (xlstm-1.3b, zamba2-2.7b) graphed
+bitwise their eager twins, an admission in the overlap window landing
+in place.  Every test
 carries the ``cuda`` marker and skips without a card; the file imports
 nothing of JAX, so it runs on the card's machine:
 
@@ -1114,3 +1117,118 @@ def test_prefill_replayed_in_the_overlap_window(card):
         assert ra == rb and np.array_equal(ta, tb)
     _pools_equal(gs, es)
     assert gs.prefill_compilations == 1
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families' slot engine (no kernel of their own: the decode
+# chunk captured and replayed over in-place state updates)
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ["xlstm-1.3b", "zamba2-2.7b"]
+
+
+def _state_bits(cache):
+    """Every leaf of a recurrent slot state, as integers (NaN-safe)."""
+    out = []
+    tf.tree_map(lambda t: out.append(t.view(
+        {4: torch.int32, 2: torch.int16}[t.element_size()]).clone()), cache)
+    return out
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_graphed_recurrent_engine_is_its_eager_twin(card, arch):
+    """Reduced xlstm-1.3b / zamba2-2.7b: prompts of 1-4 tokens (the conv
+    stash's edges, a 1-token prompt zeroing its slot) and longer ones,
+    greedy and sampled, two passes through a graphed engine and its eager
+    twin: tokens, emit flags, completion order, every slot state leaf at
+    the end and the callers' generator states bitwise; one decode capture
+    per variant used, none more on the second pass, no prefill capture;
+    no state leaf padded past max_batch rows."""
+    cfg = reduced_config(arch)
+    params = tf.init_params(cfg, seed=9, device=card)
+    serve = dataclasses.replace(cfg.serve, max_batch=3, max_seq=96,
+                                decode_chunk=4)
+    out = {}
+    for graphs in (True, False):
+        sched = SlotScheduler(cfg, params, serve=serve, device=card,
+                              graphs=graphs)
+        log = _chunk_log(sched)
+        done, caps, pcaps, gens = [], [], [], []
+        for p in range(2):
+            reqs = (_stream(cfg, (1, 2, 3, 4), (1,), 100 * p, card)
+                    + _stream(cfg, (40, 17, 60), (0,), 100 * p + 10, card))
+            gens += [r.generator for r in reqs if r.generator is not None]
+            done += sched.run(reqs)
+            caps.append(sched.decode_compilations)
+            pcaps.append(sched.prefill_compilations)
+        torch.cuda.synchronize()
+        out[graphs] = dict(sched=sched, log=log, done=done, caps=caps,
+                           pcaps=pcaps, state=_state_bits(sched._state.cache),
+                           gens=[g.get_state() for g in gens])
+    g, e = out[True], out[False]
+    assert [c.rid for c in g["done"]] == [c.rid for c in e["done"]]
+    for a, b in zip(g["done"], e["done"]):
+        assert np.array_equal(a.tokens, b.tokens), a.rid
+        assert a.status == "ok" and len(a.tokens) == 7
+    assert len(g["log"]) == len(e["log"])
+    for a, b in zip(g["log"], e["log"]):
+        fa, fb = a[1].astype(bool), b[1].astype(bool)
+        assert np.array_equal(fa, fb)
+        assert np.array_equal(a[0][fa], b[0][fb])
+    assert all(torch.equal(a, b) for a, b in zip(g["state"], e["state"]))
+    assert all(torch.equal(a, b) for a, b in zip(g["gens"], e["gens"]))
+    gs = g["sched"]
+    used = len(gs._graphs.replays)
+    assert g["caps"] == [used] * 2 and used >= 1
+    assert e["caps"] == [0, 0] and g["pcaps"] == e["pcaps"] == [0, 0]
+    assert gs._prefill_graphs is None
+    leaves = []
+    tf.tree_map(leaves.append, gs._state.cache)
+    assert all(t.shape[1] == serve.max_batch for t in leaves)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_admission_between_dispatches_lands_in_place(card, arch):
+    """An admission while a decode chunk is in flight (the front end's
+    overlap): the new slots' prefilled state is copied into the slot
+    state in place (every leaf keeps its address, which the captured
+    chunk reads), the in-flight chunk emits nothing for them, and the
+    in-flight chunk's tokens, every later chunk and the final state are
+    the eager twin's bitwise."""
+    cfg = reduced_config(arch)
+    params = tf.init_params(cfg, seed=13, device=card)
+    serve = dataclasses.replace(cfg.serve, max_batch=4, max_seq=128,
+                                decode_chunk=8)
+    out = {}
+    for graphs in (True, False):
+        sched = SlotScheduler(cfg, params, serve=serve, device=card,
+                              graphs=graphs)
+        reqs = _stream(cfg, (20, 33, 1, 70), (1,), 0, card, max_new=24)
+        addrs = []
+        tf.tree_map(lambda t: addrs.append(t.data_ptr()), sched._state.cache)
+        for r in reqs[:2]:
+            sched.submit(r)
+        sched.admit_pending()
+        assert sched.dispatch()
+        sched.collect()
+        assert sched.dispatch()             # a chunk in flight
+        for r in reqs[2:]:
+            sched.submit(r)
+        assert sched.admit_pending() == 2
+        window = sched._inflight[0].cpu().numpy()
+        assert window[1][:, 2:].sum() == 0  # the new slots emit nothing
+        sched.collect()
+        sched.drain()
+        torch.cuda.synchronize()
+        after = []
+        tf.tree_map(lambda t: after.append(t.data_ptr()), sched._state.cache)
+        assert after == addrs
+        out[graphs] = (window, [(c.rid, c.tokens) for c in sched.completed],
+                       _state_bits(sched._state.cache))
+    (wg, dg, sg), (we, de, se) = out[True], out[False]
+    assert np.array_equal(wg[1], we[1]) and wg[1].any()
+    assert np.array_equal(wg[0][wg[1] > 0], we[0][we[1] > 0])
+    assert len(dg) == len(de) == 4
+    for (ra, ta), (rb, tb) in zip(dg, de):
+        assert ra == rb and np.array_equal(ta, tb)
+    assert all(torch.equal(a, b) for a, b in zip(sg, se))

@@ -65,11 +65,12 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_only_the_recurrent_archs_raise():
-    assert set(registry.ARCH_IDS) == set(rreg.ARCH_IDS) - {"xlstm-1.3b",
-                                                           "zamba2-2.7b"}
+    # the recurrent archs resolve since they were ported (their configs
+    # are held in tests/test_torch_ssm.py); only training them raises
+    assert registry.ARCH_IDS == rreg.ARCH_IDS
     for arch in ("xlstm-1.3b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_config(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #21"):
+            tf._trainable(registry.get_config(arch))
     assert registry.all_configs().keys() == set(registry.ARCH_IDS)
 
 

@@ -190,13 +190,19 @@ async def _aenumerate(it):
 
 def test_not_ported_options_raise(served):
     # the observer hooks are ported (tests/test_torch_obs.py): attaching
-    # none is accepted; a family the port does not serve still raises
+    # none is accepted.  Every family serves now (the recurrent ones:
+    # tests/test_torch_recurrent_serve.py); a family no package has is
+    # refused, and training a recurrent family still names its ROADMAP
+    # item
     served["ts"].set_observer(None)
     assert served["ts"].obs is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotScheduler(dataclasses.replace(served["tcfg"], family="ssm"),
+    with pytest.raises(ValueError, match="unknown family"):
+        SlotScheduler(dataclasses.replace(served["tcfg"], family="rnn"),
                       served["tparams"], serve=_serve(served["tcfg"]),
                       device="cpu")
+    from repro_torch.models import transformer as tf
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #21"):
+        tf._trainable(reduced_config("xlstm-1.3b"))
 
 
 def _drive(capsys, *args):
