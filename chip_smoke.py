@@ -3,11 +3,14 @@ the sources in this checkout, holds each against its plain version, runs
 the paper's sketched CP decompositions and codecs at the paper's sizes,
 checks the full-width model against its plain path, serves full-width
 gemma-2b (at 512, speculatively, and, sketched, at 8k context, plainly
-and speculatively), trains full-width yi-9b, serves the moe family and
-the other attention configs (granite-moe and deepseek-moe at full width
-and depth, four more at full width) and the recurrent families
-(xlstm-1.3b and zamba2-2.7b at full width and depth) through the port's
-main paths.
+and speculatively; the 512-token speculative and the 8k plain streams at
+cut depth), trains full-width yi-9b
+(also with FCS gradient compression), serves the moe family and the
+other attention configs (granite-moe, deepseek-moe and four more, at
+full width and cut depth) and the recurrent families
+(xlstm-1.3b and zamba2-2.7b at full width and cut depth), and trains
+every family (moe, audio, vlm, ssm, hybrid) through the port's main
+paths.
 
     python3 chip_smoke.py
 
@@ -52,7 +55,8 @@ Phases (one line each; any failure exits non-zero):
      cpd       — the paper core and CPD at the paper's sizes: Fig. 1 RTPM
                  (I 100, rank 10, D 2; plain held against the same run
                  on the CPU; TS and FCS at J 1000 / 4000 / 10000 with
-                 every oracle call of a card run repeated on the CPU; CS
+                 every oracle call of a card run from 5 of the 15 inits
+                 (SHADOW_INITS) repeated on the CPU; CS
                  on vec(T) at J 10000 with three oracle calls held against
                  the plain version on the card), Table 2 (HCS vs FCS at
                  I 50, oracle calls repeated on the CPU), ALS (I 80, D 10,
@@ -104,16 +108,19 @@ Phases (one line each; any failure exits non-zero):
                  bitwise the plain engine's, no leaks, copy-on-write
                  forks, acceptance reported, the paged-attention,
                  count_sketch and unsketch kernels launched
-     long      — gemma-2b at max_seq 8192 with sketched KV (window 1024,
+     long      — gemma-2b at full width cut to LONG_LAYERS of its 18
+                 layers, at max_seq 8192 with sketched KV (window 1024,
                  ratio 8, rows 3): 8 requests of 512 to 6144 prompt
                  tokens and 64 new each through a pool of half their
                  rows; every request completes, no block leaks, rows
                  fold, and the tail kernels and the count sketch of the
                  tail span's weights are launched on the path
-     long-spec — two of those prompts (2048, 4096 tokens) through a
+     long-spec — two of those prompts (2048, 4096 tokens), at all 18
+                 layers, through a
                  sketched plain engine and a sketched spec engine
-                 (spec_k 2): tokens bitwise equal, both pools fold, both
-                 tail kernels launched on the spec path
+                 (spec_k 2): tokens bitwise equal (the draft's proposals
+                 are not accepted here; see LONG_LAYERS), both pools
+                 fold, both tail kernels launched on the spec path
   5. train     — yi-9b at full width and depth, 4 steps of batch 8 x 128
                  tokens with sketched AdamW (ratio 4, rows 3) through
                  train/loop.py; losses finite, sketch_update launched,
@@ -121,26 +128,36 @@ Phases (one line each; any failure exits non-zero):
                  the plain version from the step's own gradient (the
                  params bitwise from the kernel's tables); one profiled
                  step split by kernel, sketch_update's per step against
-                 its bound
+                 its bound.  Then 2 steps with FCS gradient compression
+                 (ratio 16) before the optimizer: losses finite, as many
+                 leaves compressed each step as the codecs name, one
+                 leaf's estimate bitwise unsketch_leaf of the main path's
+                 sketch and that sketch within f32 rounding of
+                 sketch_leaf of the raw gradient; the compression's ms a
+                 step, its bound, the sketch bytes a step, peak memory
   6. moe       — after yi-9b is freed: granite-moe-3b-a800m at full width
-                 and depth (the serve phase's 16-request stream; no drop
+                 cut to 8 of its 32 layers (MOE_LAYERS; the serve phase's
+                 16-request stream; no drop
                  is possible, so its greedy tokens are held to a
                  teacher-forced recompute of a dropless copy, forced onto
                  the experts the served rows chose, which the eager twin
-                 records), deepseek-moe-16b at full width and depth (8
-                 requests) and minitron-4b, qwen2.5-32b, musicgen-medium
+                 records), deepseek-moe-16b at full width cut to 8 of 28
+                 layers (8 requests) and minitron-4b, qwen2.5-32b,
+                 musicgen-medium
                  and internvl2-2b at full width cut to 2 layers (4 each),
                  every engine graphed and as its eager twin, bitwise; a
                  decode step's and a chunk's logits, kernel path vs plain
-                 path on the kernel path's routing (deepseek-moe's
-                 through its first 16 layers), within 3% of max|logit|,
+                 path on the kernel path's routing, within 3% of max|logit|,
                  every routing decision the plain path would change
                  within NEAR_TIE of a tie; a [profile] and a [moe]
                  line per config (tok/s, TTFT, chunk ms, captures, the FFN
                  weight bytes a decode step reads); its paged-attention
                  launches are all at shapes phase 2 holds
   7. recurrent — after the moe models are freed: xlstm-1.3b and
-                 zamba2-2.7b at full width and depth, each config's own
+                 zamba2-2.7b at full width, cut to two of their layer
+                 groups (REC_LAYERS: xlstm 16 of 48 layers, both block
+                 kinds; zamba2 12 of 54, both shared blocks), each
+                 config's own
                  serve geometry (max_batch 8, max_seq 512, decode_chunk
                  8), 16 requests at once (prompts of 1-448 tokens, 1-4
                  among them, 32 new each, a quarter sampled), each engine
@@ -157,6 +174,22 @@ Phases (one line each; any failure exits non-zero):
                  [profile] line per config (tok/s, TTFT, decode chunk ms,
                  prefill ms, busy per step, idle shares, state bytes, a
                  decode step's top kernels)
+  8. train-families — after the recurrent models are freed: 3 steps of
+                 batch 8 x 128 through train/loop.py with sketched AdamW
+                 (ratio 4, rows 3) for granite-moe-3b-a800m (full width
+                 and depth), deepseek-moe-16b (full width, 4 layers),
+                 musicgen-medium and internvl2-2b (full width and depth,
+                 the frontend stubs' embeds batches), xlstm-1.3b and
+                 zamba2-2.7b (full width and depth); losses finite,
+                 sketch_update launched, one sketched leaf that only the
+                 family has checked in situ as phase 5 checks norm1;
+                 granite, xlstm and zamba2 also an f32 copy's backward
+                 against central differences along a seeded random
+                 direction (``directional_check``; granite on the
+                 routing of the point, the unforced routing flips
+                 reported); a [train-families] line per config (step ms,
+                 tokens/s, forward / backward / sketch_update device ms,
+                 moment and peak bytes)
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -195,24 +228,36 @@ def card() -> str:
     return out[0]
 
 
+def kernel_records(prof):
+    """The device kernels a finished profiler session recorded, in start
+    order: (name, start ns, duration ns) each, read from the raw CUPTI
+    records.  Building the profiler's event tree instead costs tens of
+    microseconds of host time per record (a plain paged-attention call
+    launches thousands of kernels, an eager sLSTM step tens of
+    thousands)."""
+    out = [(e.name(), e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    out.sort(key=lambda r: r[1])
+    return out
+
+
 def device_ms(fn, n: int, flush: torch.Tensor):
     """Device time of ``fn`` per call: the sum of the durations of the
-    kernels it launches, from the profiler's CUPTI records, with the L2
-    flushed before each call (the decode path reaches each layer's pool
-    after other layers' weights have passed through the cache).  The
-    flush's own kernel is left out by name.  Returns (ms per call,
-    {kernel name: ms per call}, host wall ms per call).  A window in
-    which the profiler delivered no kernel record at all (seen once on
-    an H100, a 2-microsecond kernel after some 150 windows) is profiled
-    once more, and a ``[profiler]`` line says so; a second empty window
-    fails."""
+    kernels it launches, from the profiler's CUPTI records (kernels only:
+    no host op is recorded), with the L2 flushed before each call (the
+    decode path reaches each layer's pool after other layers' weights
+    have passed through the cache).  The flush's own kernel is left out
+    by name.  Returns (ms per call, {kernel name: ms per call}, host wall
+    ms per call).  A window in which the profiler delivered no kernel
+    record at all is profiled again, up to ``WINDOWS`` windows, and a
+    ``[profiler]`` line says so; that many empty windows fail."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for window in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for window in range(WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 flush.bitwise_not_()
@@ -220,20 +265,24 @@ def device_ms(fn, n: int, flush: torch.Tensor):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / n
         by_name = {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA \
-                    or "bitwise_not" in e.name:
+        for name, _, ns in kernel_records(prof):
+            if "bitwise_not" in name:
                 continue
-            ms = e.time_range.elapsed_us() / 1e3 / n
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            by_name[name] = by_name.get(name, 0.0) + ns / 1e6 / n
         total = sum(by_name.values())
         if total > 0:
             if window:
-                print(f"[profiler] the first window recorded no kernel; "
-                      f"{total:.5f} ms from the second "
+                print(f"[profiler] {window} window(s) recorded no kernel; "
+                      f"{total:.5f} ms from the next "
                       f"({', '.join(sorted(by_name))})")
             return total, by_name, wall
-    fail("the profiler recorded no device time in two windows")
+    fail(f"the profiler recorded no device time in {WINDOWS} windows")
+
+
+# profiled windows device_ms tries before it fails: an H100 has twice
+# delivered no record of a 2-microsecond kernel in a window, and once in
+# two windows in a row (phase cs, ``unsketch`` at (1, 50, 300))
+WINDOWS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +664,9 @@ FOLD_GEOMETRIES = {
     "spec_draft_prefill_fold": (4, 272, 3, 1024, 256),
     "reduced_z2": (12, 40, 2, 64, 32),
     "reduced_z4": (12, 40, 4, 64, 32),
+    # phase long at LONG_LAYERS = 4: 4 x 8 x k/v and 4 x k/v tables
+    "decode_fold_4_layers": (64, 32, 3, 1024, 256),
+    "prefill_fold_4_layers": (8, 272, 3, 1024, 256),
 }
 # name: (B, K, N, hd, Z, C, T).  8k decode: 8 slots x 8 query heads of one
 # kv head; chunked prefill: one slot's 256-token chunk x 8 heads; the 8k
@@ -1000,11 +1052,9 @@ CS_KERNELS = ("count_sketch_kernel", "combine_kernel", "unsketch_kernel")
 def traced(fn):
     """Run ``fn`` once under a CUDA-only profiler (CUPTI kernel records):
     (result, wall s ending in a synchronize, device busy s, {kernel:
-    (device s, records)} for the count-sketch source's kernels).  The
-    kernel durations are summed from the raw records: building the
-    profiler's event tree costs tens of microseconds of host time per
-    record, and a CS decomposition launches tens of thousands of
-    kernels."""
+    (device s, records)} for the count-sketch source's kernels), from
+    ``kernel_records`` (a CS decomposition launches tens of thousands of
+    kernels)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1013,13 +1063,11 @@ def traced(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, mine = 0.0, {k: [0.0, 0] for k in CS_KERNELS}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        sec = e.duration_ns() / 1e9
+    for name, _, ns in kernel_records(prof):
+        sec = ns / 1e9
         busy += sec
         for k in CS_KERNELS:
-            if k in e.name():
+            if k in name:
                 mine[k][0] += sec
                 mine[k][1] += 1
     if busy <= 0:
@@ -1073,17 +1121,29 @@ class Shadow:
             return out
         return fn
 
-    def rtpm(self, T, T_cpu, method, hc, hashes, I, R, L, T_iters, inits,
+    def rtpm(self, T, T_cpu, method, hc, hashes, I, R, T_iters, inits,
              dev):
-        """RTPM on the card with every oracle call shadowed; a note."""
+        """RTPM on the card from the first SHADOW_INITS of ``inits`` (R,
+        L, I), every oracle call shadowed; a note."""
         from repro_torch.cpd.rtpm import make_oracle, rtpm
         k_or = make_oracle(T, method, hc)
         c_or = make_oracle(T_cpu, method, hashes)
+        inits = inits[:, :SHADOW_INITS]
         rtpm(*(self.wrap(k, c, lambda a, p=p: vec_norm(a[0], p))
                for k, c, p in zip(k_or, c_or, (2, 3))), I, R,
-             n_inits=L, n_iters=T_iters, inits=inits, device=dev)
-        return (f"{self.calls} oracle calls of a card run repeated on the "
-                f"CPU within tol (worst {self.worst:.3f} of tol)")
+             n_inits=inits.shape[1], n_iters=T_iters, inits=inits,
+             device=dev)
+        return (f"{self.calls} oracle calls of a card run from "
+                f"{inits.shape[1]} of its inits repeated on the CPU within "
+                f"tol (worst {self.worst:.3f} of tol)")
+
+
+# the shadowed RTPM runs start from this many of the path run's L inits:
+# an oracle call takes every init's vector at once, so a run from 5 makes
+# as many calls as the 15-init run (420), each a third as wide on the CPU
+# (FFT correlations at J up to 10000: host time, which a shared host
+# stretches), each held alike
+SHADOW_INITS = 5
 
 
 def vec_norm(u, power):
@@ -1167,7 +1227,7 @@ def phase_cpd(dev):
                     + f"; CPU run {sec_c:.2f}s")
         elif method in ("ts", "fcs"):
             note = Shadow(f"fig1 {method} J={J}", Tn_cpu.norm().item()).rtpm(
-                Tn, Tn_cpu, method, hc, hashes, I, R, L, T, inits, dev)
+                Tn, Tn_cpu, method, hc, hashes, I, R, T, inits, dev)
         else:
             k_tiuu, k_tuuu = make_oracle(Tn, "cs", hc)
             p_tiuu, p_tuuu = make_oracle(Tn, "cs", hc, use_kernel=False)
@@ -1212,7 +1272,7 @@ def phase_cpd(dev):
             finite.append(torch.isfinite(lams).all())
             note = Shadow(f"table2 {method} J={J} D={D2}",
                           Tn2_cpu.norm().item()).rtpm(
-                Tn2, Tn2_cpu, method, hc, hashes, 50, R, L, T, inits, dev)
+                Tn2, Tn2_cpu, method, hc, hashes, 50, R, T, inits, dev)
             print(f"[cpd] table2 rtpm {method} J={J} D={D2} (I=50, R={R}): "
                   f"residual {res[0]:.4f} observed, {res[1]:.4f} clean; "
                   f"hash bytes {hash_bytes(method, 50, J, D2)}; {wall:.3f}s, "
@@ -1394,6 +1454,24 @@ def phase_model(cfg, params, dev, flush):
 
 
 LONG = dict(max_seq=8192, window=1024, ratio=8, rows=3)
+# phase long serves gemma-2b at full width cut to this many of its 18
+# layers (phase model holds the sketched decode step at all 18): its
+# eager twins launch every layer's kernels from the host, and the cut
+# keeps the whole run well inside its time limit.  Of the launch shapes
+# only tail_fold's G depends on the depth (FOLD_GEOMETRIES holds it at 4
+# layers too).  Phase long-spec keeps all 18: there the depth-2
+# draft proposes nothing the target accepts, and its tokens equal the
+# plain engine's only then.  A sketched engine folds at chunk heads, an
+# accepted proposal moves a spec engine's chunk heads and so which rows
+# its queries see exactly: at 4 layers two proposals of 64 rounds were
+# accepted and the tokens parted (ROADMAP Queue 1 #22)
+LONG_LAYERS = 4
+
+
+def cut_depth(cfg, params, layers):
+    """``cfg`` and ``params`` at their first ``layers`` layers."""
+    return (dataclasses.replace(cfg, num_layers=layers),
+            dict(params, blocks=params["blocks"][:layers]))
 
 
 def phase_sketch_model(cfg, params, dev, flush):
@@ -1603,6 +1681,7 @@ def long_stream(cfg):
 
 def phase_long_serve(cfg, params, dev):
     from repro_torch.serve.frontend import AsyncServeEngine
+    cfg, params = cut_depth(cfg, params, LONG_LAYERS)
     serve, reqs = long_stream(cfg)
     run = twin_streams(
         "long", lambda graphs, obs=None: AsyncServeEngine(
@@ -1639,7 +1718,8 @@ def phase_long_serve(cfg, params, dev):
     # fidelity of a folded request against exact attention (reported)
     short1, tol1, exact1 = greedy_shortfall(params, cfg, dev,
                                             reqs[1].tokens, byrid[1].tokens)
-    print(f"[long] gemma-2b full width, max_seq {LONG['max_seq']}, sketched "
+    print(f"[long] gemma-2b full width, depth cut to {LONG_LAYERS} layers, "
+          f"max_seq {LONG['max_seq']}, sketched "
           f"KV window {LONG['window']} ratio {LONG['ratio']} rows "
           f"{LONG['rows']} (C={sched.tail_cols}, T={sched.tail_domain}), "
           f"decode and prefill chunks replayed as CUDA graphs: "
@@ -2351,8 +2431,7 @@ def phase_spec(cfg, params, dev):
     from repro_torch.models.draft import make_draft
     from repro_torch.serve.frontend import AsyncServeEngine
     verify_vs_decode(cfg, params, dev)
-    cfg = dataclasses.replace(cfg, num_layers=SPEC_LAYERS)
-    params = dict(params, blocks=params["blocks"][:SPEC_LAYERS])
+    cfg, params = cut_depth(cfg, params, SPEC_LAYERS)
     base = dataclasses.replace(cfg.serve, **SERVE)
     from repro_torch.serve.scheduler import Request
     reqs = make_request_stream(cfg, np.random.RandomState(SEED + 2), 16, 3,
@@ -2510,19 +2589,23 @@ def phase_long_spec(cfg, params, dev):
 
 class TrainProbe:
     """``train(on_grads=...)`` hook.  In-situ check: at step 0 it copies
-    the stacked ``blocks/norm1`` leaf's gradient, params and pre-step
-    tables; at step 1, before that step's update, it holds the tables and
-    params the kernel path produced against the plain version run on the
-    copies, and the params bitwise against the plain path's from the
-    tables the kernel made.  Breakdown: from the hook of step 2 to the hook
-    of step 3 (one step's work: step 2's optimizer, then step 3's batch,
-    forward and backward) it runs the profiler and sums device time by
-    kernel, the sketch_update kernels by name.  ``bound`` is the
-    optimizer's least time a step for its sketched leaves: g, the tables
-    read and written, and the params read and written (the fused form) or
-    the estimates written (the estimates form), each once."""
+    the stacked leaf ``leaf``'s gradient, params and pre-step tables; at
+    step 1, before that step's update, it holds the tables and params the
+    kernel path produced against the plain version run on the copies, and
+    the params bitwise against the plain path's from the tables the
+    kernel made.  Breakdown: from the hook of step ``prof`` to the hook of
+    step ``prof + 1`` (one step's work: that step's optimizer, then the
+    next step's batch, forward and backward) it runs the profiler and
+    sums device time by kernel, the sketch_update kernels by name.
+    ``bound`` is the optimizer's least time a step for its sketched
+    leaves: g, the tables read and written, and the params read and
+    written (the fused form) or the estimates written (the estimates
+    form), each once.  ``hooks`` {step: fn(params, grads, opt)} run last
+    at their step's hook (after the profiler has stopped at prof + 1)."""
 
-    def __init__(self):
+    def __init__(self, leaf="blocks/norm1", prof=2, lr=None, hooks=None):
+        self.leaf, self.prof_step, self.hooks = leaf, prof, hooks or {}
+        self.lr = TRAIN["lr"] if lr is None else lr
         self.saved = None
         self.report = None
         self.moment_bytes = None
@@ -2530,136 +2613,158 @@ class TrainProbe:
         self.breakdown = None
         self.bound = None
         self.sketch_ms = None
+        self.busy_ms = None
+        self.window_ms = None
+        self.opt_ms = None
         self.mem = []           # (allocated, peak so far) at each hook
 
     def __call__(self, step, params, grads, opt):
-        from torch.profiler import ProfilerActivity, profile
         self.mem.append((torch.cuda.memory_allocated(),
                          torch.cuda.max_memory_allocated()))
-        if step == 2:
+        if step == self.prof_step + 1:
+            self._stop()
+        if step == 0:
+            self._save(params, grads, opt)
+        elif step == 1:
+            self._check(params, opt)
+        if step == self.prof_step:
+            from torch.profiler import ProfilerActivity, profile
             torch.cuda.synchronize()
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            # kernels only: an eager sLSTM step's host records took the
+            # profiler tens of seconds to collect
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.__enter__()
             self.t0 = time.perf_counter()
-        elif step == 3:
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - self.t0) * 1e3
-            self.prof.__exit__(None, None, None)
-            events = sorted(
-                (e for e in self.prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-            self.prof = None
-            by_name = {}
-            for e in events:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / 1e3)
-            busy = sum(by_name.values())
-            if busy <= 0:
-                fail("the profiler recorded no device time in the train "
-                     "step")
-            split = sketch_split(by_name)
-            sk = sum(split.values())
-            gemm = sum(v for k, v in by_name.items()
-                       if any(f in k.lower() for f in (
-                           "gemm", "xmma", "cutlass", "nvjet")))
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-            # the optimizer's span: from the window's start (step 2's
-            # update follows the hook) to the end of the last
-            # sketch_update kernel; what else runs in it is the dense
-            # leaves' and (per-piece form) the elementwise AdamW math and
-            # the coefficient casts
-            last = max((i for i, e in enumerate(events)
-                        if sketch_kernel(e.name)), default=-1)
-            span = events[:last + 1]
-            opt_ms = sum(e.time_range.elapsed_us() for e in span) / 1e3
-            self.sketch_ms = sk
-            self.breakdown = (
-                f"one step under the profiler (step 2's optimizer + step "
-                f"3's forward/backward): wall {wall:.3f} ms, device busy "
-                f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle); "
-                f"sketch_update kernels {sk:.3f} ms "
-                f"({100 * sk / busy:.1f}% of busy: "
-                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-                + f"), GEMMs {gemm:.3f} ms "
-                f"({100 * gemm / busy:.1f}%), other {busy - sk - gemm:.3f} "
-                f"ms; the optimizer's span {opt_ms:.3f} ms on the device "
-                f"({len(span)} kernels), of which not sketch_update "
-                f"{opt_ms - sk:.3f} ms; top kernels "
-                + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
-        from repro_torch.kernels import ref
+        if step in self.hooks:
+            self.hooks[step](params, grads, opt)
+
+    def _stop(self):
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(None, None, None)
+        events = kernel_records(self.prof)
+        self.prof = None
+        by_name = {}
+        for name, _, ns in events:
+            by_name[name] = by_name.get(name, 0.0) + ns / 1e6
+        busy = sum(by_name.values())
+        if busy <= 0:
+            fail("the profiler recorded no device time in the train step")
+        split = sketch_split(by_name)
+        sk = sum(split.values())
+        gemm = sum(v for k, v in by_name.items()
+                   if any(f in k.lower() for f in (
+                       "gemm", "xmma", "cutlass", "nvjet")))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        # the optimizer's span: from the window's start (the step's update
+        # follows the hook) to the end of the last sketch_update kernel;
+        # what else runs in it is the dense leaves' and (per-piece form)
+        # the elementwise AdamW math and the coefficient casts
+        last = max((i for i, (name, _, _) in enumerate(events)
+                    if sketch_kernel(name)), default=-1)
+        span = events[:last + 1]
+        opt_ms = sum(ns for _, _, ns in span) / 1e6
+        self.sketch_ms, self.busy_ms, self.window_ms = sk, busy, wall
+        self.opt_ms = opt_ms
+        self.breakdown = (
+            f"one step under the profiler (step {self.prof_step}'s "
+            f"optimizer + step {self.prof_step + 1}'s forward/backward): "
+            f"wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle); "
+            f"sketch_update kernels {sk:.3f} ms "
+            f"({100 * sk / busy:.1f}% of busy: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"), GEMMs {gemm:.3f} ms "
+            f"({100 * gemm / busy:.1f}%), other {busy - sk - gemm:.3f} "
+            f"ms; the optimizer's span {opt_ms:.3f} ms on the device "
+            f"({len(span)} kernels), of which not sketch_update "
+            f"{opt_ms - sk:.3f} ms; top kernels "
+            + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+
+    def _leaf(self, tree):
+        from repro_torch.models.transformer import param_leaves
+        names = [n for n, _ in param_leaves(tree)]
+        i = names.index(self.leaf)
+        return i, param_leaves(tree)[i][1]
+
+    def _save(self, params, grads, opt):
         from repro_torch.models.transformer import param_leaves
         from repro_torch.sketch.optimizer import moment_state_bytes
-        from repro_torch.train.optimizer import bias_corrections
-        names = [n for n, _ in param_leaves(params)]
-        i = names.index("blocks/norm1")
+        self.moment_bytes = moment_state_bytes(opt)
+        fused = est = 0
+        for (_, ps), (_, gs), m in zip(param_leaves(params),
+                                       param_leaves(grads), opt.moments):
+            if not hasattr(m.m, "table"):
+                continue
+            n = sum(p.numel() for p in ps)
+            common = (sum(g.numel() * g.element_size() for g in gs)
+                      + 2 * 2 * m.m.table.numel() * 4)
+            fused += common + 2 * sum(p.numel() * p.element_size()
+                                      for p in ps)
+            est += common + 2 * n * 4
+        self.bound = (fused / HBM_BYTES_PER_S * 1e3,
+                      est / HBM_BYTES_PER_S * 1e3)
+        i, gs = self._leaf(grads)
         mo = opt.moments[i]
-        if step == 0:
-            self.moment_bytes = moment_state_bytes(opt)
-            fused = est = 0
-            for (_, ps), (_, gs), m in zip(param_leaves(params),
-                                           param_leaves(grads), opt.moments):
-                if not hasattr(m.m, "table"):
-                    continue
-                n = sum(p.numel() for p in ps)
-                common = (sum(g.numel() * g.element_size() for g in gs)
-                          + 2 * 2 * m.m.table.numel() * 4)
-                fused += common + 2 * sum(p.numel() * p.element_size()
-                                          for p in ps)
-                est += common + 2 * n * 4
-            self.bound = (fused / HBM_BYTES_PER_S * 1e3,
-                          est / HBM_BYTES_PER_S * 1e3)
-            self.saved = dict(
-                g=[t.clone() for t in param_leaves(grads)[i][1]],
-                p=[t.clone() for t in param_leaves(params)[i][1]],
-                m=mo.m.table.clone(), v=mo.v.table.clone())
-            return
-        if step != 1:
-            return
+        if not hasattr(mo.m, "table"):
+            fail(f"in-situ leaf {self.leaf} is not sketched")
+        self.saved = dict(g=[t.clone() for t in gs],
+                          p=[t.clone() for t in self._leaf(params)[1]],
+                          m=mo.m.table.clone(), v=mo.v.table.clone())
+
+    def _check(self, params, opt):
+        from repro_torch.kernels import ref
+        from repro_torch.train.optimizer import bias_corrections
         sv = self.saved
-        off = [k * sv["g"][0].numel() for k in range(len(sv["g"]))]
-        pieces = list(zip([t.reshape(-1) for t in sv["g"]], off))
+        i, now_p = self._leaf(params)
+        mo = opt.moments[i]
+        off, pieces = 0, []
+        for t in sv["g"]:
+            pieces.append((t.reshape(-1), off))
+            off += t.numel()
         new_m, new_v = ref.sketch_accumulate_ref(
             pieces, sv["m"], sv["v"], mo.m.coeffs, mo.v.coeffs, B1, B2)
         bc1, bc2 = bias_corrections(B1, B2, 1)
         # from the tables the kernel made, the plain path's params bitwise
         # (before the loop below updates the saved params in place)
         same = []
-        for p, now, (g, o) in zip(sv["p"], param_leaves(params)[i][1],
-                                  pieces):
+        for p, now, (g, o) in zip(sv["p"], now_p, pieces):
             mh, vh = ref.sketch_retrieve_ref(g.numel(), o, mo.m.table,
                                              mo.v.table, mo.m.coeffs,
                                              mo.v.coeffs)
             q = p.clone()
-            ref.sketched_leaf_update(q, mh, vh, lr=TRAIN["lr"], eps=1e-8,
+            ref.sketched_leaf_update(q, mh, vh, lr=self.lr, eps=1e-8,
                                      weight_decay=0.01, bc1=bc1, bc2=bc2)
             same.append(torch.equal(q, now))
+            del mh, vh, q
         if not all(same):
-            fail(f"in-situ norm1 params: {same.count(False)} pieces differ "
-                 f"from the plain path's given the kernel's tables")
-        want_p = []
+            fail(f"in-situ {self.leaf} params: {same.count(False)} pieces "
+                 f"differ from the plain path's given the kernel's tables")
         for p, (g, o) in zip(sv["p"], pieces):
             mh, vh = ref.sketch_retrieve_ref(g.numel(), o, new_m, new_v,
                                              mo.m.coeffs, mo.v.coeffs)
-            ref.sketched_leaf_update(p, mh, vh, lr=TRAIN["lr"], eps=1e-8,
+            ref.sketched_leaf_update(p, mh, vh, lr=self.lr, eps=1e-8,
                                      weight_decay=0.01, bc1=bc1, bc2=bc2)
-            want_p.append(p)
-        err_t = max(close_to(mo.m.table, new_m, "in-situ norm1 m table"),
-                    close_to(mo.v.table, new_v, "in-situ norm1 v table"))
-        got = torch.stack([t.float() for t in param_leaves(params)[i][1]])
-        want = torch.stack([t.float() for t in want_p])
-        err_p = (got - want).abs().max().item()
-        if not torch.allclose(got, want, rtol=2 ** -7,
-                              atol=2 ** -9 * want.abs().max().item()):
-            fail(f"in-situ norm1 params: max err {err_p} (one bf16 ulp "
-                 f"allowed)")
-        self.report = (f"in-situ step-1 norm1 ({len(pieces)} pieces of "
-                       f"{sv['g'][0].numel()}, tables {tuple(new_m.shape)})"
-                       f" kernel vs plain: tables max|err| {err_t:.3e}, "
-                       f"params max|err| {err_p:.3e} (one bf16 ulp allowed);"
-                       f" from the kernel's tables the params bitwise the "
-                       f"plain path's")
+            del mh, vh
+        err_t = max(close_to(mo.m.table, new_m, f"in-situ {self.leaf} m "
+                             f"table"),
+                    close_to(mo.v.table, new_v, f"in-situ {self.leaf} v "
+                             f"table"))
+        err_p = 0.0
+        top = max(w.float().abs().max().item() for w in sv["p"])
+        for got, want in zip(now_p, sv["p"]):
+            got, want = got.float(), want.float()
+            err_p = max(err_p, (got - want).abs().max().item())
+            if not torch.allclose(got, want, rtol=2 ** -7,
+                                  atol=2 ** -9 * top):
+                fail(f"in-situ {self.leaf} params: max err {err_p} (one "
+                     f"bf16 ulp allowed)")
+        self.report = (f"in-situ step-1 {self.leaf} ({len(pieces)} pieces "
+                       f"of {tuple(sv['g'][0].shape)}, tables "
+                       f"{tuple(new_m.shape)}) kernel vs plain: tables "
+                       f"max|err| {err_t:.3e}, params max|err| {err_p:.3e} "
+                       f"(one bf16 ulp allowed); from the kernel's tables "
+                       f"the params bitwise the plain path's")
         self.saved = None
 
 
@@ -2724,35 +2829,216 @@ def phase_train(dev):
           f"device in the profiled step, {launches // TRAIN['steps']} "
           f"launches; bound {probe.bound[0]:.3f} ms (fused form; "
           f"{probe.bound[1]:.3f} ms with the estimates written); {card()}")
+    del hist, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_compressed(cfg, dev)
     return launches
+
+
+# the compressed yi-9b steps after the sketched-AdamW ones: the config's
+# grad_hash_ratio (16); the leaf whose estimate is checked in situ
+COMPRESS_STEPS = 2
+COMPRESS_LEAF = "blocks/attn/wk"
+
+
+class CompressProbe:
+    """The compressed run's ``grad_compress.probe`` (called for every
+    compressed leaf between its sketch and its estimate) and its
+    ``on_grads`` hook.  It counts the leaves each step compresses.  At
+    step 0 it copies ``COMPRESS_LEAF``'s raw gradient pieces, hashes and
+    the main path's sketch, and at that step's hook holds the estimate the
+    optimizer will apply bitwise to ``unsketch_leaf`` of that sketch, the
+    sketch to ``sketch_leaf`` of the raw copy within f32 rounding (the
+    ``index_add_`` atomics add in a varying order; whether the two runs
+    gave the same bits is reported), and the hashes to a fresh draw from
+    (seed, step, leaf) bitwise.  At step 1's hook it times the
+    compression of every leaf on copies of that step's gradient, leaf by
+    leaf between CUDA events: the hash draw, the sketch and the
+    estimate."""
+
+    def __init__(self, cfg, leaf_id):
+        self.cfg, self.leaf_id = cfg, leaf_id
+        self.n = 0
+        self.counts = []
+        self.saved = None
+        self.report = None
+        self.ms = None
+        self.bytes = 0
+        self.codecs = None
+        self.mem = []
+
+    def compressed(self, c, pieces, tables, sk):
+        self.n += 1
+        if c.leaf_id == self.leaf_id and self.saved is None:
+            self.saved = dict(c=c, raw=[p.clone() for p in pieces],
+                              tables=tuple(t.clone() for t in tables),
+                              sk=sk.clone())
+
+    def __call__(self, step, params, grads, opt):
+        from repro_torch.models.transformer import param_leaves
+        from repro_torch.train import grad_compress as gcm
+        self.mem.append((torch.cuda.memory_allocated(),
+                         torch.cuda.max_memory_allocated()))
+        self.counts.append(self.n)
+        self.n = 0
+        seed = self.cfg.sketch.seed
+        if step == 0:
+            self.codecs = [c for c in gcm._leaf_codecs(
+                params, self.cfg.sketch.grad_hash_ratio) if c is not None]
+            sv = self.saved
+            c = sv["c"]
+            est = param_leaves(grads)[c.leaf_id][1]
+            want = gcm.unsketch_leaf(sv["sk"], c, sv["tables"], est,
+                                     dtype=est[0].dtype)
+            if not all(torch.equal(a, b) for a, b in zip(est, want)):
+                fail(f"compressed {COMPRESS_LEAF}: the estimate differs from "
+                     f"unsketch_leaf of the main path's sketch")
+            again = gcm.codec_hashes(c, seed, 0, est[0].device)
+            if not all(torch.equal(a, b) for a, b in zip(again,
+                                                         sv["tables"])):
+                fail(f"compressed {COMPRESS_LEAF}: the hashes do not follow "
+                     f"from (seed, step, leaf)")
+            sk2 = gcm.sketch_leaf(sv["raw"], c, sv["tables"])
+            err = close_to(sk2, sv["sk"], f"compressed {COMPRESS_LEAF} "
+                           f"sketch")
+            differ = int((sk2 != sv["sk"]).sum())
+            self.report = (
+                f"in-situ step-0 {COMPRESS_LEAF} ({len(est)} pieces of "
+                f"{tuple(est[0].shape)}, I1 {c.I1}, k {c.k}, J~ {c.Jt}, pad "
+                f"{c.pad}): the estimate bitwise unsketch_leaf of the main "
+                f"path's sketch; sketch_leaf of the raw gradient within "
+                f"rtol 1e-5 of that sketch, max|err| {err:.3e}, {differ} of "
+                f"{c.Jt} buckets not bitwise (two runs "
+                f"{'give the same bits' if differ == 0 else 'differ'}); "
+                f"hashes bitwise a fresh draw from (seed, step, leaf)")
+            self.saved = None
+        elif step == 1:
+            codecs = gcm._leaf_codecs(params, self.cfg.sketch.grad_hash_ratio)
+            ms = [0.0, 0.0, 0.0]
+            for (_, pieces), c in zip(param_leaves(grads), codecs):
+                if c is None:
+                    continue
+                copy = [p.clone() for p in pieces]
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                torch.cuda.synchronize()
+                ev[0].record()
+                tables = gcm.codec_hashes(c, seed, 1, copy[0].device)
+                ev[1].record()
+                sk = gcm.sketch_leaf(copy, c, tables)
+                ev[2].record()
+                out = gcm.unsketch_leaf(sk, c, tables, copy,
+                                        dtype=copy[0].dtype)
+                ev[3].record()
+                torch.cuda.synchronize()
+                for j in range(3):
+                    ms[j] += ev[j].elapsed_time(ev[j + 1])
+                n = sum(p.numel() for p in pieces)
+                # g read, the estimate written, h1 and s1 written and read,
+                # the sketch written and read, each once
+                self.bytes += (2 * n * pieces[0].element_size()
+                               + 2 * c.I1 * 8 + 2 * c.Jt * 4)
+                del copy, out, sk, tables
+            self.ms = ms
+
+
+def leaf_index(cfg, name):
+    """Index of the reference leaf ``name`` in ``param_leaves`` order
+    (the order depends on the config's structure alone, so a reduced copy
+    on the CPU gives it)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import transformer as tf
+    names = [n for n, _ in tf.param_leaves(
+        tf.init_params(reduced_config(cfg.name), seed=0, device="cpu"))]
+    return names.index(name)
+
+
+def train_compressed(cfg, dev):
+    """``COMPRESS_STEPS`` steps of ``cfg`` with FCS gradient compression
+    through train/loop.py, checked and timed by ``CompressProbe``."""
+    from repro_torch.train import grad_compress as gcm
+    from repro_torch.train.loop import train
+    cfg = dataclasses.replace(cfg, sketch=dataclasses.replace(
+        cfg.sketch, grad_compression=True))
+    logs = []
+    probe = CompressProbe(cfg, leaf_index(cfg, COMPRESS_LEAF))
+    gcm.probe = probe.compressed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        hist = train(cfg, steps=COMPRESS_STEPS, batch=TRAIN["batch"],
+                     seq=TRAIN["seq"], lr=TRAIN["lr"], seed=SEED, device=dev,
+                     log_every=1, log_fn=logs.append, on_grads=probe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gcm.probe = None
+    peak = torch.cuda.max_memory_allocated()
+    codecs = probe.codecs
+    for ln in logs:
+        print(f"[train] compressed: {ln}")
+    if not all(np.isfinite(hist.losses)) or len(hist.losses) != \
+            COMPRESS_STEPS or probe.counts != [len(codecs)] * COMPRESS_STEPS \
+            or probe.report is None or probe.ms is None:
+        fail(f"compressed train: losses {hist.losses}, leaves compressed a "
+             f"step {probe.counts} (codecs {len(codecs)}), in-situ "
+             f"{probe.report}")
+    jt = sum(c.Jt for c in codecs)
+    n = sum(c.I1 * c.k - c.pad for c in codecs)
+    draw, sketch, est = probe.ms
+    print(f"[train] compressed: yi-9b, {COMPRESS_STEPS} steps with FCS "
+          f"gradient compression (ratio {cfg.sketch.grad_hash_ratio}) before "
+          f"sketched AdamW: losses "
+          + ", ".join(f"{x:.4f}" for x in hist.losses) + "; step ms "
+          + ", ".join(f"{t * 1e3:.1f}" for t in hist.step_times)
+          + f" ({wall:.2f}s incl. init); leaves compressed a step "
+          f"{probe.counts} = the codecs' {len(codecs)}; {n} gradient "
+          f"elements -> {jt} sketch floats a step ({4 * jt} B, what an "
+          f"all-reduce would move; {2 * n} B of bf16 gradient); peak "
+          f"allocated {peak} B ({peak / 2 ** 30:.2f} GiB; at each hook, "
+          f"allocated / peak so far: "
+          + ", ".join(f"{a} / {p}" for a, p in probe.mem) + f"); {card()}")
+    print(f"[train] compressed: {probe.report}")
+    print(f"[train] compressed: compression per step {draw + sketch + est:.3f}"
+          f" ms on the device (hash draw {draw:.3f}, sketch index_add_ "
+          f"{sketch:.3f}, estimate gather {est:.3f}; step 1's gradient, "
+          f"copies leaf by leaf, CUDA events); bound "
+          f"{probe.bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({probe.bytes} B: "
+          f"g read and the estimate written, h1 / s1 and the sketch written "
+          f"and read, once each); {card()}")
+    return hist
+
+
 
 
 # ---------------------------------------------------------------------------
 # phase 6: moe, and the other attention configs, on the paged slot engine
 # ---------------------------------------------------------------------------
 
-MOE_FULL = ("granite-moe-3b-a800m", "deepseek-moe-16b")
+# the moe family at full width, cut to MOE_LAYERS of its layers (granite
+# 32, deepseek 28): each engine's eager twin launches every layer's
+# kernels from the host, and the cut keeps the whole run well inside its
+# time limit.  Phase train-families trains granite-moe at full depth.
+MOE = ("granite-moe-3b-a800m", "deepseek-moe-16b")
+MOE_LAYERS = 8
 # the largest router-logit gap by which a routing decision of one path
 # may trail the other path's own choice: a near-tie that rounding flips,
 # not a wrong expert (full-width router logits spread about 1).  Measured
 # (tools/moe_drift.py, PERF.md section 6): up to 0.0662 for the plain
 # path on the kernel path's experts at deepseek-moe's 28 layers, 0.0428
-# for granite's recompute on the served experts
+# for granite's recompute on the served experts.  Two bf16 paths drift
+# apart with depth even on one routing (deepseek-moe, kernel vs plain on
+# the kernel's experts: 1.62 / 2.35 / 3.06% of max|logit| at 8 / 16 / 28
+# layers), which the 3% logit check allows at MOE_LAYERS
 NEAR_TIE = 0.1
-# the layers of a config that its kernel-vs-plain logit check runs (the
-# first ones; the others: all).  Two bf16 paths drift apart with depth
-# even on one routing (tools/moe_drift.py: deepseek-moe, kernel vs plain
-# on the kernel's experts, 1.62 / 2.35 / 3.06% of max|logit| at 8 / 16 /
-# 28 layers, each path 2.7-2.9% from an f32 plain path at 28, the kernel
-# path no further than the plain one), so deepseek-moe's check runs 16
-PARITY_LAYERS = {"deepseek-moe-16b": 16}
 # full width, depth cut to CUT_LAYERS layers (the kernels see every layer
 # alike; the cut keeps the phase near two minutes)
 CUT = ("minitron-4b", "qwen2.5-32b", "musicgen-medium", "internvl2-2b")
 CUT_LAYERS = 2
 # the serve phase's stream shape (3 shared 64-token prefixes), with
 # shorter tails and outputs: each engine's eager twin launches every
-# kernel of its 28-32 layers from the host, ~10x its graphed time
+# layer's kernels from the host, ~10x its graphed time
 MOE_TAIL, MOE_NEW = 32, 8
 
 
@@ -2831,10 +3117,9 @@ def parity_logits(cfg, params, inp, kernels, blocks=None):
             ly.logits_fn(params, y, cfg)[0, :, :cfg.vocab_size])
 
 
-def logit_parity(cfg, params, dev, what, flush, bad, layers=None):
+def logit_parity(cfg, params, dev, what, flush, bad):
     """A decode step of 8 slots and a 32-token chunk's logits
-    (``parity_inputs``) through the first ``layers`` layers (None: all),
-    kernel path vs plain path on identical caches, the plain path forced
+    (``parity_inputs``), kernel path vs plain path on identical caches, the plain path forced
     onto the kernel path's experts (models/routing.py): within 3% of
     max|logit|, and greedy argmax equal where the plain path's margin
     exceeds twice that.  A failed check is appended to ``bad``."""
@@ -2844,9 +3129,9 @@ def logit_parity(cfg, params, dev, what, flush, bad, layers=None):
     inp = parity_inputs(cfg, params, dev)
     out = {}
     with RoutingProbe() as own:
-        out[None] = parity_logits(cfg, params, inp, None, layers)
+        out[None] = parity_logits(cfg, params, inp, None)
     with RoutingProbe(own.forcing()) as routing:
-        out[False] = parity_logits(cfg, params, inp, False, layers)
+        out[False] = parity_logits(cfg, params, inp, False)
     cache, tables, cur, pos = (inp[k] for k in ("cache", "tables", "cur",
                                                 "pos"))
     B = cur.shape[0]
@@ -2863,7 +3148,7 @@ def logit_parity(cfg, params, dev, what, flush, bad, layers=None):
           f"names; top kernels "
           + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top))
     del c
-    gaps = [] if layers is None else [f"first {layers} layers"]
+    gaps = []
     if cfg.family == "moe":
         if routing.worst > NEAR_TIE:
             bad.append(f"{what}: the plain path's own routing differs from "
@@ -2893,15 +3178,16 @@ def logit_parity(cfg, params, dev, what, flush, bad, layers=None):
 def phase_moe(dev):
     """The attention configs beyond gemma-2b on the paged slot engine,
     each graphed and as its eager twin (``twin_streams``).  granite-moe
-    at full width and depth serves the serve phase's stream; it provably
+    at full width, cut to MOE_LAYERS layers, serves the serve phase's
+    stream; it provably
     drops nothing (a chunk of prefill_bucket rows or a decode step of
     max_batch rows puts at most that many choices on one expert, both <=
     C), so its greedy tokens are held to a teacher-forced recompute of a
     dropless copy.  deepseek-moe (C 20 < 32: chunk prefill may drop) at
-    full width and depth serves 8 requests; the four other configs at
-    full width, cut to CUT_LAYERS layers, serve 4.  Each also holds a
-    decode step's and a chunk's logits, kernel path vs plain path
-    (deepseek-moe's through its first PARITY_LAYERS layers)."""
+    full width, cut to MOE_LAYERS layers, serves 8 requests; the four
+    other configs at full width, cut to CUT_LAYERS layers, serve 4.  Each
+    also holds a decode step's and a chunk's logits, kernel path vs plain
+    path."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import make_request_stream
     from repro_torch.models import moe
@@ -2911,17 +3197,14 @@ def phase_moe(dev):
     launches = 0
     bad = []                  # failed logit checks, reported at the end
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
-    for arch in MOE_FULL + CUT:
+    for arch in MOE + CUT:
         t0 = time.perf_counter()
-        cfg = get_config(arch)
-        cut = ""
-        if arch in CUT:
-            cfg = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
-            cut = f", depth cut to {CUT_LAYERS} layers"
+        layers = MOE_LAYERS if arch in MOE else CUT_LAYERS
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        cut = f", depth cut to {layers} layers"
         params = tf.init_params(cfg, seed=SEED, device=dev)
         secs = [time.perf_counter()]
-        parity = logit_parity(cfg, params, dev, arch, flush, bad,
-                              PARITY_LAYERS.get(arch))
+        parity = logit_parity(cfg, params, dev, arch, flush, bad)
         secs.append(time.perf_counter())
         serve = dataclasses.replace(cfg.serve, **SERVE)
         n = {"granite-moe-3b-a800m": 16, "deepseek-moe-16b": 8}.get(arch, 4)
@@ -3063,6 +3346,14 @@ REC_GAP_STEPS = 8
 # tolerance is about three times the largest reading, rounded up.
 REC_TOL_F32 = 1.5
 REC_TOL_BF16 = {"xlstm-1.3b": None, "zamba2-2.7b": 25.0}
+# the phase serves each config at full width cut to two of its layer
+# groups: xlstm-1.3b's groups are 7 mLSTM + 1 sLSTM blocks (16 of 48
+# layers), zamba2-2.7b's 6 Mamba-2 blocks and a shared block, alternating
+# between its two (12 of 54).  The eager twins and the eager sLSTM
+# prefill launch every layer's kernels from the host; the cut keeps the
+# whole run well inside its time limit.  Phase train-families trains
+# both at full depth.
+REC_LAYERS = {"xlstm-1.3b": 16, "zamba2-2.7b": 12}
 
 
 def recurrent_stream(cfg):
@@ -3271,7 +3562,8 @@ def phase_recurrent(dev):
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     for arch in RECURRENT:
         t0 = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=REC_LAYERS[arch])
         params = tf.init_params(cfg, seed=SEED, device=dev)
         serve = cfg.serve
         B = serve.max_batch
@@ -3355,7 +3647,8 @@ def phase_recurrent(dev):
         ntok = sum(len(c.tokens) for c in g["done"])
         tol_txt = ("reported only: bf16 cannot tell" if tol16 is None
                    else f"tol {tol16}%")
-        print(f"[recurrent] {arch} full width and depth: "
+        print(f"[recurrent] {arch} full width, depth cut to "
+              f"{cfg.num_layers} layers: "
               f"{cfg.param_count()} params, {len(reqs)} requests (prompts "
               f"{min(REC_PROMPTS)}-{max(REC_PROMPTS)}, "
               f"{sum(1 for r in reqs if r.temperature)} sampled, {REC_NEW} "
@@ -3407,6 +3700,259 @@ def phase_recurrent(dev):
         del g
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train-families
+# ---------------------------------------------------------------------------
+
+# (config, layers kept or None for all, the sketched leaf checked in situ,
+# the f32 directional-derivative check's eps or None for no check, the
+# pieces its direction covers: None for all, else a test of (leaf, layer,
+# layers)).  deepseek-moe-16b's
+# 16.9 B params and their gradients do not fit one card: 4 of its 28
+# layers.  The leaf is one that only the family has: an expert stack, the
+# shared experts, the embedding table the frontend stubs' batches never
+# read (a zero gradient), an mLSTM projection, a Mamba-2 projection
+FAMILIES = (("granite-moe-3b-a800m", None, "blocks/moe/we_gate", 1e-3, None),
+            ("deepseek-moe-16b", 4, "blocks/moe/ws_gate", None, None),
+            ("musicgen-medium", None, "embed", None, None),
+            ("internvl2-2b", None, "embed", None, None),
+            ("xlstm-1.3b", None, "blocks/mlstm/out_proj", 1e-2,
+             lambda name, i, n: name in ("head", "final_norm")
+             or (name.startswith("blocks/slstm/") and i == n - 1)),
+            ("zamba2-2.7b", None, "blocks/mamba/wx", 1e-3, None))
+FAM = dict(steps=3, batch=8, seq=128, lr=3e-4)
+# the directional check: d = N(0, 1) x (rms of each param piece + 1e-3),
+# from a seeded generator; central differences at eps, 2 eps and 4 eps.
+# eps is the config's: the recurrent gates bend the loss within 1e-2 of
+# the relative scale (reduced configs on the CPU: zamba2's fd within 0.3%
+# of <grad, d> at 1e-3, 42% off at 1e-2).  A random-init xLSTM's loss is
+# rough wherever an mLSTM block lies downstream (its normaliser
+# max(|q.n|, exp(-m)) divides by near 0): fd / <grad, d> swung 0.55-1.3
+# over eps 1e-4 .. 3e-3 along the mLSTM weights in both packages, and at
+# full width the three fd along every leaf but those disagreed in sign.
+# So its d covers the last sLSTM layer (the whole time loop's backward),
+# the final norm and the head, smooth to eps 1e-2 on the CPU (the three
+# fd within 0.4% of one another); the other gradients are held to the
+# reference's in f32 on the CPU (tests/test_torch_train_families.py)
+
+
+def forward_ms(cfg, params, batch):
+    """Device ms of one forward of ``loss_fn`` on ``batch`` under the
+    CUDA profiler (without autograd: the same kernels; the backward's
+    share is the profiled step's busy less its optimizer span and this,
+    which spares profiling the backward's recomputes twice)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as pf:
+        tf.loss_fn(params, batch, cfg)
+        torch.cuda.synchronize()
+    return sum(ns for _, _, ns in kernel_records(pf)) / 1e6
+
+
+def directional_check(cfg, params, dev, eps, scope=None):
+    """The f32 backward against central differences of the loss along a
+    seeded random direction d (0 on the pieces ``scope`` rejects): fd(e) =
+    (L(theta + e d) - L(theta - e d)) / 2e against <grad L, d>, at e =
+    eps, 2 eps, 4 eps.  Tolerance, sized from eps: 1% of |<grad L, d>|,
+    plus the spread of the three fd (the O(e^2) truncation grows 4x a
+    doubling, so the spread bounds it at eps, and roughness of the loss
+    shows in it), plus 16 ulp(L) / 2 eps (the f32 rounding of two loss
+    evaluations).  For
+    the moe family every evaluation runs on theta's routing (recorded,
+    then forced through models/routing.py), on which the loss is smooth;
+    the routing decisions that differ between theta +- eps d unforced are
+    counted and reported.  ``params`` is an f32 copy on the card,
+    perturbed in place and restored.  Returns the report line."""
+    import contextlib
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.routing import RoutingProbe
+    from repro_torch.train import data as data_lib
+    batch = data_lib.make_batch(cfg, 0, FAM["batch"], FAM["seq"], SEED, dev)
+    pieces = [t for _, ps in tf.param_leaves(params) for t in ps]
+    keep = [scope is None or scope(n, i, len(ps))
+            for n, ps in tf.param_leaves(params) for i in range(len(ps))]
+    scales = [(t.pow(2).mean().sqrt().item() + 1e-3) * k
+              for t, k in zip(pieces, keep)]
+
+    def directions():
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 17)
+        for t, sc in zip(pieces, scales):
+            yield t, torch.randn(t.shape, generator=g, device=dev).mul_(sc)
+
+    prev = ly.PDTYPE
+    ly.PDTYPE = torch.float32
+    try:
+        forcing = None
+        if cfg.family == "moe":
+            with RoutingProbe() as rec, torch.no_grad():
+                tf.loss_fn(params, batch, cfg)
+            forcing = rec.forcing()
+
+        def routed(n):
+            if forcing is None:
+                return contextlib.nullcontext()
+            return RoutingProbe({k: v * n for k, v in forcing.items()})
+
+        t0 = time.perf_counter()
+        with routed(2):          # the forward and each block's recompute
+            loss, grads = M.make_train_step(cfg)(params, batch)
+        gpieces = [t for _, ps in tf.param_leaves(grads) for t in ps]
+        dd = 0.0
+        for (t, d), gr in zip(directions(), gpieces):
+            dd += float(torch.sum(gr * d, dtype=torch.float64))
+        del grads, gpieces
+        flips = {}
+
+        def loss_at(e):
+            for t, d in directions():
+                t.add_(d, alpha=e)
+            try:
+                with torch.no_grad():
+                    if forcing is not None and abs(e) == eps:
+                        with RoutingProbe() as own:
+                            tf.loss_fn(params, batch, cfg)
+                        flips[e] = sum(
+                            int((c.topi.sort(-1).values
+                                 != forcing[c.layer][0].sort(-1).values)
+                                .any(-1).sum()) for c in own.calls)
+                    with routed(1):
+                        return float(tf.loss_fn(params, batch, cfg))
+            finally:
+                for t, d in directions():
+                    t.sub_(d, alpha=e)
+
+        L = {s * k * eps: loss_at(s * k * eps) for k in (1, 2, 4)
+             for s in (1, -1)}
+        secs = time.perf_counter() - t0
+    finally:
+        ly.PDTYPE = prev
+    fd = [(L[k * eps] - L[-k * eps]) / (2 * k * eps) for k in (1, 2, 4)]
+    fd1, spread = fd[0], max(fd) - min(fd)
+    ulp = float(np.spacing(np.float32(abs(float(loss)))))
+    tol = 0.01 * abs(dd) + spread + 16 * ulp / (2 * eps)
+    err = abs(fd1 - dd)
+    routing = ""
+    if forcing is not None:
+        rows = sum(int(v[0].shape[0] * v[0].shape[1])
+                   for v in forcing.values())
+        routing = (f"; routing decisions differing from theta's unforced: "
+                   f"{flips[eps]} rows at +eps d, {flips[-eps]} at -eps d "
+                   f"(of {rows} routed rows over the layers); the check runs "
+                   f"on theta's routing, where none differ")
+    if not (np.isfinite(dd) and err <= tol):
+        fail(f"directional check {cfg.name}: fd {fd1} vs <grad, d> {dd} "
+             f"(err {err}, tol {tol}){routing}")
+    return (f"f32 directional check: L {float(loss):.6f}, <grad L, d> "
+            f"{dd:.6e}, fd at eps {eps} / 2 eps / 4 eps "
+            + " / ".join(f"{x:.6e}" for x in fd)
+            + (f" (d on {sum(keep)} of {len(keep)} pieces)"
+               if scope else "")
+            + f"; |err| {err:.3e} <= tol {tol:.3e} (1% + spread "
+            f"{spread:.3e} + 16 ulp(L) / 2 eps {16 * ulp / (2 * eps):.3e})"
+            f"{routing}; {secs:.1f}s")
+
+
+def phase_train_families(dev):
+    """Every family through train/loop.py at full width, with sketched
+    AdamW (ratio 4, rows 3): see the module docstring, phase 8.  Returns
+    the sketch_update launches of the six runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.sketch_update import sketch_update
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import data as data_lib
+    from repro_torch.train.loop import train
+    total = 0
+    for arch, layers, leaf, eps, scope in FAMILIES:
+        check = eps is not None
+        t_cfg = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, sketch=dataclasses.replace(
+            cfg.sketch, opt_state_ratio=4, opt_state_rows=3,
+            opt_state_min_elems=1 << 16))
+        out = {}
+
+        def split(params, grads, opt, cfg=cfg, out=out):
+            batch = data_lib.make_batch(cfg, FAM["steps"] - 1, FAM["batch"],
+                                        FAM["seq"], SEED, dev)
+            out["fwd"] = forward_ms(cfg, params, batch)
+
+        def copy(params, grads, opt, out=out):
+            # the seeded init: a few sketched-AdamW steps move coordinates
+            # whose count-min v estimate is 0 by lr m_hat / eps (PERF.md)
+            out["f32"] = tf.tree_map(
+                lambda t: t.to(torch.float32, copy=True), params)
+
+        hooks = {FAM["steps"] - 1: split}
+        if check:
+            hooks[0] = copy
+        probe = TrainProbe(leaf=leaf, prof=1, lr=FAM["lr"], hooks=hooks)
+        logs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sketch_update.launches = 0
+        hist = train(cfg, steps=FAM["steps"], batch=FAM["batch"],
+                     seq=FAM["seq"], lr=FAM["lr"], seed=SEED, device=dev,
+                     log_every=1, log_fn=logs.append, on_grads=probe)
+        torch.cuda.synchronize()
+        launches = sketch_update.launches
+        total += launches
+        peak = torch.cuda.max_memory_allocated()
+        b = probe.moment_bytes
+        if not all(np.isfinite(hist.losses)) or launches <= 0 \
+                or probe.report is None or probe.breakdown is None \
+                or "fwd" not in out:
+            fail(f"train-families {arch}: losses {hist.losses}, "
+                 f"sketch_update launches {launches}, in-situ "
+                 f"{probe.report}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        line = ""
+        if check:
+            line = directional_check(cfg, out.pop("f32"), dev, eps, scope)
+            gc.collect()
+            torch.cuda.empty_cache()
+        fwd = out["fwd"]
+        bwd = probe.busy_ms - probe.opt_ms - fwd
+        tokens = FAM["batch"] * FAM["seq"]
+        print(f"[train-families] {arch} ({cfg.family}, {cfg.num_layers} "
+              f"layers, {cfg.param_count()} params), batch {FAM['batch']} x "
+              f"seq {FAM['seq']}, sketched AdamW ratio 4 rows 3: losses "
+              + ", ".join(f"{x:.4f}" for x in hist.losses) + "; step ms "
+              + ", ".join(f"{t * 1e3:.1f}" for t in hist.step_times)
+              + " (step 0 copies the in-situ leaf"
+              + (" and the params to f32" if check else "")
+              + ", step 1 checks the leaf and the profiler runs from its "
+              "optimizer to step 2's backward, step 2 profiles a forward"
+              + f"); {tokens / probe.window_ms * 1e3:.1f} tokens/s over the "
+              f"profiled step's wall {probe.window_ms:.3f} ms (device busy "
+              f"{probe.busy_ms:.3f} ms); one step's device ms: forward "
+              f"{fwd:.3f}, backward {bwd:.3f} (recomputes included: the "
+              f"step's busy less its optimizer span and the forward), "
+              f"sketch_update {probe.sketch_ms:.3f} (bound "
+              f"{probe.bound[0]:.3f}); moments {b['sketched']} B sketched + "
+              f"{b['dense']} B dense leaves (dense AdamW "
+              f"{8 * cfg.param_count()} B); peak allocated {peak} B "
+              f"({peak / 2 ** 30:.2f} GiB); sketch_update launches "
+              f"{launches}; {time.perf_counter() - t_cfg:.1f}s; {card()}",
+              flush=True)
+        for ln in logs:
+            print(f"[train-families] {arch}: {ln}")
+        print(f"[train-families] {arch}: {probe.report}")
+        print(f"[train-families] {arch}: {probe.breakdown}")
+        if line:
+            print(f"[train-families] {arch}: {line}", flush=True)
+        del probe, hist, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
 
 
 def _leaves(tree):
@@ -3498,6 +4044,9 @@ def main() -> None:
     held("moe, its models freed")
     phase_recurrent(dev)
     lap("phase recurrent")
+    held("recurrent, its models freed")
+    fam_launches = phase_train_families(dev)
+    lap("phase train-families")
 
     d = rows["decode"]
     sk = sk_rows[SKETCH_MAIN]
@@ -3520,6 +4069,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/sketch_update.cu",
         "replaces": "src/repro/kernels/sketch_update.py:125",
         "launches": sk_launches,
+        # phase train-families' six runs
+        "families_launches": fam_launches,
         "max_abs_err": max(r["max_abs_err"] for r in sk_rows.values()),
         "ms": sk["kernel_ms"], "plain_ms": sk["plain_ms"],
         "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],

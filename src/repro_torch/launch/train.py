@@ -7,9 +7,13 @@
 The flags are the reference's (``repro/launch/train.py``) plus
 ``--device``.  The reduced config is the default and ``--full`` trains
 the published widths; weights are random, from a seeded
-``torch.Generator``.  ``--grad-compression`` is accepted and raises
-until FCS gradient compression is ported.  Without a card and without
-``--device cpu`` the driver raises.
+``torch.Generator``.  Every config trains, the moe family with its
+router aux loss and the audio and vlm families on their frontend stubs'
+embeddings.  ``--grad-compression`` replaces every gradient leaf of at
+least 64Ki elements by its FCS sketch's estimate each step
+(train/grad_compress.py; of the reduced configs only the moe and
+recurrent ones have such leaves).  Without a
+card and without ``--device cpu`` the driver raises.
 """
 from __future__ import annotations
 

@@ -136,7 +136,7 @@ def opt_state_from_reference(state: Any, cfg: ModelConfig,
     def pieces(a, path: str):
         a = np.asarray(a)
         if path.startswith("blocks/"):
-            return [to_torch(a[i], dev) for i in range(cfg.num_layers)]
+            return [to_torch(a[i], dev) for i in range(a.shape[0])]
         return [to_torch(a, dev)]
 
     moments = []

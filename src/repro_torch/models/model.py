@@ -26,11 +26,16 @@ def make_train_step(cfg: ModelConfig
             t.requires_grad_(True)
         try:
             loss = tf.loss_fn(params, batch, cfg)
-            flat = iter(torch.autograd.grad(loss, leaves))
+            # a leaf the loss does not read (the embedding table under a
+            # frontend stub's embeds) gets zeros, as from jax.grad
+            flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        by_id = {id(t): next(flat) for t in leaves}
+        by_id = {}
+        for t in leaves:
+            g = next(flat)
+            by_id[id(t)] = torch.zeros_like(t) if g is None else g
         grads = tf.tree_map(lambda t: by_id[id(t)], params)
         return loss.detach(), grads
     return train_step

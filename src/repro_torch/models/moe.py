@@ -23,10 +23,15 @@ captured as CUDA graphs and replay bitwise as their eager twins.
 Top-k takes a stable descending sort: ties (the zero pad rows' uniform
 probabilities) go to the lower expert index, as ``jax.lax.top_k``'s do.
 
-The load-balance aux loss is ``aux_loss``, apart from the forward: the
-port serves moe models and does not train them, so no forward pays for
-it.  ``probe`` (models/routing.py) sees every call's routing under its
-layer and may replace it; it is None outside oracles and tests.
+The load-balance aux loss is ``aux_loss``; ``moe_ffn`` returns it
+beside its output when the training forward asks (``with_aux``), the
+serve paths never pay for it.  Its gradient reaches the router through
+the mean probabilities alone (the one-hot token fractions are constant),
+as in the reference; the router's other gradient comes through the
+combine weights, and a dropped (token, choice) pair, weighted 0, adds
+nothing forward or backward.  ``probe`` (models/routing.py) sees every
+call's routing under its layer and may replace it; it is None outside
+oracles and tests.
 """
 from __future__ import annotations
 
@@ -116,11 +121,12 @@ def aux_loss(probs: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig
 
 
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-            layer: int = 0, positions: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
-    """x: (B, S, d) bf16 -> out (B, S, d).  ``layer`` and ``positions``
-    ((B, S) absolute positions of x's rows, or None) only reach
-    ``probe``."""
+            layer: int = 0, positions: Optional[torch.Tensor] = None,
+            with_aux: bool = False):
+    """x: (B, S, d) bf16 -> out (B, S, d), or with ``with_aux`` (out, the
+    call's aux loss ``aux_loss`` of the routing it ran, f32 scalar).
+    ``layer`` and ``positions`` ((B, S) absolute positions of x's rows,
+    or None) only reach ``probe``."""
     m = cfg.moe
     B, S, d = x.shape
     E, K = m.num_experts, m.top_k
@@ -133,7 +139,7 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     routing = route(p, xg, cfg)
     if probe is not None:
         routing = probe(layer, positions, routing, cfg)
-    _, topw, topi, pos, keep = routing
+    probs, topw, topi, pos, keep = routing
 
     # slot -> token table of each group; slot E*C takes the dropped
     # choices and is cut off, and token index g is a zero row
@@ -159,4 +165,5 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         y = y + ly.glu_ffn({"w_gate": p["ws_gate"], "w_up": p["ws_up"],
                             "w_down": p["ws_down"]}, xg, cfg.act)
 
-    return y.reshape(G * g, d)[:T].view(B, S, d)
+    y = y.reshape(G * g, d)[:T].view(B, S, d)
+    return (y, aux_loss(probs, topi, cfg)) if with_aux else y

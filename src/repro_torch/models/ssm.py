@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ly
@@ -154,9 +155,12 @@ def _ssd_chunked(X: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor,
     # Yd[i] = sum_j (C_i . B_j) L[i, j] Xt[j], L the masked decay
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)         # bf16
     ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,i,j,H)
+    # above the diagonal ldiff > 0 grows to hundreds at full width: the
+    # exponent is masked before exp (the same values as the reference's
+    # where(mask, exp(ldiff), 0)), so no inf meets a zero gradient there
     mask = torch.ones(cs, cs, dtype=torch.bool, device=X.device).tril()
-    L = torch.where(mask[None, None, :, :, None], torch.exp(ldiff),
-                    torch.zeros((), device=X.device)).to(wdt)
+    L = torch.exp(ldiff.masked_fill(~mask[None, None, :, :, None],
+                                    -math.inf)).to(wdt)
     W = scores[..., None] * L                               # (B,nc,i,j,H)
     Yd = torch.einsum("bcijh,bcjhp->bcihp", W, Xt)
 
@@ -368,24 +372,44 @@ def _mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b = torch.cumsum(logf, dim=1)                           # (B, S, H)
     kT = k.permute(0, 2, 3, 1)                              # (B, H, hd, S)
     vh = v.permute(0, 2, 1, 3)                              # (B, H, S, hd)
-    k_pos = torch.arange(S, device=q.device)
+    bk = b.permute(0, 2, 1)[:, :, None, :]                  # (B, H, 1, S)
+    ik = i_pre.permute(0, 2, 1)[:, :, None, :]
+    # under autograd each chunk is recomputed in the backward, as the
+    # reference's jax.checkpoint per chunk: its (B, H, r, S) products are
+    # never all held at once
+    grad = torch.is_grad_enabled()
     out = []
     for q0 in range(0, S, qc):
         rows = min(qc, S - q0)
         qi = q[:, q0:q0 + rows].permute(0, 2, 1, 3)         # (B, H, r, hd)
         bq = b[:, q0:q0 + rows].permute(0, 2, 1)            # (B, H, r)
-        causal = (q0 + torch.arange(rows, device=q.device))[:, None] \
-            >= k_pos[None, :]                               # (r, S)
-        Dm = bq[..., None] - b.permute(0, 2, 1)[:, :, None, :] \
-            + i_pre.permute(0, 2, 1)[:, :, None, :]         # (B, H, r, S)
-        Dm = Dm.masked_fill(~causal, -math.inf)
-        m = Dm.amax(dim=-1)                                 # (B, H, r)
-        Dp = torch.exp(Dm - m[..., None]).to(q.dtype)
-        w = (qi @ kT) * Dp                                  # (B, H, r, S)
-        num = w @ vh                                        # (B, H, r, hd)
-        den = torch.maximum(w.float().sum(-1).abs(), torch.exp(-m))
-        out.append((num / den[..., None].to(num.dtype)).permute(0, 2, 1, 3))
+        if grad:
+            h = checkpoint(_mlstm_chunk, qi, bq, bk, ik, kT, vh, q0,
+                           use_reentrant=False)
+        else:
+            h = _mlstm_chunk(qi, bq, bk, ik, kT, vh, q0)
+        out.append(h)
     return torch.cat(out, dim=1)
+
+
+def _mlstm_chunk(qi: torch.Tensor, bq: torch.Tensor, bk: torch.Tensor,
+                 ik: torch.Tensor, kT: torch.Tensor, vh: torch.Tensor,
+                 q0: int) -> torch.Tensor:
+    """One query chunk of ``_mlstm_parallel``: rows q0 .. q0 + r of the
+    queries qi (B, H, r, hd) with their cumulative log forget gates bq
+    (B, H, r), against every key's cumulative log forget gate bk and
+    input gate ik (B, H, 1, S), kT (B, H, hd, S) and vh (B, H, S, hd).
+    Returns h (B, r, H, hd)."""
+    rows, S = qi.shape[2], kT.shape[-1]
+    causal = (q0 + torch.arange(rows, device=qi.device))[:, None] \
+        >= torch.arange(S, device=qi.device)[None, :]       # (r, S)
+    Dm = (bq[..., None] - bk + ik).masked_fill(~causal, -math.inf)
+    m = Dm.amax(dim=-1)                                     # (B, H, r)
+    Dp = torch.exp(Dm - m[..., None]).to(qi.dtype)
+    w = (qi @ kT) * Dp                                      # (B, H, r, S)
+    num = w @ vh                                            # (B, H, r, hd)
+    den = torch.maximum(w.float().sum(-1).abs(), torch.exp(-m))
+    return (num / den[..., None].to(num.dtype)).permute(0, 2, 1, 3)
 
 
 def init_mlstm_state(cfg: ModelConfig, n: int, batch: int,
@@ -456,7 +480,10 @@ def _slstm_cell(p: dict, c: torch.Tensor, n: torch.Tensor, h: torch.Tensor,
     ip = torch.exp(it - m_new)
     c = fp * c + ip * zt
     n = fp * n + ip
-    h = ot * c / torch.clamp(n, min=1.0)
+    # maximum, not clamp: the same values, and at n == 1 (every unit
+    # whose first input gate leads its forget gate) the gradient splits
+    # as the reference's jnp.maximum splits it
+    h = ot * c / torch.maximum(n, n.new_ones(()))
     return c, n, h, m_new
 
 

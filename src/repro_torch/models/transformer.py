@@ -82,34 +82,38 @@ def param_leaves(params: Params) -> List[Tuple[str, List[torch.Tensor]]]:
     """The reference's parameter leaves in ``jax.tree.flatten`` order, each
     as (path, pieces): a stacked block leaf ("blocks/attn/wq") has its L
     per-layer tensors as pieces, a top-level leaf itself.  Works on any
-    tree shaped like the params (gradients, dense moments)."""
+    tree shaped like the params (gradients, dense moments).  The walk is
+    module-level recursion: a recursive closure would make a reference
+    cycle holding every leaf (a step's gradients) until the cyclic
+    collector ran."""
     out: List[Tuple[str, List[torch.Tensor]]] = []
-
-    def walk(node: Any, path: str) -> None:
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{path}/{k}" if path else k)
-        else:
-            out.append((path, [node]))
-
-    def stacked(nodes: List[Any], path: str) -> None:
-        if isinstance(nodes[0], dict):
-            for kk in sorted(nodes[0]):
-                stacked([n[kk] for n in nodes], f"{path}/{kk}")
-        else:
-            out.append((path, list(nodes)))
-
     for k in sorted(params):
         if k != "blocks":
-            walk(params[k], k)
+            _walk_leaves(params[k], k, out)
         elif isinstance(params[k], dict):        # the recurrent families
             for kk in sorted(params[k]):
-                stacked(params[k][kk], f"blocks/{kk}")
+                _stacked_leaves(params[k][kk], f"blocks/{kk}", out)
         else:
-            stacked(params[k], "blocks")
+            _stacked_leaves(params[k], "blocks", out)
     return out
+
+
+def _walk_leaves(node: Any, path: str, out: list) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_leaves(node[k], f"{path}/{k}" if path else k, out)
+    else:
+        out.append((path, [node]))
+
+
+def _stacked_leaves(nodes: List[Any], path: str, out: list) -> None:
+    if isinstance(nodes[0], dict):
+        for kk in sorted(nodes[0]):
+            _stacked_leaves([n[kk] for n in nodes], f"{path}/{kk}", out)
+    else:
+        out.append((path, list(nodes)))
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -121,18 +125,6 @@ def _paged_family(cfg: ModelConfig) -> None:
     if cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"paged KV needs an attention family, got "
                          f"{cfg.family!r}")
-
-
-def _trainable(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "training the moe family (the router's aux loss and its "
-            "backward) is not ported yet; see ROADMAP Queue 1 #20")
-    if cfg.family in RECURRENT_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family (the backward through its "
-            f"recurrences, the sLSTM's time loop included) is not ported "
-            f"yet; see ROADMAP Queue 1 #21")
 
 
 # ---------------------------------------------------------------------------
@@ -254,10 +246,37 @@ def _ffn_residual(p_l: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _train_block(p_l: dict, x: torch.Tensor, cfg: ModelConfig,
-                 layer: int = 0):
+                 layer: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One attention block of the training forward: (x after the block,
+    the block's aux loss: the router's for the moe family, else 0)."""
     h = ly.rms_norm(x, p_l["norm1"], cfg.norm_eps)
-    return _ffn_residual(p_l, x + ly.causal_attention(p_l["attn"], h, cfg),
-                         cfg, layer=layer)
+    x = x + ly.causal_attention(p_l["attn"], h, cfg)
+    if cfg.family != "moe":
+        return _ffn_residual(p_l, x, cfg), x.new_zeros((), dtype=torch.float32)
+    f, aux = moe.moe_ffn(p_l["moe"], ly.rms_norm(x, p_l["norm2"],
+                                                 cfg.norm_eps),
+                         cfg, layer, with_aux=True)
+    return x + f, aux
+
+
+def _train_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: (final-normed hidden, summed aux loss f32).
+    Every block runs under ``checkpoint``, its activations recomputed in
+    the backward, as the reference's ``jax.checkpoint`` over its layer
+    scans.  The aux loss leaves each attention block as an output of its
+    checkpointed body, beside x: a value appended from inside the body
+    would be appended again when the backward recomputes it."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    if cfg.family in RECURRENT_FAMILIES:
+        run = _forward_xlstm if cfg.family == "ssm" else _forward_zamba
+        x, _ = run(params, x, cfg, "train", None, None)
+    else:
+        for i, p_l in enumerate(params["blocks"]):
+            x, a = checkpoint(_train_block, p_l, x, cfg, i,
+                              use_reentrant=False)
+            aux = aux + a
+    return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -271,7 +290,8 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     Modes: "train" (full-sequence causal; each block's activations are
     recomputed in the backward, as the reference's
-    ``jax.checkpoint(nothing_saveable)`` over the layer scan), "decode" (one
+    ``jax.checkpoint(nothing_saveable)`` over the layer scan; the moe
+    family's aux loss is ``loss_fn``'s, see ``_train_forward``), "decode" (one
     token per slot at per-slot positions ``index`` (B,) through the block
     ``tables`` (B, nb)), "verify" (S consecutive tokens per slot from
     ``index``: the speculative verify step), "chunk" (a (1, C) prompt
@@ -297,18 +317,15 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     place and returning it).
     """
     _check_family(cfg)
+    if mode == "train":
+        return _train_forward(params, x, cfg)[0], None
     if cfg.family in RECURRENT_FAMILIES:
-        if mode not in ("train", "prefill", "decode"):
+        if mode not in ("prefill", "decode"):
             raise ValueError(f"mode {mode!r} needs a kv-cache family, got "
                              f"{cfg.family!r}")
         run = _forward_xlstm if cfg.family == "ssm" else _forward_zamba
         y, new_cache = run(params, x, cfg, mode, cache, index)
         return ly.rms_norm(y, params["final_norm"], cfg.norm_eps), new_cache
-    if mode == "train":
-        for i, p_l in enumerate(params["blocks"]):
-            x = checkpoint(_train_block, p_l, x, cfg, i,
-                           use_reentrant=False)
-        return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), None
     if mode not in ("decode", "verify", "chunk"):
         raise ValueError(f"mode {mode!r} is not ported (train / decode / "
                          f"verify / chunk)")
@@ -363,8 +380,9 @@ def _forward_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    mode: str, cache: Optional[dict],
                    index: Optional[torch.Tensor]):
     """xLSTM[m:s]: each group runs its m_per_group mLSTM blocks, then its
-    s_per_group sLSTM blocks, each a residual branch.  Returns (hidden
-    before the final norm, cache)."""
+    s_per_group sLSTM blocks, each a residual branch (in "train" mode each
+    under ``checkpoint``, as the reference's ``jax.checkpoint`` per
+    block).  Returns (hidden before the final norm, cache)."""
     xl = cfg.xlstm
     m_per, s_per = xl.m_per_group, xl.s_per_group
     blocks = params["blocks"]
@@ -376,6 +394,10 @@ def _forward_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
         for kind, n, block in (("mlstm", m_per, ssm.mlstm_block),
                                ("slstm", s_per, ssm.slstm_block)):
             for i in range(g * n, (g + 1) * n):
+                if mode == "train":
+                    h = checkpoint(_residual, block, blocks[kind][i], h, cfg,
+                                   use_reentrant=False)
+                    continue
                 st = ssm.layer_view(cache[kind], i) if decode else None
                 out, ns = block(blocks[kind][i], h, cfg, state=st,
                                 want_state=want)
@@ -387,13 +409,32 @@ def _forward_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return h, cache if decode else None
 
 
+def _residual(block: Callable, p: dict, h: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """h plus a recurrent block's full-sequence output from a zero state:
+    the body the training forward checkpoints per block."""
+    return h + block(p, h, cfg)[0]
+
+
+def _shared_block(p_s: dict, h: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """A zamba2 shared block on the full sequence (attention, then the GLU
+    FFN, each a residual branch): the training forward's checkpointed
+    body."""
+    a = ly.causal_attention(p_s["attn"], ly.rms_norm(h, p_s["norm1"],
+                                                     cfg.norm_eps), cfg)
+    return _ffn_residual(p_s, h + a, cfg)
+
+
 def _forward_zamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    mode: str, cache: Optional[dict],
                    index: Optional[torch.Tensor]):
     """Zamba2: group g runs its mamba_per_group Mamba-2 blocks, then the
     shared block g % num_shared_blocks (attention and GLU FFN, each a
-    residual branch) against group g's own KV cache.  Returns (hidden
-    before the final norm, cache)."""
+    residual branch) against group g's own KV cache.  In "train" mode
+    each Mamba-2 block and each shared block's application runs under
+    ``checkpoint``, as in the reference.  Returns (hidden before the
+    final norm, cache)."""
     hb = cfg.hybrid
     per = hb.mamba_per_group
     blocks = params["blocks"]
@@ -404,6 +445,14 @@ def _forward_zamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(x.shape[1], device=x.device)
     h = x
     for g in range(cfg.num_layers // per):
+        p_s = blocks["shared"][g % hb.num_shared_blocks]
+        if mode == "train":
+            for i in range(g * per, (g + 1) * per):
+                h = checkpoint(_residual, ssm.mamba2_block,
+                               blocks["mamba"][i], h, cfg,
+                               use_reentrant=False)
+            h = checkpoint(_shared_block, p_s, h, cfg, use_reentrant=False)
+            continue
         for i in range(g * per, (g + 1) * per):
             st = ssm.layer_view(cache["mamba"], i) if decode else None
             out, ns = ssm.mamba2_block(blocks["mamba"][i], h, cfg, state=st,
@@ -411,7 +460,6 @@ def _forward_zamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
             h = h + out
             if want:
                 mamba.append(ns)
-        p_s = blocks["shared"][g % hb.num_shared_blocks]
         a_in = ly.rms_norm(h, p_s["norm1"], cfg.norm_eps)
         if decode:
             a = ly.dense_decode_attention(
@@ -464,20 +512,25 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig
     return ly.logits_fn(params, y[:, -1:], cfg)[:, 0], cache
 
 
-def embed_inputs(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return ly.embed_tokens(params["embed"], tokens)
+def embed_inputs(params: Params, batch) -> torch.Tensor:
+    """The model's (B, S, d) inputs: a batch's precomputed frontend
+    embeddings ("embeds", the audio and vlm families' training batches),
+    cast to bf16, or the embedding rows of its token ids ("tokens"; or
+    of ``batch`` itself, a (B, S) token tensor)."""
+    if isinstance(batch, dict):
+        if "embeds" in batch:
+            return batch["embeds"].to(ly.PDTYPE)
+        batch = batch["tokens"]
+    return ly.embed_tokens(params["embed"], batch)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch`` {"tokens", "labels"}
-    (B, S) int: the reference's ``loss_fn`` for the families without an
-    aux loss.  The moe family's loss adds the router's load-balance aux
-    loss, which is not ported: it raises."""
-    _trainable(cfg)
-    y, _ = forward(params, embed_inputs(params, batch["tokens"]), cfg,
-                   mode="train")
-    return ly.cross_entropy(params, y, batch["labels"], cfg)
+    """Mean next-token cross entropy of ``batch`` ({"tokens" or "embeds",
+    "labels"}) plus the summed aux loss (the moe family's router
+    load-balance loss; 0 for the others): the reference's ``loss_fn``."""
+    y, aux = _train_forward(params, embed_inputs(params, batch), cfg)
+    return ly.cross_entropy(params, y, batch["labels"], cfg) + aux
 
 
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,

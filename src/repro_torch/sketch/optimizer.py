@@ -30,8 +30,15 @@ the CPU the plain version applies and frees each piece's estimates
 before the next piece's are made.
 
 Params and moments are updated in place (the reference returned new
-pytrees).  Sketched Adagrad is not reached by ``make_optimizer`` and is
-not ported yet (ROADMAP Queue 1 #13).
+pytrees).
+
+Sketched Adagrad (``sketched_adagrad_init`` / ``_update``): the second
+moment alone, accumulated rather than averaged, in one count-min table
+per large leaf (seed ``_leaf_seed(seed, i)``, as the reference's), or
+dense f32 pieces below ``min_elems``; the same leaf rules as sketched
+AdamW.  Plain PyTorch on ``CSVec`` (the reference runs it in jnp, no
+Pallas kernel); ``make_optimizer`` does not reach it, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -42,7 +49,8 @@ import torch
 
 from repro_torch.kernels.ops import sketch_apply_op
 from repro_torch.models.transformer import Params, param_leaves
-from repro_torch.sketch.csvec import CSVec, csvec_zeros, state_bytes
+from repro_torch.sketch.csvec import (CSVec, accumulate, csvec_zeros, query,
+                                     state_bytes)
 from repro_torch.train.optimizer import adamw_leaf_update, bias_corrections
 
 DEFAULT_MIN_ELEMS = 1 << 16
@@ -129,6 +137,60 @@ def sketched_adamw_update(grads: Params, state: SketchedAdamWState,
                         mo.v.coeffs, b1=b1, b2=b2, lr=lr, eps=eps,
                         weight_decay=weight_decay, bc1=bc1, bc2=bc2,
                         use_kernel=use_kernel)
+    return params, state
+
+
+@dataclasses.dataclass
+class SketchedAdagradState:
+    step: int                 # steps taken
+    # one per reference leaf, param_leaves order: a count-min CSVec of
+    # the stacked leaf, or its dense f32 pieces
+    moments: List[Union[CSVec, List[torch.Tensor]]]
+
+
+def sketched_adagrad_init(params: Params, ratio: int, rows: int = 3,
+                          min_elems: int = DEFAULT_MIN_ELEMS,
+                          seed: int = 0) -> SketchedAdagradState:
+    moments: List[Union[CSVec, List[torch.Tensor]]] = []
+    for i, (_, pieces) in enumerate(param_leaves(params)):
+        numel = sum(p.numel() for p in pieces)
+        dev = pieces[0].device
+        if ratio > 0 and numel >= min_elems:
+            moments.append(csvec_zeros(
+                numel, _cols_for(numel, ratio, rows), rows,
+                seed=_leaf_seed(seed, i), signed=False, device=dev))
+        else:
+            moments.append([torch.zeros(p.shape, dtype=torch.float32,
+                                        device=dev) for p in pieces])
+    return SketchedAdagradState(step=0, moments=moments)
+
+
+def sketched_adagrad_update(grads: Params, state: SketchedAdagradState,
+                            params: Params, lr: float = 1e-2,
+                            eps: float = 1e-8
+                            ) -> Tuple[Params, SketchedAdagradState]:
+    """One sketched-Adagrad step, in place on params and state: v += g^2
+    (every piece of a sketched leaf accumulated before any is read), then
+    p -= lr g / (sqrt(max(v_hat, 0)) + eps)."""
+    leaves = zip(param_leaves(params), param_leaves(grads), state.moments)
+    for (_, ps), (_, gs), mo in leaves:
+        sketched = isinstance(mo, CSVec)
+        off = 0
+        for i, g in enumerate(gs):
+            if sketched:
+                accumulate(mo, torch.square(g.float()), offset=off)
+            else:
+                mo[i].add_(torch.square(g.float()))
+            off += g.numel()
+        off = 0
+        for i, (p, g) in enumerate(zip(ps, gs)):
+            vh = mo[i] if not sketched else query(mo, torch.arange(
+                off, off + p.numel(), device=p.device)).clamp_min(
+                0.0).reshape(p.shape)
+            off += p.numel()
+            p.copy_((p.float() - lr * g.float() / (torch.sqrt(vh) + eps)
+                     ).to(p.dtype))
+    state.step += 1
     return params, state
 
 

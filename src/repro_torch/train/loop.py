@@ -11,10 +11,13 @@
   * a loss-spike record: steps whose loss is above ``spike_factor`` x the
     loss EMA are listed in ``TrainHistory.spikes`` and applied all the
     same (the reference records them in ``skipped`` and never skips);
-  * sketched optimizer state when ``cfg.sketch.opt_state_ratio > 0``.
-
-FCS gradient compression (``grad_compression``) is not ported yet and
-raises (ROADMAP Queue 1 #13).
+  * sketched optimizer state when ``cfg.sketch.opt_state_ratio > 0``;
+  * optional FCS gradient compression (``grad_compression``;
+    train/grad_compress.py): every leaf of at least 64Ki elements is
+    replaced by its sketch's unbiased estimate each step, before the
+    optimizer and ``on_grads`` see it, with hashes drawn fresh from
+    (``cfg.sketch.seed``, step, leaf); the placeholder error-feedback
+    state is checkpointed beside params and optimizer state.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as tf
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import data as data_lib
+from repro_torch.train.grad_compress import (_leaf_codecs,
+                                             init_error_feedback,
+                                             make_compressed_train_step)
 from repro_torch.train.optimizer import make_optimizer
 
 StepCallback = Callable[[int, tf.Params, tf.Params, Any], None]
@@ -52,15 +58,11 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           on_grads: Optional[StepCallback] = None) -> TrainHistory:
     """Single-process trainer on ``device`` (default the card).
     ``on_grads(step, params, grads, opt_state)``, when given, is called
-    each step after the gradients are computed and before the optimizer
-    changes anything (an inspection hook: it must not mutate)."""
+    each step with the gradients the optimizer will apply (compressed,
+    with ``grad_compression``), before it changes anything (an
+    inspection hook: it must not mutate)."""
     compress = (cfg.sketch.grad_compression if grad_compression is None
                 else grad_compression)
-    if compress:
-        raise NotImplementedError(
-            "FCS gradient compression (train/grad_compress.py) is not "
-            "ported yet; see ROADMAP Queue 1 #13")
-    tf._trainable(cfg)
     dev = resolve_device(device)
     params = tf.init_params(cfg, seed=seed, device=dev)
     opt_init, opt_update = make_optimizer(cfg, lr=lr)
@@ -72,14 +74,28 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                   if b["sketched"] else 1.0)
         log_fn(f"[opt] sketched moments: {b['sketched']} B sketched "
                f"({shrink:.1f}x vs dense) + {b['dense']} B dense leaves")
+    ef = None
+    if compress:
+        ef = init_error_feedback(params)
+        codecs = [c for c in _leaf_codecs(params, cfg.sketch.grad_hash_ratio)
+                  if c is not None]
+        n = sum(c.I1 * c.k - c.pad for c in codecs)
+        log_fn(f"[grad-compress] {len(codecs)} of {len(ef)} leaves "
+               f"compressed at ratio {cfg.sketch.grad_hash_ratio}: "
+               f"{sum(c.Jt for c in codecs)} sketch floats a step for "
+               f"{n} gradient elements")
     start_step = 0
-    state: Dict[str, Any] = {"params": params, "opt": opt}
+    state: Dict[str, Any] = {"params": params, "opt": opt, "ef": ef}
     if resume and ckpt_dir and ckpt_lib.latest_step(ckpt_dir) is not None:
         start_step, _ = ckpt_lib.restore(ckpt_dir, state)
-        params, opt = state["params"], state["opt"]
+        params, opt, ef = state["params"], state["opt"], state["ef"]
         log_fn(f"[resume] from step {start_step}")
 
-    train_step = M.make_train_step(cfg)
+    if compress:
+        train_step = make_compressed_train_step(cfg)
+    else:
+        base_step = M.make_train_step(cfg)
+        train_step = lambda p, e, b, s: (*base_step(p, b), e)
     hist = TrainHistory()
     ema_time = None
     ema_loss = None
@@ -88,7 +104,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             raise RuntimeError(f"injected crash at step {step}")
         bd = data_lib.make_batch(cfg, step, batch, seq, seed, dev)
         t0 = time.time()
-        loss, grads = train_step(params, bd)
+        loss, grads, ef = train_step(params, ef, bd, step)
         if on_grads is not None:
             on_grads(step, params, grads, opt)
         params, opt = opt_update(grads, opt, params)
@@ -108,6 +124,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         if step % log_every == 0:
             log_fn(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
         if ckpt_dir and (step + 1) % ckpt_every == 0:
-            ckpt_lib.save(ckpt_dir, step + 1, {"params": params, "opt": opt},
+            ckpt_lib.save(ckpt_dir, step + 1,
+                          {"params": params, "opt": opt, "ef": ef},
                           extra={"cfg": cfg.name})
     return hist

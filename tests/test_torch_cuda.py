@@ -11,7 +11,9 @@ unsketch, the reduced moe configs graphed bitwise their eager twins
 with kernel-path logits within tolerance of the plain path, and the
 reduced recurrent configs' engines (xlstm-1.3b, zamba2-2.7b) graphed
 bitwise their eager twins, an admission in the overlap window landing
-in place.  Every test
+in place, an FCS-compressed gradient leaf on the card against its CPU
+computation from the same hashes, and a reduced moe and xlstm train step
+on the card against the CPU's.  Every test
 carries the ``cuda`` marker and skips without a card; the file imports
 nothing of JAX, so it runs on the card's machine:
 
@@ -1232,3 +1234,99 @@ def test_recurrent_admission_between_dispatches_lands_in_place(card, arch):
     for (ra, ta), (rb, tb) in zip(dg, de):
         assert ra == rb and np.array_equal(ta, tb)
     assert all(torch.equal(a, b) for a, b in zip(sg, se))
+
+
+# ---------------------------------------------------------------------------
+# Training every family; FCS gradient compression
+# ---------------------------------------------------------------------------
+
+
+def test_compressed_leaf_on_the_card_equals_its_cpu_computation(card):
+    """A stacked leaf of three pieces whose rows straddle them, a padded
+    tail and chunks cut small: from the same hashes, the card's sketch
+    within f32 rounding of the CPU's (``index_add_`` adds with atomics in
+    a varying order), its estimate given the CPU's sketch bitwise the
+    CPU's, and the round trip in place in bf16 bitwise the estimate of
+    its own sketch."""
+    from repro_torch.train import grad_compress as gcm
+    g = torch.as_tensor(np.random.RandomState(3).randn(3, 700, 33)
+                        .astype(np.float32))
+    n = g.numel()
+    c = gcm.LeafCodec(5, -(-n // 16), 16, -(-n // 16) + 15,
+                      -(-n // 16) * 16 - n)
+    assert c.pad > 0
+    tables = gcm.codec_hashes(c, 1234, 7, torch.device("cpu"))
+    ctables = tuple(t.to(card) for t in tables)
+    pieces = list(g)
+    sk = gcm.sketch_leaf(pieces, c, tables)
+    csk = gcm.sketch_leaf([p.to(card) for p in pieces], c, ctables)
+    torch.testing.assert_close(csk.cpu(), sk, rtol=1e-5,
+                               atol=1e-6 * sk.abs().max().item())
+    est = gcm.unsketch_leaf(sk, c, tables, pieces)
+    cest = gcm.unsketch_leaf(sk.to(card), c, ctables,
+                             [p.to(card) for p in pieces])
+    for a, b in zip(cest, est):
+        assert torch.equal(a.cpu(), b)
+    gb = [p.to(card, torch.bfloat16) for p in pieces]
+    own = gcm.compress_roundtrip(gb, c, ctables)
+    want = gcm.unsketch_leaf(own, c, ctables, gb, dtype=torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(gb, want))
+    # the card draws its own hashes, reproducibly from (seed, step, leaf)
+    a = gcm.codec_hashes(c, 1234, 7, card)
+    b = gcm.codec_hashes(c, 1234, 7, card)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "xlstm-1.3b"])
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """One reduced train step, the same params and batch on the card and
+    the CPU: granite in bf16 on the CPU's routing (recorded there, forced
+    on the card in the forward and each block's recompute; the forcing
+    changes only near-ties of the card's own routing), loss rtol 1e-3 and
+    each gradient leaf within 6% of max |CPU| with cosine >= 0.999, as
+    the CPU tests hold the port to the reference; xlstm in f32 (its
+    random reduced bf16 forward sits 15-49% from f32), each leaf within
+    1e-3 of max |CPU|."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model as M
+    from repro_torch.models.routing import RoutingProbe
+    from repro_torch.train import data as data_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    params = tf.init_params(cfg, seed=2, device="cpu")
+    f32 = cfg.family == "ssm"
+    prev = ly.PDTYPE
+    if f32:
+        params = tf.tree_map(lambda t: t.float(), params)
+        ly.PDTYPE = torch.float32
+    try:
+        batch = data_lib.make_batch(cfg, 0, 2, 24, device="cpu")
+        step = M.make_train_step(cfg)
+        if cfg.family == "moe":
+            with RoutingProbe() as rec:
+                loss, grads = step(params, batch)
+            forcing = {k: v[:1] for k, v in rec.forcing().items()}
+            forced = RoutingProbe({k: v * 2 for k, v in forcing.items()})
+        else:
+            loss, grads = step(params, batch)
+            forced = None
+        cparams = tf.tree_map(lambda t: t.to(card), params)
+        cbatch = {k: v.to(card) for k, v in batch.items()}
+        if forced is not None:
+            with forced:
+                closs, cgrads = step(cparams, cbatch)
+            assert forced.worst < 0.02
+        else:
+            closs, cgrads = step(cparams, cbatch)
+    finally:
+        ly.PDTYPE = prev
+    torch.testing.assert_close(closs.cpu(), loss, rtol=1e-3, atol=0)
+    for (name, a), (_, b) in zip(tf.param_leaves(cgrads),
+                                 tf.param_leaves(grads)):
+        got = torch.stack([t.float().cpu() for t in a])
+        want = torch.stack([t.float() for t in b])
+        tol = (1e-3 if f32 else 0.06) * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol, name
+        if not f32 and want.abs().max() > 0:
+            cos = (got * want).sum() / (got.norm() * want.norm())
+            assert cos >= 0.999, (name, float(cos))

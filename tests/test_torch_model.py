@@ -11,6 +11,8 @@ the measured gap is at most ~1% of the largest |pool value| and ~2% of
 the largest |logit|.  The asserts allow 2% and 3%, and greedy argmax
 must agree wherever the reference's top-1 margin exceeds twice the
 allowed logit gap."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -167,10 +169,20 @@ def test_entry_points_raise_without_a_card():
 
 
 def test_unported_families_name_the_roadmap():
-    # every family serves since the recurrent ones were ported; training
-    # them is what still raises, naming its ROADMAP item
+    # every family serves and trains since the recurrent families'
+    # training was ported (tests/test_torch_train_families.py): their
+    # loss is finite; what still raises, naming its ROADMAP item, is
+    # speculation on the moe family
+    from repro_torch.serve.scheduler import SlotScheduler
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
              "labels": torch.zeros((1, 4), dtype=torch.int64)}
     for arch in ("xlstm-1.3b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #21"):
-            tf.loss_fn(None, batch, reduced_config(arch))
+        cfg = reduced_config(arch)
+        params = tf.init_params(cfg, seed=0, device="cpu")
+        with torch.no_grad():
+            assert torch.isfinite(tf.loss_fn(params, batch, cfg))
+    cfg = reduced_config("deepseek-moe-16b")
+    serve = dataclasses.replace(cfg.serve, max_batch=2, max_seq=64, spec_k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
+        SlotScheduler(cfg, tf.init_params(cfg, seed=0, device="cpu"),
+                      serve=serve, device="cpu")

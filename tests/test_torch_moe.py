@@ -66,11 +66,13 @@ def test_configs_equal_the_reference(arch):
 
 def test_only_the_recurrent_archs_raise():
     # the recurrent archs resolve since they were ported (their configs
-    # are held in tests/test_torch_ssm.py); only training them raises
+    # are held in tests/test_torch_ssm.py) and train
+    # (tests/test_torch_train_families.py); what they still refuse is a
+    # kv-cache entry point, as the reference does
     assert registry.ARCH_IDS == rreg.ARCH_IDS
     for arch in ("xlstm-1.3b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #21"):
-            tf._trainable(registry.get_config(arch))
+        with pytest.raises(ValueError, match="attention family"):
+            tf.init_paged_cache(registry.reduced_config(arch), 4, 8, "cpu")
     assert registry.all_configs().keys() == set(registry.ARCH_IDS)
 
 
@@ -501,14 +503,27 @@ def test_greedy_speculation_equals_plain_on_the_new_dense_configs(arch):
 
 
 def test_moe_training_names_the_roadmap():
+    # #20's training half is done (tests/test_torch_train_families.py):
+    # the moe loss carries the router's aux loss and train() runs; its
+    # speculation half still raises, naming the ROADMAP item
     from repro_torch.train.loop import train
     tcfg = registry.reduced_config("granite-moe-3b-a800m")
     params = tf.init_params(tcfg, seed=0, device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.int64)
+    with torch.no_grad():
+        loss = tf.loss_fn(params, {"tokens": toks, "labels": toks}, tcfg)
+        y, aux = tf._train_forward(params, tf.embed_inputs(params, toks),
+                                   tcfg)
+    assert float(aux) > 0
+    torch.testing.assert_close(loss, ly.cross_entropy(params, y, toks, tcfg)
+                               + aux)
+    h = train(tcfg, steps=1, batch=1, seq=8, device="cpu", log_every=1000,
+              log_fn=lambda *_: None)
+    assert np.isfinite(h.losses).all()
+    serve = dataclasses.replace(tcfg.serve, max_batch=2, max_seq=64,
+                                spec_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        tf.loss_fn(params, {"tokens": toks, "labels": toks}, tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        train(tcfg, steps=1, batch=1, seq=8, device="cpu")
+        SlotScheduler(tcfg, params, serve=serve, device="cpu")
 
 
 def test_drift_tool_runs_on_the_cpu(tmp_path):

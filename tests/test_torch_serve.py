@@ -191,9 +191,10 @@ async def _aenumerate(it):
 def test_not_ported_options_raise(served):
     # the observer hooks are ported (tests/test_torch_obs.py): attaching
     # none is accepted.  Every family serves now (the recurrent ones:
-    # tests/test_torch_recurrent_serve.py); a family no package has is
-    # refused, and training a recurrent family still names its ROADMAP
-    # item
+    # tests/test_torch_recurrent_serve.py) and trains
+    # (tests/test_torch_train_families.py); a family no package has is
+    # refused, and speculation on the moe family still names its
+    # ROADMAP item
     served["ts"].set_observer(None)
     assert served["ts"].obs is None
     with pytest.raises(ValueError, match="unknown family"):
@@ -201,8 +202,11 @@ def test_not_ported_options_raise(served):
                       served["tparams"], serve=_serve(served["tcfg"]),
                       device="cpu")
     from repro_torch.models import transformer as tf
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #21"):
-        tf._trainable(reduced_config("xlstm-1.3b"))
+    mcfg = reduced_config("granite-moe-3b-a800m")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
+        SlotScheduler(mcfg, tf.init_params(mcfg, seed=0, device="cpu"),
+                      serve=dataclasses.replace(_serve(mcfg), spec_k=2),
+                      device="cpu")
 
 
 def _drive(capsys, *args):

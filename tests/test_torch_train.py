@@ -327,9 +327,76 @@ def test_data_is_stateless_and_learnable():
 
 
 def test_train_raises_for_what_is_not_ported():
-    cfg = reduced_config("yi-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg, steps=1, batch=1, seq=8, grad_compression=True, **quiet)
+    # train() raises for no config and no flag of the reference's since
+    # gradient compression and every family were ported
+    # (tests/test_torch_grad_compress.py, tests/test_torch_train_families.py);
+    # what still raises is speculation on the moe family
+    from repro_torch.serve.scheduler import SlotScheduler
+    cfg = reduced_config("granite-moe-3b-a800m")
+    h = train(cfg, steps=1, batch=1, seq=8, grad_compression=True, **quiet)
+    assert np.isfinite(h.losses).all()
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    serve = dataclasses.replace(cfg.serve, max_batch=2, max_seq=64, spec_k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
+        SlotScheduler(cfg, params, serve=serve, device="cpu")
+
+
+def _ref_adagrad_moments(state):
+    return jax.tree.leaves(state.moments, is_leaf=rsk._is_moments)
+
+
+def test_sketched_adagrad_matches_reference():
+    """Three sketched-Adagrad steps from identical gradients: count-min
+    tables (their seeds and coefficients), dense accumulators and params
+    track the reference's after every step."""
+    cfg, params, tcfg, tparams = _models("yi-9b", seed=7)
+    rstate = rsk.sketched_adagrad_init(params, ratio=4, rows=3,
+                                       min_elems=MIN_ELEMS, seed=SEED)
+    state = sk.sketched_adagrad_init(tparams, ratio=4, rows=3,
+                                     min_elems=MIN_ELEMS, seed=SEED)
+    kinds = [isinstance(m, sk.CSVec) for m in state.moments]
+    assert kinds == [hasattr(m, "table")
+                     for m in _ref_adagrad_moments(rstate)]
+    assert any(kinds) and not all(kinds)
+    rng = np.random.RandomState(7)
+    for step in range(3):
+        g = _random_grads(params, rng)
+        params, rstate = rsk.sketched_adagrad_update(g, rstate, params,
+                                                     lr=1e-2)
+        tg = bridge.from_reference(jax.tree.map(np.asarray, g), tcfg,
+                                   device="cpu")
+        tparams, state = sk.sketched_adagrad_update(tg, state, tparams,
+                                                    lr=1e-2)
+        assert state.step == int(rstate.step) == step + 1
+        _assert_params_close(params, tparams)
+        for rm, m in zip(_ref_adagrad_moments(rstate), state.moments):
+            if isinstance(m, sk.CSVec):
+                assert (m.seed, m.d, m.signed) == (int(rm.seed), int(rm.d),
+                                                   False)
+                np.testing.assert_array_equal(m.coeffs.numpy(),
+                                              np.asarray(rm.coeffs))
+                want, got = torch.as_tensor(np.array(rm.table)), m.table
+            else:
+                want = torch.as_tensor(np.array(rm)).reshape(-1)
+                got = torch.cat([t.reshape(-1) for t in m])
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * want.abs().max().item())
+
+
+def test_sketched_adagrad_minimizes_quadratic():
+    """tests/test_sketch_opt.py's quadratic test on the port."""
+    d = 1 << 14
+    target = torch.as_tensor(np.random.RandomState(1).randn(d)
+                             .astype(np.float32))
+    w = {"w": torch.zeros(d)}
+    st = sk.sketched_adagrad_init(w, ratio=4, rows=3, min_elems=1024)
+    assert isinstance(st.moments[0], sk.CSVec)
+    for _ in range(200):
+        w, st = sk.sketched_adagrad_update({"w": w["w"] - target}, st, w,
+                                           lr=0.5)
+    rel = float(torch.linalg.norm(w["w"] - target)
+                / torch.linalg.norm(target))
+    assert rel < 0.05, rel
 
 
 def test_launcher_defaults_to_cuda():
