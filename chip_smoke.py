@@ -7,7 +7,8 @@ and speculatively; the 512-token speculative and the 8k plain streams at
 cut depth), trains full-width yi-9b
 (also with FCS gradient compression), serves the moe family and the
 other attention configs (granite-moe, deepseek-moe and four more, at
-full width and cut depth) and the recurrent families
+full width and cut depth), plainly and (granite-moe at full depth,
+deepseek-moe, qwen2.5) speculatively, and the recurrent families
 (xlstm-1.3b and zamba2-2.7b at full width and cut depth), and trains
 every family (moe, audio, vlm, ssm, hybrid) through the port's main
 paths.
@@ -19,9 +20,10 @@ Phases (one line each; any failure exits non-zero):
   2. kernel    — paged attention vs its plain version at the decode and
                  chunked-prefill geometries at max_seq 512 and 8192 (and
                  at 512 for each (K, R, hd) of phase moe's six configs),
-                 a reduced (hd=16) one and the verify step at spec_k 4 and
-                 8 (each verify row also bitwise the Sq = 1 call at its
-                 position), with its split plan (blocks,
+                 a reduced (hd=16) one and the verify step at spec_k 4, 7
+                 and 8 and at phase moe-spec's shapes (each verify row
+                 also bitwise the Sq = 1 call at its position), with its
+                 split plan (blocks,
                  splits), two launches held bitwise equal, kernel / plain
                  / library (SDPA yardstick) times and the bandwidth
                  bound; sketch_update vs its plain version at
@@ -47,7 +49,8 @@ Phases (one line each; any failure exits non-zero):
                  accumulators and the speculative path's (the compressed
                  draft's weight sketches and reconstructions at gemma-2b's
                  leaf shapes, the sketched head's activation sketch, the
-                 one-chunk sketch of the tail span's softmax weights),
+                 one-chunk sketch of the tail span's softmax weights; the
+                 moe and qwen2.5 drafts' shapes, ``draft_sketch_shapes``),
                  with the branch each took, kernel / plain
                  / library (index_add_, index_select) times, the bound
                  and the bucket-link build time; count_sketch also held
@@ -97,14 +100,16 @@ Phases (one line each; any failure exits non-zero):
                  closed; an [obs] line splits its first pass's wall into
                  the pump's dispatch and collect spans, the prefill
                  chunks' host launch spans and the rest
-     spec      — full-width verify_step at spec_k 4 bitwise 5 decode
-                 steps; then, at full width cut to SPEC_LAYERS of the 18
+     spec      — full-width verify_step at spec_k 4 and 8 bitwise 5 and
+                 9 decode steps (at 8 its 72 rows run in two slabs of the
+                 engine's 64) and a verify step's device ms at spec_k 7
+                 and 8; then, at full width cut to SPEC_LAYERS of the 18
                  layers, the serve stream (and two whole-prompt
-                 prefix hits) through a plain engine and three spec
-                 engines (truncated draft of depth 2; that draft
+                 prefix hits) through a plain engine and four spec
+                 engines (truncated draft of depth 1; that draft
                  count-sketch-compressed at ratio 4 with the sketched
-                 head; per-request spec_k 0 / 4), each with its eager
-                 twin as above: greedy tokens
+                 head; per-request spec_k 0 / 4; spec_k 8), each with its
+                 eager twin as above: greedy tokens
                  bitwise the plain engine's, no leaks, copy-on-write
                  forks, acceptance reported, the paged-attention,
                  count_sketch and unsketch kernels launched
@@ -153,6 +158,20 @@ Phases (one line each; any failure exits non-zero):
                  line per config (tok/s, TTFT, chunk ms, captures, the FFN
                  weight bytes a decode step reads); its paged-attention
                  launches are all at shapes phase 2 holds
+     moe-spec  — granite-moe at full width and depth through a plain
+                 engine and truncated and ratio-4 drafts at spec_k 4 (40
+                 verify rows within C 40: greedy tokens bitwise plain),
+                 then an exact draft (the whole target at MOE_SPEC_LAYERS
+                 layers, spec_k 2; acceptance > 0); deepseek-moe at
+                 MOE_SPEC_LAYERS of 28 layers, plain and a ratio-4 draft
+                 (C 20: bitwise up to each request's first dropped choice,
+                 drops counted from the eager twins' routing); qwen2.5 at
+                 CUT_LAYERS with random attention biases (bitwise plain;
+                 the drafts' biases the target's); every spec engine
+                 graphed and as its eager twin, bitwise, its speculative
+                 counters the twin's (the plain engines, whose twins
+                 phase moe holds, run once); [spec], [profile] and
+                 [moe-spec] lines
   7. recurrent — after the moe models are freed: xlstm-1.3b and
                  zamba2-2.7b at full width, cut to two of their layer
                  groups (REC_LAYERS: xlstm 16 of 48 layers, both block
@@ -292,7 +311,7 @@ WINDOWS = 4
 # name: (B, Sq, K, R, hd, NB, bs, nb)
 # decode and chunk prefill of the 512-token serve (nb 32) and of the 8k
 # sketched serve (nb 512, starts drawn up to 8191), a reduced one, and the
-# speculative verify step of the 512-token serve at spec_k 4 and 8 and of
+# speculative verify step of the 512-token serve at spec_k 4, 7 and 8 and of
 # the 8k sketched spec run at spec_k 2 (Sq = spec_k + 1; each verify row
 # is also held bitwise to the Sq = 1 call at its position)
 GEOMETRIES = {
@@ -302,6 +321,7 @@ GEOMETRIES = {
     "decode_8k": (8, 1, 1, 8, 256, 4096, 16, 512),
     "chunk_prefill_8k": (1, 256, 1, 8, 256, 4096, 16, 512),
     "verify_k4": (8, 5, 1, 8, 256, 256, 16, 32),
+    "verify_k7": (8, 8, 1, 8, 256, 256, 16, 32),
     "verify_k8": (8, 9, 1, 8, 256, 256, 16, 32),
     "verify_k2_8k": (8, 3, 1, 8, 256, 4096, 16, 512),
 }
@@ -315,6 +335,13 @@ MOE_HEADS = {"granite": (8, 3, 64), "deepseek": (16, 1, 128),
 for _name, (_K, _R, _hd) in MOE_HEADS.items():
     GEOMETRIES[f"decode_{_name}"] = (8, 1, _K, _R, _hd, 256, 16, 32)
     GEOMETRIES[f"chunk_prefill_{_name}"] = (1, 32, _K, _R, _hd, 256, 16, 32)
+# phase moe-spec's verify steps: granite-moe, deepseek-moe and qwen2.5 at
+# spec_k 4 (MOE_SPEC_K) and granite's exact-draft engine at spec_k 2
+# (gemma-2b's at spec_k 8 is verify_k8)
+for _name, _Sq in (("granite", 5), ("granite", 3), ("deepseek", 5),
+                   ("qwen", 5)):
+    GEOMETRIES[f"verify_k{_Sq - 1}_{_name}"] = (8, _Sq, *MOE_HEADS[_name],
+                                                256, 16, 32)
 
 
 def paged_inputs(B, Sq, K, R, hd, NB, bs, nb, seed):
@@ -880,6 +907,52 @@ CS_ONE_CHUNK = {
     "tail_weights_verify_k2": (3, 192, 8192, 1024),
     "tail_weights_prefill": (3, 2048, 8192, 1024),
 }
+
+
+def draft_sketch_shapes(cfg, ratio, rows=3, batch=8):
+    """The count_sketch and unsketch launches (D, B, I, J) that deriving
+    ``cfg``'s count-sketch-compressed draft at ``ratio`` makes
+    (models/draft.py): each matrix of a layer (each expert slice of a moe
+    stack, the router, the shared experts) sketched as W^T's d_out rows
+    over d_in, then reconstructed; the sketched head's weights (D 0, the
+    (Vp, d) bf16 head or tied embedding) and the activation sketch of a
+    draft micro-step's ``batch`` rows.  Returns ({name: count_sketch
+    geometry}, {name: unsketch geometry})."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    mats = [(d, H * hd), (d, K * hd), (H * hd, d)]
+    if cfg.family == "moe":
+        m = cfg.moe
+        f, fs = m.expert_d_ff, m.num_shared_experts * m.expert_d_ff
+        mats += [(d, m.num_experts), (d, f), (f, d)]
+        if fs:
+            mats += [(d, fs), (fs, d)]
+    else:
+        mats += [(d, cfg.d_ff), (cfg.d_ff, d)]
+    cs, un = {}, {}
+    for d_in, d_out in mats:
+        J = max(1, d_in // ratio)
+        if J < d_in:
+            cs[f"{d_out}x{d_in}_J{J}"] = (rows, d_out, d_in, J, F32)
+            un[f"{d_out}x{d_in}_J{J}"] = (rows, d_out, d_in, J, True)
+    J = d // ratio
+    cs[f"head_{cfg.padded_vocab}x{d}_J{J}"] = (0, cfg.padded_vocab, d, J,
+                                              BF16)
+    cs[f"head_sketch_{batch}x{d}_J{J}"] = (0, batch, d, J, BF16)
+    return cs, un
+
+
+def add_draft_geometries(cfgs):
+    """Add to the count_sketch and unsketch geometry tables every launch
+    shape of phase moe-spec's compressed drafts (``draft_sketch_shapes``
+    of each (arch, cfg) at MOE_SPEC_RATIO) that they do not hold yet."""
+    for arch, cfg in cfgs:
+        cs, un = draft_sketch_shapes(cfg, MOE_SPEC_RATIO)
+        tag = arch.split("-")[0].split(".")[0]
+        for table, new in ((CS_GEOMETRIES, cs), (UNSKETCH_GEOMETRIES, un)):
+            for name, g in new.items():
+                if g not in table.values():
+                    table[f"draft_{tag}_{name}"] = g
 
 
 def cs_tables(D, I, J, dev, gen):
@@ -1756,18 +1829,26 @@ SERVE = dict(max_batch=8, max_seq=512, kv_block_size=16, prefill_bucket=32,
              decode_chunk=8, prefix_block=16)
 SPEC_K = 4
 # the spec phase's engines serve gemma-2b at full width cut to this many
-# of its 18 layers (its verify check runs all 18): the four engines'
-# eager twins are host-bound, and the cut keeps the whole run, phase
-# recurrent included, well inside its time limit.  No launch shape
+# of its 18 layers (its verify check runs all 18): the engines' eager
+# twins are host-bound, and with the spec_k 8 engine and phase moe-spec
+# the cut keeps the whole run inside its time limit.  No launch shape
 # depends on the depth.
-SPEC_LAYERS = 4
+SPEC_LAYERS = 2
 # name: (serve knobs, per-request spec_k cycled over the stream or None)
 SPEC_ENGINES = {
-    "truncated_depth2": (dict(spec_k=SPEC_K, draft_depth=2), None),
-    "cs_depth2_ratio4": (dict(spec_k=SPEC_K, draft_depth=2,
+    "truncated_depth1": (dict(spec_k=SPEC_K, draft_depth=1), None),
+    "cs_depth1_ratio4": (dict(spec_k=SPEC_K, draft_depth=1,
                               draft_sketch_ratio=4), None),
-    "mixed_k0_k4": (dict(spec_k=SPEC_K, draft_depth=2), (0, SPEC_K)),
+    "mixed_k0_k4": (dict(spec_k=SPEC_K, draft_depth=1), (0, SPEC_K)),
+    # 8 slots x 9 verify rows: past the decode step's 64 rows, the verify
+    # step's row ops run in two slabs of them (models/layers.py)
+    "truncated_k8": (dict(spec_k=8, draft_depth=1), None),
 }
+# verify steps held bitwise to decode steps at full width: spec_k 4, and
+# spec_k 8, past the decode step's 64 rows; the device ms of a verify
+# step is compared at spec_k 7 (64 rows, one slab) and 8 (two slabs)
+VERIFY_KS = (SPEC_K, 8)
+VERIFY_MS_KS = (7, 8)
 SPEC_KERNELS = ("paged_attention", "count_sketch", "unsketch")
 
 
@@ -1892,12 +1973,14 @@ def gemm_rows(params, cfg, dev, B, C):
 
 
 def verify_vs_decode(cfg, params, dev):
-    """Full-width verify_step at spec_k 4 against 5 sequential decode_steps
-    on identical caches of 8 slots (one idle), both at the engine's padded
-    row count: logits and pool rows bitwise."""
+    """Full-width verify_step at each spec_k of VERIFY_KS against spec_k
+    + 1 sequential decode_steps on identical caches of 8 slots (one
+    idle), both at the engine's step rows (a verify step past them in
+    slabs of them): logits and pool rows bitwise.  Returns the cache and
+    inputs for ``verify_ms``."""
     from repro_torch.models import layers as ly
     from repro_torch.models import transformer as tf
-    B, NB, bs, nbs, C = 8, 256, 16, 32, SPEC_K + 1
+    B, NB, bs, nbs = 8, 256, 16, 32
     rng = np.random.RandomState(SEED + 10)
     cache = tf.init_paged_cache(cfg, NB, bs, dev)
     tables = torch.full((B, nbs), NB, dtype=torch.int32, device=dev)
@@ -1905,7 +1988,7 @@ def verify_vs_decode(cfg, params, dev):
     lens[0] = 0
     nxt = 0
     for b in range(1, B):
-        n = -(-(int(lens[b]) + C) // bs)
+        n = -(-(int(lens[b]) + max(VERIFY_KS) + 1) // bs)
         tables[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
         nxt += n
         prompt = rng.randint(0, cfg.vocab_size, int(lens[b]))
@@ -1916,8 +1999,20 @@ def verify_vs_decode(cfg, params, dev):
             tf.prefill_chunk(params, cache, torch.as_tensor(tok, device=dev),
                              tables[b], off, cfg)
     pos = torch.as_tensor(lens.astype(np.int32), device=dev)
-    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, C)),
-                           device=dev)
+    for k in VERIFY_KS:
+        verify_check(cfg, params, dev, cache, tables, pos, lens,
+                     torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                                 (B, k + 1)), device=dev))
+    return cache, tables, pos, rng
+
+
+def verify_check(cfg, params, dev, cache, tables, pos, lens, toks):
+    """``verify_vs_decode`` at one spec_k: the verify step of ``toks``
+    (B, spec_k + 1) and its decode steps on clones of ``cache``."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    B, C = toks.shape
+    spec_k = C - 1
     clone = lambda c: {"kv": {k: v.clone() for k, v in c["kv"].items()}}
     cv, cd = clone(cache), clone(cache)
     rows = ly.padded_rows(B)              # the engine's, for both steps
@@ -1934,12 +2029,44 @@ def verify_vs_decode(cfg, params, dev):
             fail(f"spec: verify pool rows ({k}) differ from decode's")
     if not torch.isfinite(lv).all():
         fail("spec: verify logits not finite")
-    print(f"[spec] gemma-2b full width verify_step at spec_k {SPEC_K} (8 "
-          f"slots, contexts {lens.tolist()}): logits (B, {C}, V) and pool "
-          f"rows bitwise {C} sequential decode_steps; "
+    slabs = ly.slab_rows(B * C, rows) // rows
+    print(f"[spec] gemma-2b full width verify_step at spec_k {spec_k} (8 "
+          f"slots, contexts {lens.tolist()}; {B * C} rows in {slabs} "
+          f"slab(s) of {rows}): logits (B, {C}, V) and pool rows bitwise "
+          f"{C} sequential decode_steps; "
           f"{gemm_rows(params, cfg, dev, B, C)}")
-    del cache, cv, cd
+    del cv, cd
+
+
+def verify_ms(cfg, params, dev, cache, tables, pos, rng):
+    """Device ms of one full-width verify_step (8 slots, the engine's
+    step rows) at each spec_k of VERIFY_MS_KS, on clones of ``cache``:
+    the kernels' summed durations (``device_ms``: profiler kernel
+    records, L2 flushed before each step), mean of 3 steps; the eager
+    step's host launches take longer than its kernels."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    B = pos.shape[0]
+    rows = ly.padded_rows(B)
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    out = {}
+    for k in VERIFY_MS_KS:
+        toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, k + 1)),
+                               device=dev)
+        c = {"kv": {n: v.clone() for n, v in cache["kv"].items()}}
+        out[k] = device_ms(lambda: tf.verify_step(
+            params, c, toks, pos, cfg, tables, rows=rows), 3, flush)[0]
+        del c
+    del flush
+    print(f"[spec] gemma-2b full width verify_step device ms (8 slots, "
+          f"profiler kernel records, mean of 3): "
+          + ", ".join(f"spec_k {k} ({B * (k + 1)} rows, "
+                      f"{ly.slab_rows(B * (k + 1), rows) // rows} slab(s))"
+                      f" {ms:.4f}" for k, ms in out.items())
+          + f"; spec_k {VERIFY_MS_KS[1]} / {VERIFY_MS_KS[0]} = "
+          f"{out[VERIFY_MS_KS[1]] / out[VERIFY_MS_KS[0]]:.3f}; {card()}")
     torch.cuda.empty_cache()
+    return out
 
 
 def drive_stream(front, reqs, profiled):
@@ -2254,6 +2381,7 @@ def twin_streams(what, make_front, reqs, dev, observe=None):
           f"states; {card()}")
     if observe is not None:
         observed_twin(what, make_front, reqs, dev, observe, g, e)
+    g["twin_stats"] = e["stats"]
     del runs[False], e
     torch.cuda.empty_cache()
     return g
@@ -2418,10 +2546,13 @@ def observed_twin(what, make_front, reqs, dev, observe, g, e):
 
 def phase_spec(cfg, params, dev):
     """Speculative decoding at full width: the verify contract at full
-    depth, then, at SPEC_LAYERS layers, the serve phase's 16-request
+    depth at spec_k 4 and 8 and a verify step's device ms at spec_k 7 and
+    8, then, at SPEC_LAYERS layers, the serve phase's 16-request
     stream (and two requests whose whole prompt is a cached prefix)
-    through a plain engine and three spec engines (truncated draft; count-sketch-compressed draft with the
-    sketched head; per-request spec_k 0 / 4), each graphed and as its
+    through a plain engine and four spec engines (truncated draft;
+    count-sketch-compressed draft with the sketched head; per-request
+    spec_k 0 / 4; spec_k 8, whose verify steps run past the decode
+    step's rows), each graphed and as its
     eager twin (``twin_streams``: timed, then again under a CUDA-only
     profiler for its idle share, then a decode window).  Every greedy
     request's tokens must equal the plain engine's bitwise; no block
@@ -2430,7 +2561,10 @@ def phase_spec(cfg, params, dev):
     from repro_torch.launch.serve import make_request_stream
     from repro_torch.models.draft import make_draft
     from repro_torch.serve.frontend import AsyncServeEngine
-    verify_vs_decode(cfg, params, dev)
+    held = verify_vs_decode(cfg, params, dev)
+    verify_ms(cfg, params, dev, *held)
+    del held
+    torch.cuda.empty_cache()
     cfg, params = cut_depth(cfg, params, SPEC_LAYERS)
     base = dataclasses.replace(cfg.serve, **SERVE)
     from repro_torch.serve.scheduler import Request
@@ -2516,7 +2650,7 @@ def phase_spec(cfg, params, dev):
               + ", ".join(f"{k} {v}" for k, v in mine.items()))
     if min(launches.values()) <= 0:
         fail(f"spec: launches on the spec path {launches}")
-    print(f"[spec] launches on the spec path (three spec engines, draft "
+    print(f"[spec] launches on the spec path (four spec engines, draft "
           f"derivation included): {launches}; {card()}")
     return launches
 
@@ -3315,6 +3449,396 @@ def phase_moe(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b, moe-spec: speculative decoding of the moe family and of
+# attention biases
+# ---------------------------------------------------------------------------
+
+MOE_SPEC_K = 4
+MOE_SPEC_RATIO = 4
+MOE_SPEC_REQUESTS = 8
+# granite's exact-draft engine (draft = the whole target) and deepseek's
+# engines serve at this depth; granite's spec-vs-plain engines at all 32
+# layers, qwen2.5's at CUT_LAYERS
+MOE_SPEC_LAYERS = 4
+SPEC_DRAFTS = {"truncated_depth1": dict(spec_k=MOE_SPEC_K, draft_depth=1),
+               "cs_depth1_ratio4": dict(spec_k=MOE_SPEC_K, draft_depth=1,
+                                        draft_sketch_ratio=MOE_SPEC_RATIO)}
+
+
+def spec_engine(what, cfg, params, serve, reqs, dev, make_front=None):
+    """One engine of phase moe-spec: its draft derived (timed, its kernel
+    launches counted), then its stream graphed and as its eager twin
+    (``twin_streams``; ``make_front(graphs, draft)`` builds the engine,
+    an AsyncServeEngine by default).  Prints a [spec] and a [profile]
+    line; returns (graphed run, draft, launches of SPEC_KERNELS)."""
+    from repro_torch.models.draft import make_draft
+    from repro_torch.serve.frontend import AsyncServeEngine
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draft = make_draft(params, cfg, serve)
+    torch.cuda.synchronize()
+    derive_s = time.perf_counter() - t0
+    mine = {k: counters[k].launches for k in SPEC_KERNELS}
+    build = make_front or (lambda graphs, d: AsyncServeEngine(
+        cfg, params, serve=serve, device=dev, draft=d, graphs=graphs))
+    run = twin_streams(what, lambda graphs: build(graphs, draft), reqs, dev)
+    mine = {k: mine[k] + run["launches"][k] for k in SPEC_KERNELS}
+    st, done = run["stats"], run["done"]
+    ok = [c for c in done if c.status == "ok" and len(c.tokens) == MOE_NEW
+          and ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()]
+    if len(ok) != len(reqs) or run["leaked"]:
+        fail(f"{what}: completed ok {len(ok)}/{len(reqs)}, leaked blocks "
+             f"{run['leaked']}")
+    twin = run["twin_stats"]
+    spec = ("spec_rounds", "spec_proposed", "spec_accepted")
+    if [getattr(st, f) for f in spec] != [getattr(twin, f) for f in spec]:
+        fail(f"{what}: speculative counters differ from the eager twin's")
+    ntok = sum(len(c.tokens) for c in done)
+    acc = (f"acceptance {st.acceptance_rate:.4f} ({st.spec_accepted}/"
+           f"{st.spec_proposed}), mean accepted run "
+           f"{st.mean_accepted_run:.4f} over {st.spec_rounds} rounds; draft "
+           f"{draft.cfg.num_layers} layers (sketched head "
+           f"{draft.cfg.sketch.sketched_head}) derived in {derive_s:.3f}s"
+           if draft is not None else "plain")
+    print(f"[spec] {what} (graphed): {ntok} tokens in {run['wall']:.4f}s = "
+          f"{ntok / run['wall']:.2f} tok/s, TTFT p50 "
+          f"{np.percentile(run['ttfts'], 50) * 1e3:.2f} ms; {acc}; "
+          f"decode captures {run['caps'][0]}, none on the second pass; "
+          f"speculative counters equal the eager twin's; leaked blocks 0; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in mine.items())
+          + f"; {card()}")
+    print(f"[profile] {what}: decode chunk {run['chunk']:.3f} ms (mean of "
+          f"{run['chunks']} chunks of {serve.decode_chunk} "
+          f"{'rounds' if draft else 'steps'}), busy per decode "
+          f"{'round' if draft else 'step'} {run['busy_step']:.4f} ms (wall "
+          f"{run['wall_step']:.4f} ms), stream idle "
+          f"{100 * run['idle']:.1f}% (second pass, profiled), prefill chunk "
+          f"p50 {np.percentile(run['prefill_ms'], 50):.3f} ms; {card()}")
+    return run, draft, mine
+
+
+def plain_engine(what, cfg, params, serve, reqs, dev, graphs=None,
+                 obs=None):
+    """A plain engine's reference tokens for phase moe-spec's spec
+    engines: ``reqs`` through it twice graphed (the second pass
+    profiled), or once eagerly (``graphs=False``, profiled; ``obs`` its
+    observer).  Phase moe holds these configs' graphed plain engines
+    bitwise to their eager twins.  Prints [spec] and [profile] lines;
+    returns {rid: tokens} of the first pass."""
+    from repro_torch.serve.frontend import AsyncServeEngine
+    front = AsyncServeEngine(cfg, params, serve=serve, device=dev,
+                             graphs=graphs, obs=obs)
+    sched = front.scheduler
+    passes = [drive_stream(front, with_generators(reqs, dev), last)
+              for last in ((True,) if graphs is False else (False, True))]
+    done, ttfts, wall, _ = passes[0]
+    busy, pwall = passes[-1][3], passes[-1][2]
+    leaked = leaked_blocks(sched)
+    if leaked or len(done) != len(reqs):
+        fail(f"{what}: completed {len(done)}/{len(reqs)}, leaked blocks "
+             f"{leaked}")
+    ntok = sum(len(c.tokens) for c in done)
+    print(f"[spec] {what} ({'eager' if graphs is False else 'graphed'}): "
+          f"{ntok} tokens in {wall:.4f}s = {ntok / wall:.2f} tok/s, TTFT "
+          f"p50 {np.percentile(ttfts, 50) * 1e3:.2f} ms; plain; decode "
+          f"captures {sched.decode_compilations}; leaked blocks 0; {card()}")
+    print(f"[profile] {what}: decode chunk {np.mean(sched.chunk_ms):.3f} ms "
+          f"(mean of {len(sched.chunk_ms)} chunks of {serve.decode_chunk} "
+          f"steps), stream idle {100 * (1 - busy / pwall):.1f}% (the "
+          f"profiled pass), prefill chunk p50 "
+          f"{np.percentile(sched.prefill_chunk_ms(), 50):.3f} ms; {card()}")
+    return {c.rid: c.tokens for c in done}
+
+
+def greedy_apart(reqs, plain, got, upto=None):
+    """Greedy requests whose tokens differ from ``plain``'s (each
+    compared below ``upto[rid]`` tokens when given) and the number of
+    tokens compared."""
+    bad, n = [], 0
+    for r in reqs:
+        if r.temperature:
+            continue
+        k = len(plain[r.rid]) if upto is None else max(0, upto[r.rid])
+        n += min(k, len(plain[r.rid]))
+        if not np.array_equal(got[r.rid][:k], plain[r.rid][:k]):
+            bad.append(r.rid)
+    return bad, n
+
+
+def first_drops(served, reqs):
+    """Per request, the index of the first token that a dropped choice
+    could have touched: the first row of its served by a decode or
+    verify step (recorded by ``served``, a ``ServedRouting``) that lost
+    a choice to capacity, less the prompt's last position; and the
+    steps' (calls, calls with a drop, dropped choices)."""
+    first = {r.rid: MOE_NEW for r in reqs}
+    S = {r.rid: len(r.tokens) for r in reqs}
+    calls = dropping = dropped = 0
+    for c, cx in served.contexts():
+        if cx is None or cx[0] != "decode":
+            continue
+        K = c.topi.shape[-1]
+        keep = c.keep.reshape(-1, K).all(-1).cpu().numpy()
+        calls += 1
+        dropping += int(not keep.all())
+        dropped += int((~c.keep).sum())
+        for s in np.flatnonzero(~keep):
+            rid, p = cx[1][s]
+            if rid in first:
+                first[rid] = min(first[rid], p - (S[rid] - 1))
+    return first, calls, dropping, dropped
+
+
+def prefill_apart(a, b, reqs, L, bucket):
+    """Requests whose prompt rows a prefill chunk routed or dropped apart
+    in two engines (``a``, ``b``: ``ServedRouting``s of their eager
+    twins), below the last layer (whose KV precedes its FFN): chunks are
+    matched by the prompt tokens they hold and their offset, so a prefix
+    hit is held to the chunk that computed the rows it reads; a chunk one
+    engine never ran counts as apart."""
+    toks = {r.rid: r.tokens for r in reqs}
+
+    def keeps(served):
+        out = {}
+        for c, cx in served.contexts():
+            if cx is None or cx[0] != "prefill" or cx[1] not in toks \
+                    or c.layer >= L - 1:
+                continue
+            _, rid, off = cx
+            n = min(len(toks[rid]), off + bucket) - off
+            K = c.topi.shape[-1]
+            out.setdefault((tuple(toks[rid][:off + n]), off, c.layer), (
+                c.topi.reshape(-1, K)[:n].cpu().numpy(),
+                c.keep.reshape(-1, K)[:n].cpu().numpy()))
+        return out
+
+    ka, kb = keeps(a), keeps(b)
+    apart = []
+    for r in reqs:
+        S = len(r.tokens)
+        keys = [(tuple(r.tokens[:min(S, off + bucket)]), off, l)
+                for off in range(0, S, bucket) for l in range(L - 1)]
+        if any(k not in ka or k not in kb
+               or not all(np.array_equal(x, y) for x, y in zip(ka[k], kb[k]))
+               for k in keys):
+            apart.append(r.rid)
+    return apart
+
+
+def phase_moe_spec(dev):
+    """Speculative decoding of the moe family and of attention biases,
+    every spec engine graphed and as its eager twin (``spec_engine``),
+    each against a plain engine run once (``plain_engine``).
+
+    granite-moe-3b-a800m at full width and depth: a plain engine, a
+    truncated depth-1 draft and that draft compressed at ratio 4, spec_k
+    4, on 8 requests of phase moe's stream shape.  A verify step routes
+    8 x 5 = 40 rows, within C = 40, so nothing can drop and every greedy
+    token must equal the plain engine's.  Then at MOE_SPEC_LAYERS layers
+    an exact draft (the whole target, uncompressed) at spec_k 2, whose
+    proposals are accepted (acceptance must be > 0).
+
+    deepseek-moe-16b at full width, MOE_SPEC_LAYERS of 28 layers: plain
+    and the compressed draft at spec_k 4.  Its C is 20 and a verify step
+    routes 40 rows, so choices can drop; and a 32-row prefill chunk can
+    drop too, its token-0 pad rows taking capacity: in the spec engine
+    the pad rows past the request's rows attend the slot's speculative
+    overhang block, in the plain engine they land in the write sink, so
+    they route, and take capacity, differently.  The eager twins record
+    the routing (``ServedRouting``) and each greedy request is held
+    bitwise to the plain engine before its first verify row that lost a
+    choice, and from the start only where every prefill chunk it reads
+    routed and dropped alike in both engines (``prefill_apart``).
+
+    qwen2.5-32b at full width, CUT_LAYERS layers, its attention biases
+    drawn at random: plain, truncated and compressed drafts at spec_k 4,
+    greedy bitwise plain; the draft's biases are the target's layer-0
+    tensors."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import make_request_stream
+    from repro_torch.models import layers as ly
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.routing import ServedRouting
+    from repro_torch.serve.frontend import AsyncServeEngine
+    launches = {k: 0 for k in SPEC_KERNELS}
+
+    def stream(cfg):
+        return make_request_stream(cfg, np.random.RandomState(SEED + 2),
+                                   MOE_SPEC_REQUESTS, 3, 64, MOE_TAIL,
+                                   MOE_NEW, sampled_frac=0.25,
+                                   temperature=0.8, top_k=8)
+
+    def engines(arch, cfg, params, drafts):
+        """A plain engine and one spec engine per ``drafts`` entry on
+        ``stream(cfg)``: (requests, {name: run, or (run, draft)})."""
+        serve = dataclasses.replace(cfg.serve, **SERVE)
+        reqs = stream(cfg)
+        out = {"plain": plain_engine(f"moe-spec {arch} plain", cfg, params,
+                                     serve, reqs, dev)}
+        for name, kw in drafts.items():
+            run, draft, mine = spec_engine(
+                f"moe-spec {arch} {name}", cfg, params,
+                dataclasses.replace(serve, **kw), reqs, dev)
+            for k in SPEC_KERNELS:
+                launches[k] += mine[k]
+            out[name] = (run, draft)
+        return reqs, out
+
+    def tokens(run):
+        return {c.rid: c.tokens for c in run["done"]}
+
+    # granite-moe at full width and depth
+    t0 = time.perf_counter()
+    arch = "granite-moe-3b-a800m"
+    cfg = get_config(arch)
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    C = moe.capacity(cfg)
+    if SERVE["max_batch"] * (MOE_SPEC_K + 1) > C:
+        fail(f"{arch}: a verify step's {SERVE['max_batch']} x "
+             f"{MOE_SPEC_K + 1} rows may fill an expert's {C}")
+    reqs, runs = engines(arch, cfg, params, SPEC_DRAFTS)
+    plain = runs["plain"]
+    for name in SPEC_DRAFTS:
+        bad, n = greedy_apart(reqs, plain, tokens(runs[name][0]))
+        if bad:
+            fail(f"moe-spec {arch} {name}: greedy requests {bad} differ "
+                 f"from the plain engine's tokens")
+        if runs[name][0]["stats"].spec_rounds <= 0:
+            fail(f"moe-spec {arch} {name}: no speculative round")
+    print(f"[moe-spec] {arch} full width and depth ({cfg.num_layers} "
+          f"layers): {n} greedy tokens of both spec engines bitwise the "
+          f"plain engine's (verify rows {SERVE['max_batch']} x "
+          f"{MOE_SPEC_K + 1} <= C {C}: no drop possible); "
+          f"{time.perf_counter() - t0:.1f}s; {card()}")
+    del runs
+    # the exact draft at MOE_SPEC_LAYERS layers: the draft is the target
+    t0 = time.perf_counter()
+    cut, cparams = cut_depth(cfg, params, MOE_SPEC_LAYERS)
+    sv = dataclasses.replace(cut.serve, **SERVE, spec_k=2,
+                             draft_depth=MOE_SPEC_LAYERS)
+    run, draft, mine = spec_engine(
+        f"moe-spec {arch} exact_depth{MOE_SPEC_LAYERS}_k2", cut, cparams,
+        sv, stream(cut), dev)
+    for k in SPEC_KERNELS:
+        launches[k] += mine[k]
+    if draft.cfg.num_layers != MOE_SPEC_LAYERS or \
+            run["stats"].spec_accepted <= 0:
+        fail(f"moe-spec {arch} exact draft: {draft.cfg.num_layers} layers, "
+             f"{run['stats'].spec_accepted} proposals accepted")
+    print(f"[moe-spec] {arch} exact draft ({MOE_SPEC_LAYERS} layers, the "
+          f"whole target) at spec_k 2: acceptance "
+          f"{run['stats'].acceptance_rate:.4f} > 0, graphed bitwise its "
+          f"eager twin; {time.perf_counter() - t0:.1f}s")
+    del run, draft, params, cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # deepseek-moe: drops are possible in a verify step and in a prefill
+    # chunk, whose pad rows attend the spec engine's overhang block where
+    # the plain engine's land in the write sink (the reference's books)
+    t0 = time.perf_counter()
+    arch = "deepseek-moe-16b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=MOE_SPEC_LAYERS)
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    serve = dataclasses.replace(cfg.serve, **SERVE)
+    reqs = stream(cfg)
+    served = {}
+
+    def observed(name, sv):
+        """A spec engine whose eager twin records its routing in
+        ``served[name]`` (active once the twin is built)."""
+        def make(graphs, draft):
+            if graphs is not False:
+                return AsyncServeEngine(cfg, params, serve=sv, device=dev,
+                                        draft=draft, graphs=graphs)
+            served[name] = ServedRouting(cfg.num_layers, SERVE["max_batch"],
+                                         draft.cfg.num_layers)
+            front = AsyncServeEngine(cfg, params, serve=sv, device=dev,
+                                     draft=draft, graphs=False,
+                                     obs=served[name])
+            served[name].__enter__()
+            return front
+        return make
+
+    sv = dataclasses.replace(serve, **SPEC_DRAFTS["cs_depth1_ratio4"])
+    served["plain"] = ServedRouting(cfg.num_layers, SERVE["max_batch"])
+    with served["plain"]:
+        plain = plain_engine(f"moe-spec {arch} plain", cfg, params, serve,
+                             reqs, dev, graphs=False, obs=served["plain"])
+    try:
+        run, _, mine = spec_engine(f"moe-spec {arch} cs_depth1_ratio4", cfg,
+                                   params, sv, reqs, dev,
+                                   observed("cs_depth1_ratio4", sv))
+    finally:
+        if "cs_depth1_ratio4" in served:
+            served["cs_depth1_ratio4"].__exit__()
+    for k in SPEC_KERNELS:
+        launches[k] += mine[k]
+    first, calls, dropping, dropped = first_drops(
+        served["cs_depth1_ratio4"], reqs)
+    apart = prefill_apart(served["plain"], served["cs_depth1_ratio4"], reqs,
+                          cfg.num_layers, SERVE["prefill_bucket"])
+    for rid in apart:
+        first[rid] = 0
+    bad, n = greedy_apart(reqs, plain, tokens(run), first)
+    if bad:
+        fail(f"moe-spec {arch}: greedy requests {bad} differ from the plain "
+             f"engine's before their first dropped choice")
+    cut_at = {rid: k for rid, k in first.items()
+              if k < MOE_NEW and rid not in apart}
+    print(f"[moe-spec] {arch} full width, {MOE_SPEC_LAYERS} of 28 layers, C "
+          f"{moe.capacity(cfg)}: verify steps {calls} (recorded by the eager "
+          f"twin over both passes and the window), {dropping} with a "
+          f"dropped choice, {dropped} choices dropped; requests cut short "
+          f"by a verify drop {cut_at or 'none'}; requests whose prompt rows "
+          f"a prefill chunk routed or dropped apart in the two engines "
+          f"(its pad rows attend another block) {apart or 'none'}; {n} "
+          f"greedy tokens bitwise the plain engine's before each request's "
+          f"first drop; {time.perf_counter() - t0:.1f}s; {card()}")
+    del run, params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # qwen2.5: attention biases
+    t0 = time.perf_counter()
+    arch = "qwen2.5-32b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=CUT_LAYERS)
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    g = torch.Generator(dev).manual_seed(SEED + 31)
+    for blk in params["blocks"]:
+        for k in ("bq", "bk", "bv"):
+            blk["attn"][k] = (0.5 * torch.randn(
+                blk["attn"][k].shape, generator=g, device=dev)).to(ly.PDTYPE)
+    reqs, runs = engines(arch, cfg, params, SPEC_DRAFTS)
+    plain = runs["plain"]
+    for name in SPEC_DRAFTS:
+        run, draft = runs[name]
+        bad, n = greedy_apart(reqs, plain, tokens(run))
+        d0, t0b = draft.params["blocks"][0]["attn"], \
+            params["blocks"][0]["attn"]
+        same = all(d0[k] is t0b[k] for k in ("bq", "bk", "bv"))
+        if bad or not same:
+            fail(f"moe-spec {arch} {name}: greedy requests {bad} differ from "
+                 f"the plain engine's; draft biases the target's: {same}")
+    print(f"[moe-spec] {arch} full width, {CUT_LAYERS} layers, random "
+          f"attention biases: {n} greedy tokens of both spec engines bitwise "
+          f"the plain engine's; the drafts' bq / bk / bv are the target's "
+          f"layer-0 tensors; {time.perf_counter() - t0:.1f}s; {card()}")
+    del runs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if min(launches.values()) <= 0:
+        fail(f"moe-spec: launches on the path {launches}")
+    print(f"[moe-spec] launches on the moe-spec path (the spec engines, "
+          f"draft derivation included): {launches}; {card()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the recurrent families on the slot engine
 # ---------------------------------------------------------------------------
 
@@ -4002,6 +4526,9 @@ def main() -> None:
         print(f"[time] {what} {laps[-1] - laps[-2]:.1f}s (at "
               f"{laps[-1] - t_run:.1f}s)", flush=True)
 
+    add_draft_geometries([(a, get_config(a)) for a in
+                          ("granite-moe-3b-a800m", "deepseek-moe-16b",
+                           "qwen2.5-32b")])
     rows = phase_kernel(flush)
     lap("phase kernel, paged_attention")
     sk_rows = phase_sketch_kernel(flush)
@@ -4042,6 +4569,11 @@ def main() -> None:
     shapes.check("phase moe")
     lap("phase moe")
     held("moe, its models freed")
+    with LaunchShapes() as shapes:
+        moe_spec_launches = phase_moe_spec(dev)
+    shapes.check("phase moe-spec")
+    lap("phase moe-spec")
+    held("moe-spec, its models freed")
     phase_recurrent(dev)
     lap("phase recurrent")
     held("recurrent, its models freed")
@@ -4061,6 +4593,9 @@ def main() -> None:
         + long_spec_launches["paged_attention"],
         # phase moe's six engines (their graphed first passes)
         "moe_launches": moe_launches,
+        # phase moe-spec's spec engines (draft micro-steps, verify,
+        # prefill; their graphed first passes)
+        "moe_spec_launches": moe_spec_launches["paged_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
@@ -4107,6 +4642,8 @@ def main() -> None:
             "spec_launches": spec_launches[name],
             # count_sketch: the sketched tail span of the 8k stream
             "long_launches": long_launches.get(name, 0),
+            # the moe and qwen2.5 drafts' derivations and sketched heads
+            "moe_spec_launches": moe_spec_launches[name],
             "max_abs_err": max(g["max_abs_err"] for g in geo.values()),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -23,13 +23,17 @@ folds during its prefill.  E.g. on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --max-seq 512 --kv-sketch-window 64 --long-context 400
 
-Speculative decoding: ``--spec-k K`` has a draft of the first
+Speculative decoding: ``--spec-k K`` (any K) has a draft of the first
 ``--draft-depth`` layers propose K tokens a round, count-sketch-compressed
 at ``--draft-sketch-ratio`` (with the FCS-sketched head) when it is > 0;
-the exit summary then has a ``speculative:`` line.  E.g.
+the exit summary then has a ``speculative:`` line.  Every attention
+config speculates, the moe family (its experts compressed one by one)
+and qwen2.5-32b's attention biases included.  E.g.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --spec-k 3 --draft-depth 1 --draft-sketch-ratio 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch granite-moe-3b-a800m --spec-k 4 --draft-sketch-ratio 4
 
 The recurrent families serve through the same engine: ``--arch
 xlstm-1.3b`` or ``--arch zamba2-2.7b`` (their slot state is prefilled at

@@ -15,7 +15,14 @@ model that agrees with it often.  Two derivations, composable:
     ``models/layers.py`` (paper Section 4.2) at the same ratio.  The
     sketch and the reconstruction are the ``count_sketch`` and
     ``unsketch`` ops (``kernels/ops.py``): on the card the hand-written
-    kernels, one launch each per layer matrix.
+    kernels, one launch each per layer matrix.  The moe family's leaves
+    follow the reference's flatten of its stacked (L, E, d, f) leaves:
+    each expert slice of ``moe/we_gate`` / ``we_up`` / ``we_down`` is a
+    matrix of its own under seed ``leaf_seed + layer * E + expert``; the
+    router (d, E) is reconstructed in f32 and stays f32, and the shared
+    experts ``moe/ws_*`` are matrices of the layer like the attention's.
+    The 1-D leaves (norms, the attention biases ``bq`` / ``bk`` /
+    ``bv``) pass through as the target's tensors.
 
 Either way the draft is a params dict and a ``ModelConfig`` that run
 through the unchanged ``transformer`` decode / prefill paths; the
@@ -85,16 +92,18 @@ def leaf_seed(name: str, base_seed: int) -> int:
 
 
 def block_matrices(block: dict):
-    """(leaf path, tensor) of a layer's 2-D matrices, in the reference's
-    flatten order of the stacked block tree (sorted keys); the per-layer
-    1-D leaves (norms, biases) are left out — they pass through."""
+    """(leaf path, tensor) of a layer's matrix leaves — 2-D (d_in, d_out)
+    matrices and the moe family's 3-D (E, d_in, d_out) expert stacks —
+    in the reference's flatten order of the stacked block tree (sorted
+    keys); the per-layer 1-D leaves (norms, biases) are left out: they
+    pass through."""
     out = []
     for k in sorted(block):
         v = block[k]
         if isinstance(v, dict):
             out.extend((f"{k}/{kk}", v[kk]) for kk in sorted(v)
-                       if v[kk].ndim == 2)
-        elif v.ndim == 2:
+                       if v[kk].ndim >= 2)
+        elif v.ndim >= 2:
             out.append((k, v))
     return out
 
@@ -102,13 +111,21 @@ def block_matrices(block: dict):
 def _compress_block(block: dict, layer: int, ratio: int, rows: int,
                     base_seed: int) -> dict:
     """One layer with every matrix count-sketch reconstructed, each under
-    the seed of its leaf and layer, as the reference's ``_compress_leaf``
-    seeds slice ``layer`` of a stacked leaf."""
+    the seed of its leaf and slice, as the reference's ``_compress_leaf``
+    seeds slice i of a stacked leaf flattened to (lead, d_in, d_out):
+    ``layer`` for a (L, d_in, d_out) leaf, ``layer * E + e`` for expert
+    e of a (L, E, d_in, d_out) one."""
     new = {k: (dict(v) if isinstance(v, dict) else v)
            for k, v in block.items()}
     for name, w in block_matrices(block):
-        rec = _cs_reconstruct(w, ratio, rows,
-                              leaf_seed(name, base_seed) + layer)
+        seed = leaf_seed(name, base_seed)
+        if w.ndim == 2:
+            rec = _cs_reconstruct(w, ratio, rows, seed + layer)
+        else:
+            E = w.shape[0]
+            rec = torch.stack([
+                _cs_reconstruct(w[e], ratio, rows, seed + layer * E + e)
+                for e in range(E)])
         if "/" in name:
             a, b = name.split("/")
             new[a][b] = rec

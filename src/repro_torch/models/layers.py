@@ -8,17 +8,18 @@ loss.
 Plain functions over explicit parameter dicts.  Weights are bf16;
 norms, softmax statistics and logits are f32.
 
-Row padding.  A serve engine's decode and verify steps carry their B*S
-hidden rows padded with zero rows to ``padded_rows(max_batch)``, a
-multiple of ``ROW_TILE``, so every GEMM and row reduction of a decode
-step (B rows) and of a verify step (B*(spec_k+1) rows) runs at one shape
-(the scheduler refuses a spec engine whose verify rows would not fit).
-Library GEMMs and reductions pick their algorithm (split-K, block
-shape) by shape, so only equal shapes make a verify row bitwise the
-decode row at its position — the property greedy speculative decoding
-rests on.  At decode sizes the GEMMs are bound by the weights' bytes,
-which padding does not add to.  Chunk prefill runs at the same shape in
-every engine and is not padded.
+Row padding.  A serve engine's decode step carries its B hidden rows
+padded with zero rows to its step rows, ``padded_rows(max_batch)``, a
+multiple of ``ROW_TILE``; a verify step's B*(spec_k+1) rows pad to a
+whole number of step-row slabs, and every GEMM and row reduction of the
+step runs over those slabs one at a time (``by_slabs``), so each launch
+has the decode step's shape whatever spec_k is.  Library GEMMs and
+reductions pick their algorithm (split-K, block shape) by shape, so
+only equal shapes make a verify row bitwise the decode row at its
+position — the property greedy speculative decoding rests on.  At
+decode sizes the GEMMs are bound by the weights' bytes, which padding
+does not add to; a verify step of n slabs reads the weights n times.
+Chunk prefill runs at the same shape in every engine and is not padded.
 
 Paged KV pool layout: ``(NB + 1, bs, K, hd)`` per layer.  Blocks
 ``[0, NB)`` are the pool the block tables index; block ``NB`` is a write
@@ -60,6 +61,21 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, rows - x.shape[0])) if rows > x.shape[0] else x
 
 
+def slab_rows(M: int, slab: int) -> int:
+    """M rounded up to a whole number of ``slab``-row slabs."""
+    return -(-M // slab) * slab
+
+
+def by_slabs(fn, x: torch.Tensor, slab: Optional[int]) -> torch.Tensor:
+    """``fn`` of a row-wise computation over x's rows, run on successive
+    slabs of ``slab`` rows and concatenated, so that every launch has the
+    shape of one slab (the decode step's; see row padding above).  One
+    call when ``slab`` is None or x has at most ``slab`` rows."""
+    if slab is None or x.shape[0] <= slab:
+        return fn(x)
+    return torch.cat([fn(t) for t in x.split(slab)])
+
+
 # ---------------------------------------------------------------------------
 # Norms, RoPE
 # ---------------------------------------------------------------------------
@@ -94,21 +110,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _project_qkv_rope(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                      positions: torch.Tensor):
+                      positions: torch.Tensor, slab: Optional[int] = None):
     """Project (+bias), split heads, rope q and k at ``positions``
     ((S,) or (B, S)).  x is (B, S, d), or (rows, d) holding the B*S rows
     of (B, S) ``positions`` first and zero padding after (the paged
-    paths' layout): the projections then run at all the rows.  Shared by
-    decode, verify and chunked prefill."""
+    paths' layout): the projections then run at all the rows, in slabs
+    of ``slab`` rows (``by_slabs``).  Shared by decode, verify and
+    chunked prefill."""
     if x.ndim == 3:
         B, S = x.shape[:2]
     else:
         B, S = positions.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
-    q = x @ p["wq"]
-    kn = x @ p["wk"]
-    vn = x @ p["wv"]
+    proj = lambda w: by_slabs(lambda t: t @ w, x, slab)
+    q = proj(p["wq"])
+    kn = proj(p["wk"])
+    vn = proj(p["wv"])
     if cfg.qkv_bias:
         q, kn, vn = q + p["bq"], kn + p["bk"], vn + p["bv"]
     if x.ndim == 2:
@@ -122,17 +140,19 @@ def paged_attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  tables: torch.Tensor, start: torch.Tensor,
                  fold_base: torch.Tensor, use_kernel: Optional[bool],
                  tail: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 sketch: Optional[dict] = None) -> torch.Tensor:
+                 sketch: Optional[dict] = None,
+                 tail_slab: Optional[int] = None) -> torch.Tensor:
     """Attend straight through the block tables (the reference's
     ``_kernel_paged_attention``).  qg: (B, Sq, K, R, hd); k/v: the
     (NB, bs, K, hd) pools; start: (B,) position of each slot's query
     row 0.  With ``tail`` (this layer's (B, Z, C, K, hd) k and v tables)
     and ``sketch`` (serve/kv_sketch.py) the exact span is
     [fold_base, start + i] and the tail supplies [0, fold_base), merged
-    with online-softmax statistics; slots with fold_base == 0 keep the
-    exact output verbatim, so a window covering the context decodes
-    bitwise as a sketch-free engine.  Returns (B, Sq, K, R, hd) in qg's
-    dtype."""
+    with online-softmax statistics (its value contraction in slabs of
+    ``tail_slab`` rows, ``kv_sketch.tail_attend``); slots with
+    fold_base == 0 keep the exact output verbatim, so a window covering
+    the context decodes bitwise as a sketch-free engine.  Returns
+    (B, Sq, K, R, hd) in qg's dtype."""
     m_e, l_e, acc_e = kops.paged_attention_op(qg, k, v, tables, start,
                                               fold_base,
                                               use_kernel=use_kernel)
@@ -141,7 +161,8 @@ def paged_attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         from repro_torch.serve import kv_sketch as kvs
         m_t, l_t, acc_t = kvs.tail_attend(
             qg, tail[0], tail[1], sketch["coeffs"], sketch["pos_hash"],
-            fold_base, 1.0 / math.sqrt(qg.shape[-1]), use_kernel=use_kernel)
+            fold_base, 1.0 / math.sqrt(qg.shape[-1]), use_kernel=use_kernel,
+            slab=tail_slab)
         merged = kvs.merge_spans(m_e, l_e, acc_e, m_t, l_t, acc_t)
         o = torch.where((fold_base > 0)[:, None, None, None, None], merged,
                         o)
@@ -155,14 +176,18 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
                          use_kernel: Optional[bool] = None,
                          tail: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                         sketch: Optional[dict] = None) -> torch.Tensor:
+                         sketch: Optional[dict] = None,
+                         slab: Optional[int] = None) -> torch.Tensor:
     """Attention of new rows against the paged pool — the reference's
     ``_paged_decode_attention`` (one token per slot, x (B, 1, d),
     positions (B, 1)) and ``chunk_attention`` (one prompt chunk of one
     slot, x (1, C, d), positions (1, C) = start + arange(C)) in one, and
     the verify step's (B, K + 1) rows of consecutive positions.  x may
     also be the B*S rows padded to (rows, d) (see ``padded_rows``); the
-    result then has the same padded layout.
+    result then has the same padded layout, and with ``slab`` (the
+    decode and verify steps' step rows) the projections run over slabs
+    of that many rows and the tail span's value contraction over slabs
+    of ``padded_rows(H // K)`` rows, the decode step's.
     Each new KV row scatters through its slot's (B, nb) block-table row
     into the layer's pool in place (the JAX version donated the pool);
     rows on unallocated entries (== NB) or past the table land in the
@@ -177,7 +202,7 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     H, K = cfg.num_heads, cfg.num_kv_heads
     NB, bs = pool_k.shape[0] - 1, pool_k.shape[1]
     nb_slot = tables.shape[1]
-    q, kn, vn = _project_qkv_rope(p, x, cfg, positions)
+    q, kn, vn = _project_qkv_rope(p, x, cfg, positions, slab)
     blk = torch.div(positions, bs, rounding_mode="floor").long()
     phys = torch.gather(tables, 1, blk.clamp(max=nb_slot - 1))
     phys = torch.where(blk < nb_slot, phys, NB).long()
@@ -187,9 +212,11 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     qg = q.reshape(B, S, K, H // K, hd)
     o = paged_attend(qg, pool_k[:NB], pool_v[:NB], tables,
                      positions[:, 0].contiguous(), fold_base, use_kernel,
-                     tail, sketch)
+                     tail, sketch,
+                     None if slab is None else padded_rows(H // K))
     if x.ndim == 2:
-        return pad_rows(o.reshape(B * S, H * hd), x.shape[0]) @ p["wo"]
+        return by_slabs(lambda t: t @ p["wo"],
+                        pad_rows(o.reshape(B * S, H * hd), x.shape[0]), slab)
     return o.reshape(B, S, H * hd) @ p["wo"]
 
 
@@ -341,12 +368,17 @@ def _head_io(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def logits_fn(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              rows: Optional[int] = None) -> torch.Tensor:
+              rows: Optional[int] = None,
+              slab: Optional[int] = None) -> torch.Tensor:
     """Final hidden -> vocab logits (f32), dense, tied or sketched head.
     ``rows`` keeps the first rows of a padded (rows', d) x (the paged
-    paths' layout; the projection runs at all of them)."""
-    x, head = _head_io(params, x, cfg)
-    out = x @ head
+    paths' layout; the projection runs at all of them, in slabs of
+    ``slab`` rows)."""
+    def project(t):
+        t, head = _head_io(params, t, cfg)
+        return t @ head
+
+    out = by_slabs(project, x, slab)
     return (out if rows is None else out[:rows]).float()
 
 

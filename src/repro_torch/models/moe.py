@@ -20,6 +20,17 @@ No step reads a value on the host, sizes a tensor by data, or adds
 floats with atomics, so the decode and prefill chunks that run it can be
 captured as CUDA graphs and replay bitwise as their eager twins.
 
+The serve paths' decode and verify steps (``live`` / ``slab``) compute
+the router logits and the shared experts at the step's padded rows,
+slab by slab, as every other row op of the step, and run each routing
+group's experts in a launch of its own: the card's GEMMs change bits
+with M, so logits computed at the live row count could round a near-tie
+one way in a decode step (B rows) and the other in a verify step
+(B*(spec_k + 1) rows).  A token's expert output then depends only on its
+expert and its place in that expert's queue, never on the row count;
+which place it gets, and whether it is dropped, still depends on the
+other tokens routed in its group, as in the reference.
+
 Top-k takes a stable descending sort: ties (the zero pad rows' uniform
 probabilities) go to the lower expert index, as ``jax.lax.top_k``'s do.
 
@@ -94,13 +105,14 @@ def queue(topi: torch.Tensor, cfg: ModelConfig
     return pos, pos < capacity(cfg)
 
 
-def route(p: Dict[str, torch.Tensor], xg: torch.Tensor, cfg: ModelConfig
+def route(logits: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, ...]:
-    """Routing of grouped tokens xg (G, g, d).  Returns (probs (G, g, E)
-    f32, topw (G, g, K) f32 renormalized to sum to 1, topi (G, g, K)
-    int64, pos, keep: ``queue(topi)``)."""
+    """Routing of grouped tokens from their f32 router logits (G, g, E),
+    x @ router.  Returns (probs (G, g, E) f32, topw (G, g, K) f32
+    renormalized to sum to 1, topi (G, g, K) int64, pos, keep:
+    ``queue(topi)``)."""
     K = cfg.moe.top_k
-    probs = torch.softmax(xg.float() @ p["router"], dim=-1)
+    probs = torch.softmax(logits, dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     topw, topi = srt.values[..., :K], srt.indices[..., :K]
     return (probs, topw / topw.sum(dim=-1, keepdim=True), topi,
@@ -120,23 +132,57 @@ def aux_loss(probs: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig
     return m.router_aux_weight * E * (f_e * p_e).sum(dim=-1).mean()
 
 
+def _experts(p: Dict[str, torch.Tensor], ein: torch.Tensor,
+             act: str) -> torch.Tensor:
+    """The experts' GLU of their rows ein (E, n, d): one ``bmm`` over the
+    experts per projection -> (E, n, d)."""
+    h = ly._act(act, torch.bmm(ein, p["we_gate"])) * torch.bmm(
+        ein, p["we_up"])
+    return torch.bmm(h, p["we_down"])
+
+
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
             layer: int = 0, positions: Optional[torch.Tensor] = None,
-            with_aux: bool = False):
+            with_aux: bool = False, live: Optional[Tuple[int, int]] = None,
+            slab: Optional[int] = None):
     """x: (B, S, d) bf16 -> out (B, S, d), or with ``with_aux`` (out, the
     call's aux loss ``aux_loss`` of the routing it ran, f32 scalar).
+    With ``live`` = (B, S), x is (rows, d) instead, the B*S rows of
+    (B, S) first and zero padding after (the paged paths' layout), and
+    so is the output, its padding rows zero; routing, capacity, dispatch
+    and combine take the B*S live rows alone, as the reference's.
+    ``slab`` (with ``live``: the decode and verify steps' step rows):
+    the router logits and the shared experts' GLU run over x's rows in
+    slabs of that many rows and each group's experts in a launch of
+    their own, so each launch has the decode step's shape
+    (models/layers.py, row padding), and a live row's router logits,
+    shared-expert output and, on the same expert and queue place, expert
+    output are the same bits in a decode and in a verify step.
     ``layer`` and ``positions`` ((B, S) absolute positions of x's rows,
     or None) only reach ``probe``."""
     m = cfg.moe
-    B, S, d = x.shape
+    if live is None:
+        B, S, d = x.shape
+        xs = x.reshape(B * S, d)
+    else:
+        (B, S), d = live, x.shape[-1]
+        xs = x
     E, K = m.num_experts, m.top_k
     T = B * S
     g = min(m.group_size, T)
     G = -(-T // g)
     C = capacity(cfg)
     dev = x.device
-    xg = ly.pad_rows(x.reshape(T, d), G * g).view(G, g, d)
-    routing = route(p, xg, cfg)
+    xg = ly.pad_rows(xs[:T], G * g).view(G, g, d)
+    if slab is None:
+        logits = xg.float() @ p["router"]
+    else:
+        # padding rows are zero, so their logits are the zero rows' that
+        # the group padding gets
+        logits = ly.pad_rows(ly.by_slabs(
+            lambda t: t.float() @ p["router"], xs, slab)[:T],
+            G * g).view(G, g, E)
+    routing = route(logits, cfg)
     if probe is not None:
         routing = probe(layer, positions, routing, cfg)
     probs, topw, topi, pos, keep = routing
@@ -151,9 +197,11 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     xz = torch.cat([xg, xg.new_zeros((G, 1, d))], dim=1)
     ein = xz[grp, table[:, :E * C]]                           # (G, E*C, d)
     ein = ein.view(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
-    h = ly._act(cfg.act, torch.bmm(ein, p["we_gate"])) * torch.bmm(
-        ein, p["we_up"])
-    eout = torch.bmm(h, p["we_down"])                         # (E, G*C, d)
+    if slab is None or G == 1:
+        eout = _experts(p, ein, cfg.act)                      # (E, G*C, d)
+    else:
+        eout = torch.cat([_experts(p, e.contiguous(), cfg.act)
+                          for e in ein.split(C, dim=1)], dim=1)
     eout = eout.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
 
     # combine: each token's K outputs, weighted in bf16, summed in f32
@@ -162,8 +210,15 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     y = (rows.view(G, g, K, d).float() * w[..., None]).sum(dim=2)
     y = y.to(x.dtype)
     if m.num_shared_experts:
-        y = y + ly.glu_ffn({"w_gate": p["ws_gate"], "w_up": p["ws_up"],
-                            "w_down": p["ws_down"]}, xg, cfg.act)
+        shared = lambda t: ly.glu_ffn(
+            {"w_gate": p["ws_gate"], "w_up": p["ws_up"],
+             "w_down": p["ws_down"]}, t, cfg.act)
+        if slab is None:
+            y = y + shared(xg)
+        else:
+            y = y + ly.pad_rows(ly.by_slabs(shared, xs, slab)[:T],
+                                G * g).view(G, g, d)
 
-    y = y.reshape(G * g, d)[:T].view(B, S, d)
+    y = y.reshape(G * g, d)[:T]
+    y = y.view(B, S, d) if live is None else ly.pad_rows(y, xs.shape[0])
     return (y, aux_loss(probs, topi, cfg)) if with_aux else y

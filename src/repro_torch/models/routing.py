@@ -131,18 +131,26 @@ class ServedRouting(RoutingProbe, ServeObserver):
         and offset of the ``prefill_span`` that follows it, and the
         request later ``request_admitted`` to that slot;
       * a decode step (a call of max_batch rows, one position each)
-        under each slot's admitted request and the row's position.
+        under each slot's admitted request and the row's position;
+      * on a speculative engine (``draft_layers``: its draft's depth,
+        0 for a plain engine), a verify step (max_batch slots of spec_k
+        + 1 positions each) likewise row by row, and a draft micro-step
+        (max_batch rows, one position each: a call of the draft, not of
+        the served model) as a draft call; a prefill chunk runs the
+        target's layers, then the draft's.
 
     ``contexts()`` gives each call's context; ``forcing_of`` a request's
     routing for a full-sequence recompute."""
 
-    def __init__(self, num_layers: int, max_batch: int):
+    def __init__(self, num_layers: int, max_batch: int,
+                 draft_layers: int = 0):
         if max_batch < 2:
             raise ValueError("a decode step of one row looks like a "
                              "prefill chunk: max_batch must be > 1")
         RoutingProbe.__init__(self)
         ServeObserver.__init__(self)
         self.num_layers = num_layers
+        self.draft_layers = draft_layers
         self.prompt_len: Dict[int, int] = {}
 
     def request_queued(self, rid, prompt_len, priority):
@@ -168,7 +176,11 @@ class ServedRouting(RoutingProbe, ServeObserver):
     def contexts(self) -> List[Tuple[Call, Optional[tuple]]]:
         """Every recorded call in call order with its context:
         ("prefill", rid, off), or ("decode", [(rid or None, position)
-        per slot]); None for a call that served no admitted request."""
+        per routed row]) — a verify step's rows slot-major, then (None,
+        -1) for each group-padding row — or, on a speculative engine,
+        the draft's calls: ("draft", [(rid or None, position) per slot])
+        and ("draft prefill", rid, off); None for a call that served no
+        admitted request."""
         calls = self.calls
         index = {id(c): i for i, c in enumerate(calls)}
         ctx: List[Optional[tuple]] = [None] * len(calls)
@@ -180,23 +192,29 @@ class ServedRouting(RoutingProbe, ServeObserver):
                 if e.positions.shape[0] == 1:
                     pending.append(e)
                     continue
-                if e.positions.shape[1] != 1:
-                    raise ValueError("a verify step's rows are not filed")
-                pos = e.positions[:, 0].tolist()
-                ctx[index[id(e)]] = ("decode", [
-                    (slot_rid.get(s), p) for s, p in enumerate(pos)])
+                B, S = e.positions.shape
+                if S > 1 and not self.draft_layers:
+                    raise ValueError("a verify step on an engine not "
+                                     "filed as speculative")
+                rows = [(slot_rid.get(s), p) for s, ps in
+                        enumerate(e.positions.tolist()) for p in ps]
+                pad = e.topi.shape[0] * e.topi.shape[1] - len(rows)
+                kind = "draft" if self.draft_layers and S == 1 else "decode"
+                ctx[index[id(e)]] = (kind, rows + [(None, -1)] * pad)
             elif e[0] == "prefill":
-                if len(pending) != self.num_layers:
+                n = self.num_layers + self.draft_layers
+                if len(pending) != n:
                     raise ValueError(f"{len(pending)} calls ahead of a "
-                                     f"prefill chunk of {self.num_layers} "
-                                     f"layers")
+                                     f"prefill chunk of {n} layers")
                 chunks.setdefault(e[1], []).append((pending, e[2]))
                 pending = []
             elif e[0] == "admitted":
                 _, rid, slot = e
                 for cs, off in chunks.pop(slot, []):
-                    for c in cs:
-                        ctx[index[id(c)]] = ("prefill", rid, off)
+                    for i, c in enumerate(cs):
+                        kind = ("prefill" if i < self.num_layers
+                                else "draft prefill")
+                        ctx[index[id(c)]] = (kind, rid, off)
                 slot_rid[slot] = rid
             elif e[0] == "vacated":
                 slot_rid.pop(e[1], None)
@@ -215,7 +233,10 @@ class ServedRouting(RoutingProbe, ServeObserver):
         ``tokens`` up to p (``served``: rid -> prompt tokens; a prefix
         hit reads rows another request computed; other requests' rows
         are passed over).  Pad rows of the last
-        group take experts 0..K-1, as zero rows do."""
+        group take experts 0..K-1, as zero rows do.  A plain engine's
+        calls only (``draft_layers`` 0)."""
+        if self.draft_layers:
+            raise ValueError("forcing_of reads a plain engine's calls")
         K = cfg.moe.top_k
         T = len(tokens)
         g = min(cfg.moe.group_size, T)

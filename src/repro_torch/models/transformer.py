@@ -225,24 +225,26 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 def _ffn_residual(p_l: dict, x: torch.Tensor, cfg: ModelConfig,
                   live: Optional[Tuple[int, int]] = None, layer: int = 0,
-                  positions: Optional[torch.Tensor] = None):
+                  positions: Optional[torch.Tensor] = None,
+                  slab: Optional[int] = None):
     """x plus the block's FFN (GLU, or MoE for the moe family) of its
     norm.  x is (B, S, d), or (rows, d) holding the B*S rows of ``live``
     = (B, S) first and zero padding after (the paged paths' layout).
     The MoE routes only those B*S rows, in (B, S) order: the padding
     would change the group size, and its zero rows, tied across every
     expert, would all pick the first K experts and fill their capacity;
-    the padding rows' output stays zero.  ``layer`` and ``positions``
-    ((B, S)) reach the MoE's routing probe (models/moe.py)."""
-    h = ly.rms_norm(x, p_l["norm2"], cfg.norm_eps)
+    the padding rows' output stays zero.  ``slab`` (the decode and
+    verify steps' step rows): the norm, the GLU and the MoE's router and
+    shared experts run over slabs of that many rows (models/layers.py,
+    row padding).  ``layer`` and ``positions`` ((B, S)) reach the MoE's
+    routing probe (models/moe.py)."""
+    h = ly.by_slabs(lambda t: ly.rms_norm(t, p_l["norm2"], cfg.norm_eps),
+                    x, slab)
     if cfg.family != "moe":
-        return x + ly.glu_ffn(p_l["ffn"], h, cfg.act)
-    if live is None:
-        return x + moe.moe_ffn(p_l["moe"], h, cfg, layer, positions)
-    B, S = live
-    f = moe.moe_ffn(p_l["moe"], h[:B * S].view(B, S, -1), cfg, layer,
-                    positions)
-    return x + ly.pad_rows(f.view(B * S, -1), x.shape[0])
+        return x + ly.by_slabs(lambda t: ly.glu_ffn(p_l["ffn"], t, cfg.act),
+                               h, slab)
+    return x + moe.moe_ffn(p_l["moe"], h, cfg, layer, positions, live=live,
+                           slab=slab)
 
 
 def _train_block(p_l: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -307,8 +309,10 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     buckets and signs of ``kv_sketch.pos_buckets_signs``}.  Without it
     nothing is folded and the exact span starts at 0.
 
-    ``rows`` (paged modes only): run the B*S rows padded with zero rows
-    to this count (models/layers.py, row padding).
+    ``rows`` (paged modes only): the step rows: run the B*S rows padded
+    with zero rows to a whole number of ``rows``-row slabs, every GEMM
+    and row reduction one slab at a time (models/layers.py, row
+    padding).
 
     The recurrent families run "train" (the full sequence from a zero
     state), "prefill" (the same, returning the state after the last token
@@ -340,8 +344,9 @@ def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    kernels: Optional[bool], sketch: Optional[dict],
                    rows: Optional[int] = None) -> torch.Tensor:
     """The paged modes of ``forward`` on the B*S rows of x, padded with
-    zero rows to ``rows`` when given (models/layers.py, row padding):
-    returns the final-normed hidden rows in that (rows, d) layout."""
+    zero rows to whole slabs of ``rows`` rows when given, the row ops
+    running slab by slab (models/layers.py, row padding): returns the
+    final-normed hidden rows in that padded (n rows, d) layout."""
     B, S, d = x.shape
     positions = index[:, None] + torch.arange(S, dtype=torch.int32,
                                               device=x.device)
@@ -352,16 +357,18 @@ def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     kv = cache["kv"]
     h = x.reshape(B * S, d)
     if rows is not None:
-        h = ly.pad_rows(h, rows)
+        h = ly.pad_rows(h, ly.slab_rows(B * S, rows))
     for i, p_l in enumerate(params["blocks"]):
-        a = ly.rms_norm(h, p_l["norm1"], cfg.norm_eps)
+        a = ly.by_slabs(lambda t: ly.rms_norm(t, p_l["norm1"], cfg.norm_eps),
+                        h, rows)
         tail = (None if sketch is None
                 else (sketch["tail"][0, i], sketch["tail"][1, i]))
         a = ly.paged_self_attention(p_l["attn"], a, cfg, kv["k"][i],
                                     kv["v"][i], positions, tables,
-                                    fold_base, kernels, tail, sketch)
-        h = _ffn_residual(p_l, h + a, cfg, (B, S), i, positions)
-    return ly.rms_norm(h, params["final_norm"], cfg.norm_eps)
+                                    fold_base, kernels, tail, sketch, rows)
+        h = _ffn_residual(p_l, h + a, cfg, (B, S), i, positions, rows)
+    return ly.by_slabs(lambda t: ly.rms_norm(t, params["final_norm"],
+                                             cfg.norm_eps), h, rows)
 
 
 def _xlstm_counts(cfg: ModelConfig) -> Tuple[int, int]:
@@ -567,17 +574,18 @@ def verify_step(params: Params, cache: dict, tokens: torch.Tensor,
     slot's block table as C successive decode steps would (rows past the
     table land in the write sink), and the logits (B, C, Vp) f32 at
     position index[b] + i are what a decode step would give after
-    committing tokens[:, :i + 1]: bitwise, when both pad their rows to one
-    ``rows`` count (models/layers.py, row padding; the library GEMMs and
-    row reductions pick their order by shape) and since the paged
-    kernel's KV splits ignore C (kernels/paged_attention.py:plan).
+    committing tokens[:, :i + 1]: bitwise, when both run their rows in
+    slabs of one ``rows`` count (models/layers.py, row padding; the
+    library GEMMs and row reductions pick their order by shape) and since
+    the paged kernel's KV splits ignore C (kernels/paged_attention.py:
+    plan).  Past ``rows`` the B*C rows run as several slabs of it.
     Rejected rows above the accepted prefix are rewritten by the next
     round before any query can attend them."""
     B, C = tokens.shape
     x = embed_inputs(params, tokens)
     y = _paged_forward(params, x, cfg, cache, index.to(torch.int32),
                        tables, kernels, sketch, rows)
-    logits = ly.logits_fn(params, y, cfg, rows=B * C)
+    logits = ly.logits_fn(params, y, cfg, rows=B * C, slab=rows)
     return logits.view(B, C, -1), cache
 
 

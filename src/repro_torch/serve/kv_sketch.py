@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.count_sketch import Index, bucket_links
-from repro_torch.models.layers import padded_rows
+from repro_torch.models.layers import padded_rows, slab_rows
 from repro_torch.sketch.csvec import median_rows
 from repro_torch.sketch.hashing import cached_coeffs, row_buckets_signs
 
@@ -169,7 +169,8 @@ def tail_attend(q: torch.Tensor, tail_k: torch.Tensor, tail_v: torch.Tensor,
                 coeffs: torch.Tensor,
                 pos_hash: PosHash,
                 fold_base: torch.Tensor, scale: float,
-                use_kernel: Optional[bool] = None
+                use_kernel: Optional[bool] = None,
+                slab: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Approximate attention statistics over the folded span [0, fold_base).
 
@@ -183,9 +184,10 @@ def tail_attend(q: torch.Tensor, tail_k: torch.Tensor, tail_v: torch.Tensor,
     the score estimates and the softmax reduce each row alone, the count
     sketch of the softmax weights runs in one chunk of positions
     (``count_sketch_op(chunks=1)``, a fixed order of additions), and the
-    value contraction runs at ``padded_rows(R*Sq)`` rows, so a verify
-    step's rows are its decode steps' while both pad to one count (the
-    scheduler refuses a sketched spec engine where they would not).
+    value contraction runs at ``padded_rows(R*Sq)`` rows or, with
+    ``slab`` (the decode and verify steps: ``padded_rows(R)``, a decode
+    step's), over the R*Sq rows padded to whole slabs, one slab at a
+    time, so a verify step's rows are its decode steps' at any spec_k.
 
     Returns (m, l, acc): (B, K, R, Sq), same, and (B, K, R, Sq, hd) f32,
     merge-ready against the exact span's statistics.  An empty tail
@@ -208,10 +210,15 @@ def tail_attend(q: torch.Tensor, tail_k: torch.Tensor, tail_v: torch.Tensor,
     RS = R * Sq
     cw = kops.count_sketch_op(w.reshape(B * K * RS, T), bk, sg, C,
                               index=links, use_kernel=use_kernel, chunks=1)
-    rows = padded_rows(RS)
+    rows = padded_rows(RS) if slab is None else slab_rows(RS, slab)
     cw = F.pad(cw.view(Z, B, K, RS, C).permute(1, 0, 2, 3, 4),
                (0, 0, 0, rows - RS))                         # (B,Z,K,rows,C)
-    est_v = torch.matmul(cw, tail_v.float().permute(0, 1, 3, 2, 4))
+    tv = tail_v.float().permute(0, 1, 3, 2, 4)
+    if slab is None or rows == slab:
+        est_v = torch.matmul(cw, tv)
+    else:
+        est_v = torch.cat([torch.matmul(c.contiguous(), tv)
+                           for c in cw.split(slab, dim=3)], dim=3)
     acc = median_rows(est_v[:, :, :, :RS].permute(1, 0, 2, 3, 4))
     return m, l, acc.reshape(B, K, R, Sq, hd)
 

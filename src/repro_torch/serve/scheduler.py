@@ -73,10 +73,14 @@ its own shallow paged pool in ``cache["draft"]`` (and its own tail when
 sketched), on the target's block ids, tables and refcounts; it prefills
 in lockstep with the target, proposes K tokens a round, and the target
 verifies them in one multi-query step.  Greedy speculative output is
-token for token plain greedy output: decode and verify steps pad their
-rows to one count, ``step_rows`` (models/layers.py, row padding), and an
-engine whose verify rows (max_batch * (spec_k + 1)), or sketched
-tail-span rows, would pad further is refused.  Every slot of a spec engine
+token for token plain greedy output: a decode step pads its rows to
+``step_rows`` (models/layers.py, row padding), and a verify step's
+max_batch * (spec_k + 1) rows (and a sketched engine's tail-span rows)
+run in slabs of the decode step's shape, at any spec_k.  For the moe
+family this holds while no choice is dropped: a verify step routes
+B * (spec_k + 1) rows where decode routes B, so where an expert's
+capacity can fill, a verify row may drop a choice that its decode step
+would keep (or the reverse), as in the reference.  Every slot of a spec engine
 reserves ``spec_overhang`` = spec_k rows past its demand, as the
 reference's books do; verify and draft writes above the committed
 position stay in its own blocks below max_seq and land in the write sink
@@ -122,10 +126,9 @@ without bound, so ``prefill_compilations`` is 0 here.  The observer sees
 the same events as the reference's, which emits no prefill, prefix or
 fold event for these families.
 
-Not ported yet (raises ``NotImplementedError``): speculative decoding of
-the moe family or of a model with attention biases (``qkv_bias``).
-Speculation needs a kv-cache family: a recurrent one raises
-``ValueError``, as in the reference.
+Speculation runs on every attention family (dense, moe, audio, vlm) and
+config, attention biases included, at any spec_k.  It needs a kv-cache
+family: a recurrent one raises ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -422,11 +425,6 @@ class PrefillInputs:
 TIMINGS_KEPT = 10_000
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               f"see ROADMAP {item}")
-
-
 class SlotScheduler:
     def __init__(self, cfg: ModelConfig, params: Any,
                  serve: Optional[ServeConfig] = None,
@@ -445,13 +443,6 @@ class SlotScheduler:
                              f"{tf.ATTN_FAMILIES}, got {cfg.family!r}")
         if cfg.family not in tf.ATTN_FAMILIES + tf.RECURRENT_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
-        if sv.spec_k > 0 and (cfg.family == "moe" or cfg.qkv_bias):
-            # a moe draft's per-expert hash seeds and f32 router, capacity
-            # drops under verify, and a draft's attention bias leaves
-            raise _not_ported(
-                "speculative decoding of a moe model" if cfg.family == "moe"
-                else "speculative decoding with attention biases",
-                "Queue 1 #20")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine "
@@ -477,25 +468,11 @@ class SlotScheduler:
         if self.draft is not None and not self.is_kv:
             raise ValueError("speculative decode needs a kv-cache family")
         self.spec_max = int(sv.spec_k) if self.draft is not None else 0
-        # decode and verify steps run their rows padded to one count, the
-        # plain engine's of this max_batch, so a verify row is bitwise
-        # that engine's decode row (models/layers.py, row padding); a spec
-        # engine whose verify rows, or sketched tail-span rows, would pad
-        # further is refused rather than silently losing that identity
+        # decode steps pad their rows to the plain engine's count of this
+        # max_batch, and verify steps run theirs in slabs of it, so a
+        # verify row is bitwise that engine's decode row at any spec_k
+        # (models/layers.py, row padding)
         self.step_rows = ly.padded_rows(B)
-        rows_of = [("max_batch", B)]
-        if sv.kv_sketch_window:
-            rows_of.append(("query heads per kv head",
-                            cfg.num_heads // cfg.num_kv_heads))
-        for what, n in rows_of:
-            verify = n * (self.spec_max + 1)
-            if ly.padded_rows(verify) != ly.padded_rows(n):
-                raise ValueError(
-                    f"spec_k {self.spec_max}: {what} x (spec_k + 1) = "
-                    f"{verify} verify rows pad to {ly.padded_rows(verify)}, "
-                    f"the decode step's {n} to {ly.padded_rows(n)}, so "
-                    f"greedy speculative output would not be bitwise plain "
-                    f"output; lower max_batch or spec_k")
         self.spec_rounds = 0       # verify rounds run by speculating slots
         self.spec_proposed = 0     # draft tokens proposed in those rounds
         self.spec_accepted = 0     # draft tokens verified and emitted

@@ -8,21 +8,24 @@ Both estimate modes of the reference:
                  (the optimizer's second moment and the serve path's
                  prefix-cache admission counter).
 
-Ported: ``csvec_zeros``, dense ``accumulate``, ``accumulate_coords``,
-``query`` / ``query_all``, ``decay`` and ``state_bytes``.  The signed
-median is numpy's (the two middle rows averaged when the row count is
-even), as ``jnp.median`` computes it; ``torch.median`` returns the lower
-middle value and is not used.  ``topk``, ``merge``, ``l2_estimate``,
-``scale`` and ``query_row`` are on no ported path (ROADMAP Queue 1 #16).
+Every exported function of the reference: ``csvec_zeros``, dense
+``accumulate``, ``accumulate_coords``, ``query`` / ``query_row`` /
+``query_all``, ``topk``, ``l2_estimate``, ``merge``, ``scale``,
+``decay`` and ``state_bytes``.  The signed median is numpy's (the two
+middle rows averaged when the row count is even), as ``jnp.median``
+computes it; ``torch.median`` returns the lower middle value and is not
+used.
 
 The container holds only the (rows, cols) f32 table and the (rows, 4)
 hash coefficients; bucket hashes are recomputed on the fly
-(sketch/hashing.py).  Updates are in place: the JAX container was
-functional, here the one owner mutates its table.
+(sketch/hashing.py).  Updates (``accumulate``, ``scale``, ``decay``) are in place: the JAX
+container was functional, here the one owner mutates its table;
+``merge`` of two containers returns a new one.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -91,19 +94,63 @@ def median_rows(est: torch.Tensor) -> torch.Tensor:
     return 0.5 * (rows[R // 2 - 1] + rows[R // 2])
 
 
+def _row_estimates(sk: CSVec, idx: torch.Tensor) -> torch.Tensor:
+    """(rows, n) per-row estimates at idx: each row's signed cell."""
+    bk, sg = row_buckets_signs(sk.coeffs, idx, sk.cols, sk.signed)
+    return torch.gather(sk.table, 1, bk.to(torch.int64)) * sg
+
+
 def query(sk: CSVec, idx: torch.Tensor) -> torch.Tensor:
     """Point estimates at idx: median of rows (signed) / min (unsigned)."""
-    bk, sg = row_buckets_signs(sk.coeffs, idx, sk.cols, sk.signed)
-    est = torch.gather(sk.table, 1, bk.to(torch.int64)) * sg
+    est = _row_estimates(sk, idx)
     if sk.signed:
         return median_rows(est)
     return est.min(dim=0).values
+
+
+def query_row(sk: CSVec, idx: torch.Tensor, row: int) -> torch.Tensor:
+    """Single-row estimate at idx (no median combine): the r = 1
+    baseline."""
+    return _row_estimates(sk, idx)[row]
 
 
 def query_all(sk: CSVec) -> torch.Tensor:
     """Estimates for all d coordinates."""
     return query(sk, torch.arange(sk.d, dtype=torch.int64,
                                   device=sk.table.device))
+
+
+def topk(sk: CSVec, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Heavy hitters: (indices, estimates) of the k largest |estimate|.
+    Ties may come in another order than ``jax.lax.top_k``'s."""
+    est = query_all(sk)
+    ix = torch.topk(est.abs(), k).indices
+    return ix, est[ix]
+
+
+def l2_estimate(sk: CSVec) -> torch.Tensor:
+    """||vec||_2 estimate: the median over rows of per-row table norms
+    (squared, then the root)."""
+    return torch.sqrt(median_rows(sk.table.square().sum(dim=1)))
+
+
+def merge(a: CSVec, b: CSVec) -> CSVec:
+    """A new sketch of the sum of the two underlying vectors.  Needs
+    identical hashes, checked through (d, signed, seed) and the table
+    shape, as the reference checks them."""
+    if (a.d, a.signed, a.seed) != (b.d, b.signed, b.seed) \
+            or a.table.shape != b.table.shape:
+        raise ValueError("CSVec mismatch: incompatible containers "
+                         f"(d/signed/seed/shape {a.d}/{a.signed}/{a.seed}/"
+                         f"{tuple(a.table.shape)} vs {b.d}/{b.signed}/"
+                         f"{b.seed}/{tuple(b.table.shape)})")
+    return dataclasses.replace(a, table=a.table + b.table)
+
+
+def scale(sk: CSVec, alpha) -> CSVec:
+    """In place: every cell times ``alpha`` (the sketch of alpha x vec)."""
+    sk.table.mul_(alpha)
+    return sk
 
 
 def decay(sk: CSVec, factor: float = 0.5) -> CSVec:

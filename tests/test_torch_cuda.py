@@ -306,6 +306,59 @@ def test_verify_logits_are_decode_logits_on_the_card(card, B, C):
         assert torch.equal(cache_v["kv"][k], cache_d["kv"][k])
 
 
+@pytest.mark.parametrize("arch,B,C", [("gemma-2b", 24, 5),
+                                      ("deepseek-moe-16b", 8, 9)])
+def test_verify_past_the_step_rows_on_the_card(card, arch, B, C):
+    """Reduced configs on the card: a verify step of B x C rows past the
+    engine's 64 step rows runs every row op in slabs of 64 (120 and 72
+    rows: two slabs), and its logits and pool rows are bitwise C decode
+    steps' at the same step rows.  deepseek-moe's 72 verify rows route
+    in three groups of 32 tokens, which may drop choices that its 8-row
+    decode steps keep: its logits are held on the rows whose slot
+    dropped nothing in either step up to them (router logits and shared
+    experts run at the padded rows, each group's experts in a launch of
+    its own)."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models.routing import RoutingProbe
+    cfg = reduced_config(arch)
+    params = tf.init_params(cfg, seed=7, device=card)
+    bs, nbs = 8, 6
+    NB = B * nbs
+    g = torch.Generator(card).manual_seed(B + C)
+    toks = torch.randint(0, cfg.vocab_size, (B, C), generator=g,
+                         device=card)
+    tables = torch.arange(NB, dtype=torch.int32, device=card).reshape(B, nbs)
+    pos = torch.randint(0, nbs * bs - C, (B,), generator=g, device=card,
+                        dtype=torch.int32)
+    rows = ly.padded_rows(B)
+    assert B * C > rows
+    cache_v = tf.init_paged_cache(cfg, NB, bs, card)
+    cache_d = tf.init_paged_cache(cfg, NB, bs, card)
+    with RoutingProbe() as rv:
+        lg_v, _ = tf.verify_step(params, cache_v, toks, pos, cfg, tables,
+                                 rows=rows)
+    with RoutingProbe() as rd:
+        steps = [tf.decode_step(params, cache_d, toks[:, i:i + 1], pos + i,
+                                cfg, tables, rows=rows)[0]
+                 for i in range(C)]
+    clean = torch.ones((B, C), dtype=torch.bool, device=card)
+    if cfg.family == "moe":
+        L, K = cfg.num_layers, cfg.moe.top_k
+        kept = lambda c, n: c.keep.reshape(-1, K)[:n].all(-1)
+        for l in range(L):
+            clean &= kept(rv.calls[l], B * C).view(B, C)
+            for i in range(C):
+                clean[:, i] &= kept(rd.calls[i * L + l], B)
+        clean = torch.cumprod(clean.int(), dim=1).bool()
+        assert clean.sum() >= B * C // 2
+    for i in range(C):
+        ok = clean[:, i]
+        assert torch.equal(lg_v[ok, i], steps[i][ok]), f"offset {i}"
+    if bool(clean.all()):
+        for k in ("k", "v"):
+            assert torch.equal(cache_v["kv"][k], cache_d["kv"][k])
+
+
 @pytest.mark.parametrize("max_batch", [3, 16])
 def test_spec_engine_greedy_equals_plain_on_the_card(card, max_batch):
     """Reduced gemma-2b: a spec engine (truncated draft, and a

@@ -468,6 +468,35 @@ def test_tail_attend_rows_ignore_sq(Sq):
             assert torch.equal(a[:, :, :, i], b[:, :, :, 0]), i
 
 
+@pytest.mark.parametrize("R,Sq", [(8, 9), (4, 17)])
+def test_tail_attend_slabs_past_the_decode_rows(R, Sq):
+    """Past the decode step's rows: a verify step of R * Sq > 64 tail-span
+    rows (gemma-2b's 8 query heads a kv head at spec_k 8; reduced gemma's
+    4 at spec_k 16) runs its value contraction in slabs of the decode
+    step's ``padded_rows(R)`` rows, and each row's statistics are still
+    the Sq = 1 call's bits."""
+    from repro_torch.models.layers import padded_rows
+    B, K, hd, Z, C, T = 2, 1, 16, 3, 64, 256
+    slab = padded_rows(R)
+    assert R * Sq > slab
+    g = torch.Generator().manual_seed(R)
+    tk = torch.randn((B, Z, C, K, hd), generator=g)
+    tv = torch.randn((B, Z, C, K, hd), generator=g)
+    q = torch.randn((B, Sq, K, R, hd), generator=g).to(torch.bfloat16)
+    coeffs = cached_coeffs(11, Z)
+    ph = kvs.pos_buckets_signs(coeffs, T, C)
+    fb = torch.tensor([48, 128], dtype=torch.int32)
+    full = kvs.tail_attend(q, tk, tv, coeffs, ph, fb, 0.25, slab=slab)
+    for i in range(Sq):
+        one = kvs.tail_attend(q[:, i:i + 1].contiguous(), tk, tv, coeffs, ph,
+                              fb, 0.25, slab=slab)
+        for a, b in zip(full, one):
+            assert torch.equal(a[:, :, :, i], b[:, :, :, 0]), i
+    # the same function as the one-call contraction
+    for a, b in zip(full, kvs.tail_attend(q, tk, tv, coeffs, ph, fb, 0.25)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
 def test_one_chunk_count_sketch_rows_ignore_b():
     """``chunks=1`` fixes the kernel's order of additions by the hash and
     (I, J) alone: in its tiled model a row's sketch is the same bits in a

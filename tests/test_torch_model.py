@@ -171,8 +171,8 @@ def test_entry_points_raise_without_a_card():
 def test_unported_families_name_the_roadmap():
     # every family serves and trains since the recurrent families'
     # training was ported (tests/test_torch_train_families.py): their
-    # loss is finite; what still raises, naming its ROADMAP item, is
-    # speculation on the moe family
+    # loss is finite; and since speculation on the moe family was ported
+    # (ROADMAP Queue 1 #20), nothing raises naming a ROADMAP item
     from repro_torch.serve.scheduler import SlotScheduler
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
              "labels": torch.zeros((1, 4), dtype=torch.int64)}
@@ -183,6 +183,6 @@ def test_unported_families_name_the_roadmap():
             assert torch.isfinite(tf.loss_fn(params, batch, cfg))
     cfg = reduced_config("deepseek-moe-16b")
     serve = dataclasses.replace(cfg.serve, max_batch=2, max_seq=64, spec_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        SlotScheduler(cfg, tf.init_params(cfg, seed=0, device="cpu"),
-                      serve=serve, device="cpu")
+    sched = SlotScheduler(cfg, tf.init_params(cfg, seed=0, device="cpu"),
+                          serve=serve, device="cpu")
+    assert sched.spec_max == 2 and sched.draft is not None

@@ -456,26 +456,64 @@ def _port_prefill_and_decode(tcfg, tparams):
 
 
 # ---------------------------------------------------------------------------
-# What stays out of this slice
+# Speculation on the new configs
 # ---------------------------------------------------------------------------
 
 
-# the configs whose speculation is not ported: the moe family, and
-# qwen2.5-32b's attention biases
-SPEC_REFUSED = ["granite-moe-3b-a800m", "deepseek-moe-16b", "qwen2.5-32b"]
+# the configs whose speculation came last: the moe family (expert stacks
+# compressed expert by expert, an f32 router) and qwen2.5-32b's
+# attention biases
+SPEC_LATE = ["granite-moe-3b-a800m", "deepseek-moe-16b", "qwen2.5-32b"]
 
 
-@pytest.mark.parametrize("arch", SPEC_REFUSED)
+@pytest.mark.parametrize("arch", SPEC_LATE)
 def test_speculation_on_the_new_configs_names_the_roadmap(arch):
+    """The configs that once raised (ROADMAP Queue 1 #20) speculate:
+    greedy tokens bitwise the plain engine's through a truncated and a
+    count-sketched draft.  The reduced moe's steps of 2 rows and verify
+    steps of 2 x 4 rows never fill an expert's C rows, so nothing drops.
+    The compressed draft reconstructs every expert slice and keeps the
+    router f32; the attention biases pass through as the target's
+    layer-0 tensors."""
     tcfg = registry.reduced_config(arch)
     params = tf.init_params(tcfg, seed=0, device="cpu")
-    serve = dataclasses.replace(tcfg.serve, max_batch=2, max_seq=64,
-                                spec_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        SlotScheduler(tcfg, params, serve=serve, device="cpu")
+    if tcfg.qkv_bias:                  # init_params zeroes them
+        g = torch.Generator().manual_seed(4)
+        for blk in params["blocks"]:
+            for k in ("bq", "bk", "bv"):
+                blk["attn"][k] = (0.5 * torch.randn(
+                    blk["attn"][k].shape, generator=g)).to(ly.PDTYPE)
+    rng = np.random.RandomState(3)
+    reqs = [Request(rid=i, tokens=rng.randint(0, tcfg.vocab_size, (n,)
+                                              ).astype(np.int32), max_new=6)
+            for i, n in enumerate((5, 17, 9))]
+
+    def run(**kw):
+        serve = dataclasses.replace(tcfg.serve, max_batch=2, max_seq=64,
+                                    decode_chunk=4, prefill_bucket=16, **kw)
+        sched = SlotScheduler(tcfg, params, serve=serve, device="cpu")
+        done = {c.rid: list(c.tokens) for c in sched.run(list(reqs))}
+        return sched, done
+
+    _, plain = run()
+    for kw in (dict(draft_depth=1), dict(draft_depth=1,
+                                         draft_sketch_ratio=2)):
+        sched, got = run(spec_k=3, **kw)
+        assert got == plain, kw
+        assert sched.stats().spec_rounds > 0
+        d0, t0 = sched.draft.params["blocks"][0], params["blocks"][0]
+        if tcfg.qkv_bias:
+            assert all(d0["attn"][k] is t0["attn"][k]
+                       for k in ("bq", "bk", "bv"))
+        if tcfg.family == "moe" and kw.get("draft_sketch_ratio"):
+            assert d0["moe"]["router"].dtype == torch.float32
+            for k in ("we_gate", "we_up", "we_down"):
+                assert d0["moe"][k].shape == t0["moe"][k].shape
+                assert all(not torch.equal(a, b) for a, b in
+                           zip(d0["moe"][k], t0["moe"][k])), k
 
 
-@pytest.mark.parametrize("arch", sorted(set(NEW_ARCHS) - set(SPEC_REFUSED)))
+@pytest.mark.parametrize("arch", sorted(set(NEW_ARCHS) - set(SPEC_LATE)))
 def test_greedy_speculation_equals_plain_on_the_new_dense_configs(arch):
     """The dense stacks without biases (minitron-4b; musicgen-medium's
     gelu; internvl2-2b's padded vocab) speculate: greedy tokens bitwise
@@ -503,9 +541,9 @@ def test_greedy_speculation_equals_plain_on_the_new_dense_configs(arch):
 
 
 def test_moe_training_names_the_roadmap():
-    # #20's training half is done (tests/test_torch_train_families.py):
-    # the moe loss carries the router's aux loss and train() runs; its
-    # speculation half still raises, naming the ROADMAP item
+    # both halves of ROADMAP Queue 1 #20 are done: the moe loss carries
+    # the router's aux loss and train() runs
+    # (tests/test_torch_train_families.py), and a moe engine speculates
     from repro_torch.train.loop import train
     tcfg = registry.reduced_config("granite-moe-3b-a800m")
     params = tf.init_params(tcfg, seed=0, device="cpu")
@@ -522,8 +560,8 @@ def test_moe_training_names_the_roadmap():
     assert np.isfinite(h.losses).all()
     serve = dataclasses.replace(tcfg.serve, max_batch=2, max_seq=64,
                                 spec_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        SlotScheduler(tcfg, params, serve=serve, device="cpu")
+    sched = SlotScheduler(tcfg, params, serve=serve, device="cpu")
+    assert sched.spec_max == 2 and sched.draft.cfg.family == "moe"
 
 
 def test_drift_tool_runs_on_the_cpu(tmp_path):

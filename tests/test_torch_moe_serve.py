@@ -105,10 +105,11 @@ class Routes:
     port engine's observer and run the engine inside ``with
     routes.port``)."""
 
-    def __init__(self, monkeypatch, cfg, tcfg, max_batch):
+    def __init__(self, monkeypatch, cfg, tcfg, max_batch, draft_layers=0):
         self.ref = []
-        self.port = ServedRouting(tcfg.num_layers, max_batch)
+        self.port = ServedRouting(tcfg.num_layers, max_batch, draft_layers)
         self.L = tcfg.num_layers
+        self.C = moe.capacity(tcfg)
         E, K = cfg.moe.num_experts, cfg.moe.top_k
         top_k = jax.lax.top_k
 
@@ -135,7 +136,14 @@ class Routes:
           * a chunk's pad row has no KV that a query reads, but in a
             chunk that dropped choices below the last layer any flip may
             move which real choices drop, which taints the request;
-          * a decode row taints its request from the token it serves."""
+          * a decode row taints its request from the token it serves;
+          * on a speculative engine the draft's prefill rows count as
+            the target's, below the draft's last layer, and a draft
+            micro-step's or verify step's row as a decode row (a flipped
+            draft row may change the request's proposals); where the
+            call routes more rows than an expert's C, a flip may also
+            change which choices of the group drop, so a flipped row
+            taints every request of the call from its first row there."""
         jax.effects_barrier()
         port = self.port.contexts()
         assert len(self.ref) == len(port)
@@ -149,11 +157,12 @@ class Routes:
             rows = np.flatnonzero((np.sort(a, -1) != np.sort(b, -1)).any(-1))
             if not len(rows):
                 continue
-            if ctx[0] == "prefill":
+            if ctx[0] in ("prefill", "draft prefill"):
                 _, rid, off = ctx
                 S = len(byrid[rid].tokens)
                 pos = off + rows
-                upper = call.layer < self.L - 1
+                L = self.L if ctx[0] == "prefill" else self.port.draft_layers
+                upper = call.layer < L - 1
                 hit = pos[(pos < S) & upper]
                 moved = not bool(call.keep.all()) and upper
                 if moved or len(hit):
@@ -161,6 +170,9 @@ class Routes:
                     if (off if moved else hit.min()) < prefix_len:
                         bad_prefixes.add(key(rid))
                 continue
+            routed = sum(p >= 0 for _, p in ctx[1])   # idle slots too
+            if self.port.draft_layers and routed > self.C:
+                rows = range(len(ctx[1]))
             for s in rows:
                 rid, p = ctx[1][s]
                 if rid is not None and p >= len(byrid[rid].tokens) - 1:
@@ -172,9 +184,10 @@ class Routes:
         return first
 
 
-def _compare_greedy(cfg, params, reqs, rdone, tdone, first=None):
+def _compare_greedy(cfg, params, reqs, rdone, tdone, first=None,
+                    margin=MARGIN_TOL):
     """Greedy tokens equal while the reference's margin exceeds
-    MARGIN_TOL (and, with ``first``, before the request's context routes
+    ``margin`` (and, with ``first``, before the request's context routes
     apart); returns the number compared."""
     byrid = {r.rid: r for r in reqs}
     greedy = [c for c in rdone if byrid[c.rid].temperature == 0.0]
@@ -184,7 +197,7 @@ def _compare_greedy(cfg, params, reqs, rdone, tdone, first=None):
     compared = 0
     for i, c in enumerate(greedy):
         S = len(byrid[c.rid].tokens)
-        ok = margins[i, S - 1:S - 1 + len(c.tokens)] >= MARGIN_TOL
+        ok = margins[i, S - 1:S - 1 + len(c.tokens)] >= margin
         n = len(ok) if ok.all() else int(np.argmin(ok))
         if first is not None:
             n = min(n, first[c.rid])
@@ -316,10 +329,10 @@ def test_greedy_stream_matches_reference(arch):
     assert n >= 3 * len(reqs), n
 
 
-# the dense stacks without attention biases speculate (qwen2.5-32b's
-# biases and the moe family raise; tests/test_torch_moe.py)
+# every dense stack speculates, qwen2.5-32b's attention biases included
+# (the moe family's streams: tests/test_torch_moe_spec.py)
 SPEC_DENSE = {"minitron-4b": {}, "musicgen-medium": {},
-              "internvl2-2b": {"vocab_size": 300}}
+              "internvl2-2b": {"vocab_size": 300}, "qwen2.5-32b": {}}
 
 
 @pytest.mark.parametrize("arch", sorted(SPEC_DENSE))
@@ -408,6 +421,12 @@ def test_launcher_serves_a_moe_arch(capsys):
                  "--requests", "4", "--max-new", "4", "--max-batch", "2"])
     out = capsys.readouterr().out
     assert "statuses: {'ok': 4}" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        launch.main(["--device", "cpu", "--arch", "qwen2.5-32b",
-                     "--spec-k", "2", "--requests", "1"])
+    # a moe arch and one with attention biases speculate
+    for arch in ("granite-moe-3b-a800m", "qwen2.5-32b"):
+        launch.main(["--device", "cpu", "--arch", arch, "--spec-k", "2",
+                     "--draft-sketch-ratio", "2", "--requests", "2",
+                     "--max-new", "4", "--max-batch", "2"])
+        out = capsys.readouterr().out
+        assert "statuses: {'ok': 2}" in out
+        assert "speculative: acceptance=" in out
+        assert "sketched head: True" in out

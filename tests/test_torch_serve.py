@@ -193,8 +193,8 @@ def test_not_ported_options_raise(served):
     # none is accepted.  Every family serves now (the recurrent ones:
     # tests/test_torch_recurrent_serve.py) and trains
     # (tests/test_torch_train_families.py); a family no package has is
-    # refused, and speculation on the moe family still names its
-    # ROADMAP item
+    # refused; speculation on the moe family is ported (ROADMAP Queue 1
+    # #20), so a moe spec engine builds
     served["ts"].set_observer(None)
     assert served["ts"].obs is None
     with pytest.raises(ValueError, match="unknown family"):
@@ -203,10 +203,10 @@ def test_not_ported_options_raise(served):
                       device="cpu")
     from repro_torch.models import transformer as tf
     mcfg = reduced_config("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        SlotScheduler(mcfg, tf.init_params(mcfg, seed=0, device="cpu"),
-                      serve=dataclasses.replace(_serve(mcfg), spec_k=2),
-                      device="cpu")
+    sched = SlotScheduler(mcfg, tf.init_params(mcfg, seed=0, device="cpu"),
+                          serve=dataclasses.replace(_serve(mcfg), spec_k=2),
+                          device="cpu")
+    assert sched.spec_max == 2
 
 
 def _drive(capsys, *args):

@@ -343,10 +343,12 @@ def test_greedy_spec_equals_plain(gemma, case):
     assert sched.stats().spec_rounds > 0
 
 
-# name: (serve knobs, whether the engine is refused).  Decode and verify
-# steps pad their rows to padded_rows(max_batch) (64 here); reduced
-# gemma-2b has 4 query heads a kv head, so a sketched engine's tail span
-# holds 4 * (spec_k + 1) verify rows a slot.
+# name: (serve knobs, whether a verify step runs past the decode step's
+# rows).  Decode steps pad their rows to padded_rows(max_batch) (64
+# here); a verify step's max_batch * (spec_k + 1) rows past that run in
+# slabs of it.  Reduced gemma-2b has 4 query heads a kv head, so a
+# sketched engine's tail span holds 4 * (spec_k + 1) verify rows a slot,
+# in slabs of padded_rows(4).
 ROW_LIMIT_CASES = {
     "verify_rows_at_the_tile": (dict(max_batch=16, spec_k=3), False),
     "verify_rows_past_the_tile": (dict(max_batch=16, spec_k=4), True),
@@ -354,24 +356,59 @@ ROW_LIMIT_CASES = {
     "tail_rows_at_the_tile": (dict(spec_k=15, kv_sketch_window=16), False),
     "tail_rows_past_the_tile": (dict(spec_k=16, kv_sketch_window=16), True),
     "unsketched_k16": (dict(spec_k=16), False),
+    "batch8_k8": (dict(max_batch=8, spec_k=8), True),
+    "batch8_k16": (dict(max_batch=8, spec_k=16), True),
 }
+
+
+def _exact(cfg, params):
+    """The port's params with every layer above the first adding nothing
+    to the residual stream: a depth-1 draft is the target bitwise."""
+    blocks = [blk if i == 0 else
+              {**blk, "attn": {**blk["attn"],
+                               "wo": torch.zeros_like(blk["attn"]["wo"])},
+               "ffn": {**blk["ffn"],
+                       "w_down": torch.zeros_like(blk["ffn"]["w_down"])}}
+              for i, blk in enumerate(params["blocks"])]
+    return {**params, "blocks": blocks}
 
 
 @pytest.mark.parametrize("case", sorted(ROW_LIMIT_CASES))
 def test_spec_engine_refuses_verify_rows_past_the_decode_rows(gemma, case):
-    """A spec engine whose verify rows (max_batch * (spec_k + 1)), or
-    sketched tail-span rows, would pad past the plain decode step's row
-    count is refused: there the identity with plain greedy output would
-    rest on library heuristics."""
+    """No spec_k is refused: the engine builds at the plain engine's step
+    rows, and where its verify rows (max_batch * (spec_k + 1)), or its
+    sketched tail-span rows, pad past them, it serves greedy tokens
+    bitwise the plain engine's, each row op running in slabs of the
+    decode step's shape (models/layers.py, row padding).  The sketched
+    case serves prompts that fold, through an exact draft that accepts
+    every proposal its budget leaves room for, with each request's budget
+    inside one round,
+    so that both engines fold at the same chunk head (ROADMAP Queue 1
+    #22: an accepted proposal moves later chunk heads)."""
     _, _, tcfg, tparams = gemma
-    kw, refused = ROW_LIMIT_CASES[case]
+    kw, past = ROW_LIMIT_CASES[case]
     sv = _serve(tcfg, **kw)
-    if refused:
-        with pytest.raises(ValueError, match="bitwise plain output"):
-            SlotScheduler(tcfg, tparams, serve=sv, device="cpu")
-    else:
-        sched = SlotScheduler(tcfg, tparams, serve=sv, device="cpu")
-        assert sched.step_rows == ly.padded_rows(sv.max_batch)
+    sched = SlotScheduler(tcfg, tparams, serve=sv, device="cpu")
+    assert sched.step_rows == ly.padded_rows(sv.max_batch)
+    if not past:
+        return
+    sketched = bool(sv.kv_sketch_window)
+    params = _exact(tcfg, tparams) if sketched else tparams
+    rows = (tcfg.num_heads // tcfg.num_kv_heads if sketched
+            else sv.max_batch) * (sv.spec_k + 1)
+    assert rows > ly.padded_rows(rows // (sv.spec_k + 1))
+    max_new = sv.decode_chunk if sketched else 6
+    reqs = _requests(tcfg, 13, [60, 70, 44] if sketched else [5, 16, 9, 23],
+                     max_new=max_new)
+    plain, ref = _run(tcfg, params, dataclasses.replace(sv, spec_k=0), reqs)
+    spec, got = _run(tcfg, params, sv, reqs)
+    assert got == ref
+    st = spec.stats()
+    assert st.spec_rounds > 0
+    if sketched:
+        assert spec.fold_rows_total == plain.fold_rows_total > 0
+        # one round a request: every proposal inside its budget accepted
+        assert st.spec_accepted == st.spec_rounds * (max_new - 1)
 
 
 def test_prefix_hit_forks_shared_blocks(gemma):
@@ -515,6 +552,17 @@ def test_spec_engine_matches_reference(gemma, draft):
     target's upper layer zeroed so that the draft is the target in each
     package and every proposal is accepted; with the "random" weights
     they are reported."""
+    _match_reference(gemma, draft, dict(max_batch=3, spec_k=3))
+
+
+def test_spec_engine_at_spec_k_8_matches_reference(gemma):
+    """The same at spec_k 8 and max_batch 8 (exact draft): the port's
+    verify steps of 72 rows run in two slabs of the decode step's 64
+    (models/layers.py, row padding); the reference takes any spec_k."""
+    _match_reference(gemma, "exact", dict(max_batch=8, spec_k=8))
+
+
+def _match_reference(gemma, draft, kw):
     cfg, params, tcfg, tparams = gemma
     if draft == "exact":
         blocks = dict(params["blocks"])
@@ -526,7 +574,7 @@ def test_spec_engine_matches_reference(gemma, draft):
         tparams = bridge.from_reference(jax.tree.map(np.asarray, params),
                                         tcfg, device="cpu")
     stream = (12, 2, 32, 16, 8)
-    kw = dict(max_batch=3, spec_k=3, draft_depth=1, admit_threshold=2)
+    kw = dict(kw, draft_depth=1, admit_threshold=2)
     rreqs = ref_stream(cfg, np.random.RandomState(5), *stream,
                        sampled_frac=0.25)
     treqs = make_request_stream(tcfg, np.random.RandomState(5), *stream,
@@ -551,8 +599,10 @@ def test_spec_engine_matches_reference(gemma, draft):
             continue
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
     assert got.spec_rounds > 0 and got.prefix_hits > 0
-    if draft == "exact":
-        assert got.acceptance_rate == 1.0
+    if draft == "exact" and kw["spec_k"] == 3:
+        assert got.acceptance_rate == 1.0   # 8 tokens: two rounds of 4
+    elif draft == "exact":
+        assert got.spec_accepted > 0
     greedy = [c for c in rdone if rreqs[c.rid].temperature == 0.0]
     seqs = [np.concatenate([rreqs[c.rid].tokens, c.tokens]) for c in greedy]
     batch = np.zeros((len(seqs), max(map(len, seqs))), np.int32)

@@ -329,16 +329,17 @@ def test_data_is_stateless_and_learnable():
 def test_train_raises_for_what_is_not_ported():
     # train() raises for no config and no flag of the reference's since
     # gradient compression and every family were ported
-    # (tests/test_torch_grad_compress.py, tests/test_torch_train_families.py);
-    # what still raises is speculation on the moe family
+    # (tests/test_torch_grad_compress.py, tests/test_torch_train_families.py),
+    # and speculation on the moe family no longer raises (ROADMAP Queue 1
+    # #20)
     from repro_torch.serve.scheduler import SlotScheduler
     cfg = reduced_config("granite-moe-3b-a800m")
     h = train(cfg, steps=1, batch=1, seq=8, grad_compression=True, **quiet)
     assert np.isfinite(h.losses).all()
     params = tf.init_params(cfg, seed=0, device="cpu")
     serve = dataclasses.replace(cfg.serve, max_batch=2, max_seq=64, spec_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #20"):
-        SlotScheduler(cfg, params, serve=serve, device="cpu")
+    sched = SlotScheduler(cfg, params, serve=serve, device="cpu")
+    assert sched.spec_max == 2 and sched.draft is not None
 
 
 def _ref_adagrad_moments(state):

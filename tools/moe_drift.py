@@ -111,8 +111,8 @@ def main(argv=None) -> int:
     orig = tf._ffn_residual
     hidden = {}
 
-    def recording(p_l, x, c, live=None, layer=0, positions=None):
-        out = orig(p_l, x, c, live, layer, positions)
+    def recording(p_l, x, c, live=None, layer=0, positions=None, slab=None):
+        out = orig(p_l, x, c, live, layer, positions, slab)
         rows = B if live == (B, 1) else S
         hidden.setdefault(layer, []).append(out[:rows].float().reshape(
             rows, -1))
