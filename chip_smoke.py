@@ -11,7 +11,7 @@ full width and cut depth), plainly and (granite-moe at full depth,
 deepseek-moe, qwen2.5) speculatively, and the recurrent families
 (xlstm-1.3b and zamba2-2.7b at full width and cut depth), and trains
 every family (moe, audio, vlm, ssm, hybrid) through the port's main
-paths.
+paths, and runs the launch tooling at a mesh of one.
 
     python3 chip_smoke.py
 
@@ -209,6 +209,22 @@ Phases (one line each; any failure exits non-zero):
                  reported); a [train-families] line per config (step ms,
                  tokens/s, forward / backward / sketch_update device ms,
                  moment and peak bytes)
+  9. launch    — the launch tooling at a mesh of one: a world-1 NCCL
+                 group through a FileStore, a (1, 1) mesh; yi-9b (full
+                 width, 4 of 48 layers, batch 8 x 128) through
+                 make_train_step at FSDP placements, loss and gradients
+                 bitwise the unsharded step's, sketched AdamW after it
+                 (sketch_update launched; tables within f32 rounding of
+                 the unsharded run's); make_podwise_compressed_step over
+                 a pod of one (estimates bitwise unsketch_leaf of the
+                 pod-mean sketch, sketch bytes = sum J~ x 4); gemma-2b
+                 (full width, 2 layers) through make_serve_step at the
+                 decode TP placements, logits and pool rows bitwise
+                 (paged_attention launched); the dry run's argument
+                 bytes equal to the card's and its peak within 0.67-1.5
+                 of max_memory_allocated, and three production cells'
+                 peaks and roofline terms, from a CPU process started
+                 with the script (``start_dryrun``)
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -227,11 +243,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor rate
+# H100 SXM device memory bytes/s and dense bf16 FLOP/s: the datasheet
+# peaks of src/repro_torch/launch/cost_analysis.py, set by load_rates()
+HBM_BYTES_PER_S = BF16_FLOPS = None
 F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor rate
 SEED = 0
+
+
+def load_rates() -> None:
+    global HBM_BYTES_PER_S, BF16_FLOPS
+    from repro_torch.launch.cost_analysis import HBM_BW, PEAK_FLOPS_BF16
+    HBM_BYTES_PER_S, BF16_FLOPS = HBM_BW, PEAK_FLOPS_BF16
 
 
 def fail(msg: str) -> None:
@@ -4491,6 +4514,441 @@ def _clone_tree(tree):
     return tf.tree_map(torch.clone, tree)
 
 
+# ---------------------------------------------------------------------------
+# Phase launch: the launch tooling on the card at a mesh of one
+# ---------------------------------------------------------------------------
+
+LAUNCH_LAYERS = 4          # of yi-9b's 48 (full width)
+LAUNCH_SERVE_LAYERS = 2    # of gemma-2b's 18 (full width)
+LAUNCH_DECODE_STEPS = 12
+# the dry run's cells: the card's yi-9b cut at a (1, 1) mesh, then three
+# at the production mesh; (arch, shape, multi_pod, cut)
+DRYRUN_CELLS = (
+    ("yi-9b", "train_4k", False,
+     dict(layers=LAUNCH_LAYERS, batch=TRAIN["batch"], seq=TRAIN["seq"],
+          mesh_shape=(1, 1))),
+    ("yi-9b", "train_4k", False, {}),
+    ("gemma-2b", "decode_32k", False, {}),
+    ("deepseek-moe-16b", "train_4k", True, {}),
+)
+_DRYRUN = {}
+
+
+_LAPS = []                 # (phase, perf_counter at its end), main's laps
+
+
+def start_dryrun(root):
+    """The dry run's cells in a CPU process of their own (meta tensors over
+    a fake process group; no card), started at once so that they run
+    while the card's phases do, at the lowest priority (nice 19) on one
+    thread, so that the host-timed phases they overlap lose at most
+    that; ``phase_launch`` collects them and names those phases."""
+    import atexit
+    code = ("import json, os, time\n"
+            "os.nice(19)\n"
+            "t0 = time.perf_counter()\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            f"for a, s, mp, cut in {DRYRUN_CELLS!r}:\n"
+            "    c = run_cell(a, s, mp, **cut)\n"
+            "    c.pop('traceback', None)\n"
+            "    print(json.dumps(c), flush=True)\n"
+            "print(json.dumps({'ran_s': time.perf_counter() - t0}))\n")
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    err = tempfile.TemporaryFile(mode="w+")     # its warnings, unread
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    _DRYRUN.update(proc=proc, err=err)
+    _DRYRUN["t0"] = time.perf_counter()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+
+def collect_dryrun():
+    proc = _DRYRUN["proc"]
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        _DRYRUN["err"].seek(0)
+        fail(f"launch: the dry run exited {proc.returncode}: "
+             f"{_DRYRUN['err'].read()[-3000:]}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    cells = [c for c in lines if "arch" in c]
+    bad = [c for c in cells if c.get("status") != "ok"]
+    if len(cells) != len(DRYRUN_CELLS) or bad or "ran_s" not in lines[-1]:
+        fail(f"launch: dry-run cells {[(c['arch'], c['shape'], c['status'], c.get('error')) for c in cells]}")
+    return cells, lines[-1]["ran_s"]
+
+
+def overlapped_phases(t0, ran_s):
+    """The phases of ``_LAPS`` that ran while a process started at
+    perf_counter ``t0`` ran for ``ran_s`` seconds."""
+    names, start = [], _LAPS[0][1] if _LAPS else t0
+    for what, end in _LAPS[1:]:
+        if start < t0 + ran_s and end > t0:
+            names.append(what)
+        start = end
+    return names
+
+
+def local_tree(tree):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda t: t.to_local() if hasattr(t, "to_local") else t,
+                    tree)
+
+
+def same_bits(x, y):
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+        y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+
+
+def bitwise(a, b):
+    from repro_torch.models.transformer import param_leaves
+    pa = [t for _, ps in param_leaves(a) for t in ps]
+    pb = [t for _, ps in param_leaves(b) for t in ps]
+    return len(pa) == len(pb) and all(same_bits(x, y)
+                                      for x, y in zip(pa, pb))
+
+
+LAUNCH_ADAMW = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+
+
+def adamw_agreement(p1, p0, st1, st0):
+    """Two sketched-AdamW first steps from equal params and gradients,
+    whose tables may part by f32 rounding (the slab add's atomics): dense
+    leaves must be bitwise; in a sketched leaf each param may differ by
+    at most lr x D + one ulp of its dtype, D being the largest difference
+    of the update direction m_hat/bc1 / (sqrt(v_hat/bc2) + eps) that the
+    two leaves' tables give through the plain estimates (the weight-decay
+    term is the same on both sides; the stored params round once)."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import transformer as tf
+    from repro_torch.sketch.optimizer import SketchedMoments
+    from repro_torch.train.optimizer import bias_corrections
+    a_ = LAUNCH_ADAMW
+    bc1, bc2 = bias_corrections(a_["b1"], a_["b2"], 1)
+    out = dict(tables_bits=True, tables_err=0.0, dense_bits=True, D=0.0,
+               worst=0.0, param_bits=0, pieces=0, sketched=0)
+    for (_, p1s), (_, p0s), a, b in zip(tf.param_leaves(p1),
+                                        tf.param_leaves(p0), st1.moments,
+                                        st0.moments):
+        if not isinstance(a, SketchedMoments):
+            out["dense_bits"] &= all(same_bits(x, y)
+                                     for x, y in zip(p1s, p0s))
+            continue
+        out["sketched"] += 1
+        for x, y in ((a.m.table, b.m.table), (a.v.table, b.v.table)):
+            out["tables_bits"] &= torch.equal(x, y)
+            out["tables_err"] = max(out["tables_err"], float(
+                (x - y).abs().max() / y.abs().max()))
+        off = 0
+        for x1, x0 in zip(p1s, p0s):
+            n = x1.numel()
+            d = []
+            for mo in (a, b):
+                mh, vh = kref.sketch_retrieve_ref(n, off, mo.m.table,
+                                                  mo.v.table, mo.m.coeffs,
+                                                  mo.v.coeffs)
+                d.append((mh / bc1) / (torch.sqrt(vh.clamp(min=0) / bc2)
+                                       + a_["eps"]))
+                del mh, vh
+            D = float((d[0] - d[1]).abs().max())
+            del d
+            out["D"] = max(out["D"], D)
+            y1, y0 = x1.float().reshape(-1), x0.float().reshape(-1)
+            _, e = torch.frexp(torch.maximum(y1.abs(), y0.abs()))
+            ulp = torch.ldexp(torch.ones_like(y1), e - 1) * torch.finfo(
+                x1.dtype).eps
+            out["worst"] = max(out["worst"], float(
+                ((y1 - y0).abs() / (a_["lr"] * D + ulp)).max()))
+            out["param_bits"] += same_bits(x1, x0)
+            out["pieces"] += 1
+            off += n
+            del y1, y0, e, ulp
+    return out
+
+
+def launch_train(dev, mesh):
+    """yi-9b at full width, ``LAUNCH_LAYERS`` layers, batch 8 x 128: the
+    gradient step with FSDP placements on the (1, 1) mesh against the
+    unsharded step, then sketched AdamW (ratio 4, rows 3) on each."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.sketch_update import sketch_update
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import logical_rules
+    from repro_torch.sketch.optimizer import (sketched_adamw_init,
+                                              sketched_adamw_update)
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=LAUNCH_LAYERS)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    rules, strategy = SH.make_rules(cfg, "train", False, False, B)
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    pd = SH.distribute(params, SH.build_param_pspecs(cfg, params, rules,
+                                                     strategy), mesh)
+    del params
+    gen = torch.Generator(dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :S].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    bd = SH.distribute(batch, {k: (rules["batch"], None) for k in batch},
+                       mesh)
+    step = M.make_train_step(cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    card_args = sum(t.numel() * t.element_size() for t in
+                    [t for _, ps in tf.param_leaves(local_tree(pd))
+                     for t in ps] + list(batch.values()))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with logical_rules(rules), implicit_replication():
+        loss1, grads1 = step(pd, bd)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    local = local_tree(pd)
+    loss0, grads0 = step(local, batch)
+    g1 = local_tree(grads1)
+    if not (torch.equal(loss1.to_local(), loss0) and bitwise(g1, grads0)):
+        fail(f"launch: the sharded step's loss {float(loss1.to_local())} "
+             f"or gradients part from the unsharded step's {float(loss0)}")
+    # sketched AdamW after each: the sharded step's DTensor params and an
+    # unsharded copy of them
+    ref_params = tf.tree_map(lambda t: t.clone(), local)
+    sketch_update.launches = 0
+    st1 = sketched_adamw_init(pd, 4, 3, 1 << 16)
+    sketched_adamw_update(grads1, st1, pd, **LAUNCH_ADAMW)
+    torch.cuda.synchronize()
+    launches = sketch_update.launches
+    st0 = sketched_adamw_init(ref_params, 4, 3, 1 << 16)
+    sketched_adamw_update(grads0, st0, ref_params, **LAUNCH_ADAMW)
+    torch.cuda.synchronize()
+    adam = adamw_agreement(local, ref_params, st1, st0)
+    if launches <= 0 or adam["tables_err"] > 1e-5 or not adam["dense_bits"] \
+            or adam["worst"] > 1.0:
+        fail(f"launch: sketched AdamW after the sharded step: "
+             f"sketch_update launches {launches}, {adam}")
+    tables = ("bitwise" if adam["tables_bits"] else
+              f"within f32 rounding (max |diff| / max|table| "
+              f"{adam['tables_err']:.3g}; the slab add's atomics order, "
+              f"ROADMAP Queue 1 #13)")
+    print(f"[launch] train: yi-9b full width, {LAUNCH_LAYERS} of 48 layers, "
+          f"batch {B} x {S}, FSDP placements ({strategy}) on a (1, 1) "
+          f"mesh: loss {float(loss0):.6f} and all "
+          f"{sum(len(ps) for _, ps in tf.param_leaves(grads0))} gradient "
+          f"pieces bitwise the unsharded step's; step {step_s:.3f} s; "
+          f"sketched AdamW (ratio 4, rows 3) after each: sketch_update "
+          f"launches {launches} on the sharded path, {adam['sketched']} "
+          f"sketched leaves' tables {tables}; dense leaves' params bitwise; "
+          f"sketched leaves' params {adam['param_bits']} of {adam['pieces']} "
+          f"pieces bitwise, every element within lr x D + 1 ulp (D = max "
+          f"|m_hat/(sqrt(v_hat)+eps)| difference of the two tables' plain "
+          f"estimates, {adam['D']:.3g}; worst |dp| / bound "
+          f"{adam['worst']:.3g}); {card()}")
+    out = dict(launches=launches, card_args=card_args, base=base, peak=peak)
+    del pd, bd, local, ref_params, st0, st1, grads0, grads1, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_podwise(dev, mesh):
+    """The pod-wise compressed step over a pod group of one against the
+    plain compressed step, yi-9b as in ``launch_train``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import grad_compress as gcm
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=LAUNCH_LAYERS)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :S].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    seen = {}
+
+    def probe(c, pieces, tables, sk):
+        seen.setdefault(c.leaf_id, []).append(sk.clone())
+
+    gcm.probe = probe
+    try:
+        ef = gcm.init_error_feedback(params)
+        step = gcm.make_podwise_compressed_step(cfg, mesh)
+        loss, grads, _ = step(params, ef, batch, 1)
+        plain = gcm.make_compressed_train_step(cfg)
+        loss0, grads0, _ = plain(params, ef, batch, 1)
+    finally:
+        gcm.probe = None
+    codecs = gcm._leaf_codecs(params, cfg.sketch.grad_hash_ratio)
+    leaves = tf.param_leaves(grads)
+    n_bits = n_sketch_bits = 0
+    worst = 0.0
+    for (name, pieces), c in zip(leaves, codecs):
+        if c is None:
+            continue
+        sk_pod, sk_plain = seen[c.leaf_id]
+        tables = gcm.codec_hashes(c, cfg.sketch.seed, 1, dev)
+        est = gcm.unsketch_leaf(sk_pod, c, tables, pieces, pieces[0].dtype)
+        n_bits += all(torch.equal(a, b) for a, b in zip(est, pieces))
+        n_sketch_bits += torch.equal(sk_pod, sk_plain)
+        worst = max(worst, float((sk_pod - sk_plain).abs().max()
+                                 / sk_plain.abs().max().clamp(min=1e-30)))
+    n_comp = sum(c is not None for c in codecs)
+    want = sum(4 * c.Jt for c in codecs if c is not None)
+    sent = step.allreduced["sketch"]
+    if n_comp == 0 or n_bits != n_comp or sent != want or worst > 1e-5:
+        fail(f"launch: pod-wise step: {n_bits} of {n_comp} estimates "
+             f"bitwise unsketch_leaf of the pod-mean sketch, sketch bytes "
+             f"{sent} vs sum J~ x 4 = {want}, sketches vs the plain "
+             f"compressed step's max rel {worst}")
+    print(f"[launch] podwise: pod group of one, {n_comp} compressed leaves: "
+          f"every estimate bitwise unsketch_leaf of the pod-mean sketch; "
+          f"sketches {n_sketch_bits} of {n_comp} bitwise the plain "
+          f"compressed step's (the rest within {worst:.3g} relative: "
+          f"index_add_'s f32 atomics); all-reduced {sent} B of sketches = "
+          f"sum J~ x 4 B, plus {step.allreduced['dense']} B of uncompressed "
+          f"leaves and loss; loss {float(loss):.6f} (plain "
+          f"{float(loss0):.6f})")
+    del params, grads, grads0, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def launch_serve(dev, mesh):
+    """gemma-2b at full width, ``LAUNCH_SERVE_LAYERS`` layers: decode steps
+    through ``make_serve_step`` at the decode TP placements on the (1, 1)
+    mesh against the unsharded serve step; returns paged_attention's
+    launches on the sharded path."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import logical_rules
+    cfg = dataclasses.replace(get_config("gemma-2b"),
+                              num_layers=LAUNCH_SERVE_LAYERS)
+    B, max_seq = 8, 512
+    rules, _ = SH.make_rules(cfg, "decode", False, False)
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    pd = SH.distribute(params, SH.build_param_pspecs(cfg, params, rules,
+                                                     "tp"), mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    cache = M.init_slot_cache(cfg, B, max_seq, dev,
+                              SH.cache_split(rules, sizes))
+    ref_cache = tf.tree_map(lambda t: t.clone(), cache)
+    cd = SH.distribute(cache, SH.cache_pspecs(cfg, cache, rules), mesh)
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    toks = torch.randint(0, cfg.vocab_size, (LAUNCH_DECODE_STEPS, B, 1),
+                         generator=gen, device=dev)
+    start = torch.randint(0, max_seq - LAUNCH_DECODE_STEPS, (B,),
+                          generator=gen, device=dev).to(torch.int32)
+    step = M.make_serve_step(cfg)
+    paged_attention.launches = 0
+    with LaunchShapes() as shapes:
+        with logical_rules(rules), implicit_replication():
+            got = [step(pd, cd, toks[i], start + i)[0].full_tensor()
+                   for i in range(LAUNCH_DECODE_STEPS)]
+        torch.cuda.synchronize()
+        launches = paged_attention.launches
+        local = local_tree(pd)
+        want = [step(local, ref_cache, toks[i], start + i)[0]
+                for i in range(LAUNCH_DECODE_STEPS)]
+    shapes.check("phase launch")
+    pool = local_tree(cd)["kv"]
+    same_logits = all(torch.equal(a, b) for a, b in zip(got, want))
+    same_pool = all(torch.equal(pool[k].view(torch.int16),
+                                ref_cache["kv"][k].view(torch.int16))
+                    for k in ("k", "v"))
+    if not (same_logits and same_pool) or launches <= 0:
+        fail(f"launch: serve step at the decode TP placements: logits "
+             f"bitwise {same_logits}, pool rows bitwise {same_pool}, "
+             f"paged_attention launches {launches}")
+    print(f"[launch] serve: gemma-2b full width, {LAUNCH_SERVE_LAYERS} of 18 "
+          f"layers, {B} slots, {LAUNCH_DECODE_STEPS} decode steps through "
+          f"make_serve_step at the decode TP placements on a (1, 1) mesh: "
+          f"logits and pool rows bitwise the unsharded step's; "
+          f"paged_attention launches {launches}")
+    del params, pd, cache, cd, ref_cache, local, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_launch(dev):
+    """The launch tooling (``launch/``, ``models/sharding.py``) on the card:
+    a world-1 NCCL group through a ``FileStore`` (no TCP port), a (1, 1)
+    mesh, the sharded train, pod-wise and serve steps held bitwise to the
+    unsharded ones, and the dry run's estimate beside the card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1,
+                device_id=torch.device("cuda", torch.cuda.current_device()))
+        except Exception as e:     # the phase needs NCCL: no fallback
+            fail(f"launch: NCCL process group of one: {e!r}")
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            pod = make_mesh((1,), ("pod",), "cuda")
+            train = launch_train(dev, mesh)
+            launch_podwise(dev, pod)
+            serve_launches = launch_serve(dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    t_wait = time.perf_counter()
+    cells, ran_s = collect_dryrun()
+    wait = time.perf_counter() - t_wait
+    cut = cells[0]["memory"]
+    measured = train["card_args"] + train["peak"] - train["base"]
+    ratio = cut["peak_bytes_per_device"] / measured
+    if cut["argument_bytes_per_device"] != train["card_args"] \
+            or not 0.67 <= ratio <= 1.5:
+        fail(f"launch: dry run at (1, 1): argument bytes "
+             f"{cut['argument_bytes_per_device']} vs the card's "
+             f"{train['card_args']}; peak {cut['peak_bytes_per_device']} "
+             f"vs measured {measured} (ratio {ratio:.3f})")
+    print(f"[launch] dry run vs card: yi-9b {LAUNCH_LAYERS} layers, batch "
+          f"{TRAIN['batch']} x {TRAIN['seq']}, (1, 1) mesh: argument bytes "
+          f"{cut['argument_bytes_per_device']} = the card's params + batch "
+          f"{train['card_args']}; estimated peak "
+          f"{cut['peak_bytes_per_device']} B (activations "
+          f"{cut['activation_peak_bytes_per_device']}) vs measured "
+          f"{measured} B (max_memory_allocated {train['peak']} since a "
+          f"reset at {train['base']} B allocated, plus the arguments): "
+          f"ratio {ratio:.4f}; {card()}")
+    for c in cells[1:]:
+        rf, mem = c["roofline"], c["memory"]
+        print(f"[launch] dry run {c['arch']} {c['shape']} {c['mesh']} "
+              f"({c['strategy']}): peak {mem['peak_bytes_per_device']} B/dev"
+              f" (args {mem['argument_bytes_per_device']}); compute "
+              f"{rf['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{rf['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{rf['t_collective_s'] * 1e3:.3f} ms (ici "
+              f"{rf['t_ici_s'] * 1e3:.3f}, dcn {rf['t_dcn_s'] * 1e3:.3f}), "
+              f"dominant {rf['dominant']}; walk {c['t_walk_s']} s; H100 SXM "
+              f"datasheet rates")
+    print(f"[launch] dry-run process (nice 19, one thread): ran {ran_s:.1f} s"
+          f" from {_DRYRUN['t0'] - _LAPS[0][1]:.1f} s into the run,"
+          f" overlapping {overlapped_phases(_DRYRUN['t0'], ran_s) or 'none'};"
+          f" {wait:.1f} s waited for here")
+    return {"paged_attention": serve_launches,
+            "sketch_update": train["launches"]}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4500,6 +4958,9 @@ def main() -> None:
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
+    load_rates()
+    _LAPS.append(("start", t_run))
+    start_dryrun(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4519,12 +4980,12 @@ def main() -> None:
         print(f"[mem] after {after}: {before} B allocated, "
               f"{torch.cuda.memory_allocated()} B after gc.collect()")
 
-    laps = [time.perf_counter()]
+    _LAPS.append(("build", time.perf_counter()))
 
     def lap(what):
-        laps.append(time.perf_counter())
-        print(f"[time] {what} {laps[-1] - laps[-2]:.1f}s (at "
-              f"{laps[-1] - t_run:.1f}s)", flush=True)
+        _LAPS.append((what, time.perf_counter()))
+        print(f"[time] {what} {_LAPS[-1][1] - _LAPS[-2][1]:.1f}s (at "
+              f"{_LAPS[-1][1] - t_run:.1f}s)", flush=True)
 
     add_draft_geometries([(a, get_config(a)) for a in
                           ("granite-moe-3b-a800m", "deepseek-moe-16b",
@@ -4579,6 +5040,8 @@ def main() -> None:
     held("recurrent, its models freed")
     fam_launches = phase_train_families(dev)
     lap("phase train-families")
+    launch_launches = phase_launch(dev)
+    lap("phase launch")
 
     d = rows["decode"]
     sk = sk_rows[SKETCH_MAIN]
@@ -4596,6 +5059,8 @@ def main() -> None:
         # phase moe-spec's spec engines (draft micro-steps, verify,
         # prefill; their graphed first passes)
         "moe_spec_launches": moe_spec_launches["paged_attention"],
+        # phase launch's serve step at the decode TP placements
+        "launch_launches": launch_launches["paged_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
@@ -4606,6 +5071,8 @@ def main() -> None:
         "launches": sk_launches,
         # phase train-families' six runs
         "families_launches": fam_launches,
+        # phase launch's sketched AdamW after the sharded step
+        "launch_launches": launch_launches["sketch_update"],
         "max_abs_err": max(r["max_abs_err"] for r in sk_rows.values()),
         "ms": sk["kernel_ms"], "plain_ms": sk["plain_ms"],
         "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],

@@ -27,6 +27,26 @@ def _resolve(use_kernel: Optional[bool], dev: torch.device,
     return bool(use_kernel)
 
 
+# The paged-attention kernel's call as one op of its shapes, for the
+# meta device only (the dry run, launch/dryrun.py): the cost walk then
+# prices one call of the kernel (its inputs read once, its outputs
+# written once; launch/cost_analysis.py registers its flops) where the
+# plain version would be a loop over every table entry.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("paged_attention(Tensor q, Tensor k_pool, Tensor v_pool, "
+            "Tensor tables, Tensor start, Tensor fold_base) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _paged_attention_meta(q, k_pool, v_pool, tables, start, fold_base):
+    B, Sq, K, R, hd = q.shape
+    new = lambda *shape: q.new_empty(shape, dtype=torch.float32)
+    return new(B, K, R, Sq), new(B, K, R, Sq), new(B, K, R, Sq, hd)
+
+
+_LIB.impl("paged_attention", _paged_attention_meta, "Meta")
+
+
 def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, tables: torch.Tensor,
                        start: torch.Tensor, fold_base: torch.Tensor,
@@ -36,9 +56,14 @@ def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor,
     ``use_kernel``: None picks by device (kernel for CUDA tensors, plain
     version for CPU tensors); True demands the kernel and raises on the
     CPU, where a CUDA kernel cannot run; False is an explicit request for
-    the plain version on either device."""
+    the plain version on either device.  Meta tensors take the kernel's
+    shapes (``_paged_attention_meta``) unless ``use_kernel`` is False."""
     if _resolve(use_kernel, q.device, "paged_kernels"):
         return paged_attention(q, k_pool, v_pool, tables, start, fold_base)
+    if q.device.type == "meta" and use_kernel is None:
+        return torch.ops.repro_torch.paged_attention(q, k_pool, v_pool,
+                                                     tables, start,
+                                                     fold_base)
     return ref.paged_attention_ref(q, k_pool, v_pool, tables, start,
                                    fold_base)
 

@@ -43,6 +43,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models.sharding import (current_rules, entry_axes,
+                                         from_local, gathered, is_dtensor,
+                                         local_sum_mean, norm_spec, placed,
+                                         replicate, rewrap, shard,
+                                         single_device_mesh, to_local,
+                                         unwrap)
 
 PDTYPE = torch.bfloat16  # parameter dtype
 ROW_TILE = 64            # decode / verify rows pad to a multiple of this
@@ -64,6 +70,32 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
 def slab_rows(M: int, slab: int) -> int:
     """M rounded up to a whole number of ``slab``-row slabs."""
     return -(-M // slab) * slab
+
+
+def _rows_local(x: torch.Tensor):
+    """(x's shard with its last dim whole, its mesh, the placements of
+    that shard): a DTensor activation on its way into a row-wise local
+    computation."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last else p
+               for p in x.placements)
+    if pl != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return x.to_local(), x.device_mesh, pl
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of activations x (..., d) and a weight w (d, e).  A
+    DTensor x of three or more dims runs on each rank's rows: x's last
+    dim gathered, w gathered whole (FSDP: the gradient goes back as a
+    reduce-scatter), one local matmul, the result split as x's rows.
+    DTensor's own matmul would fold (B, S) into one dim, which older
+    releases cannot do when S is split (context sharding)."""
+    if not (is_dtensor(x) and x.ndim >= 3):
+        return x @ w
+    xl, mesh, pl = _rows_local(x)
+    return placed(xl @ gathered(w, pl), mesh, pl)
 
 
 def by_slabs(fn, x: torch.Tensor, slab: Optional[int]) -> torch.Tensor:
@@ -123,7 +155,7 @@ def _project_qkv_rope(p: dict, x: torch.Tensor, cfg: ModelConfig,
         B, S = positions.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
-    proj = lambda w: by_slabs(lambda t: t @ w, x, slab)
+    proj = lambda w: by_slabs(lambda t: linear(t, w), x, slab)
     q = proj(p["wq"])
     kn = proj(p["wk"])
     vn = proj(p["wv"])
@@ -131,7 +163,17 @@ def _project_qkv_rope(p: dict, x: torch.Tensor, cfg: ModelConfig,
         q, kn, vn = q + p["bq"], kn + p["bk"], vn + p["bv"]
     if x.ndim == 2:
         q, kn, vn = q[:B * S], kn[:B * S], vn[:B * S]
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
+        q = shard(q, "batch", "heads")
+        kn = shard(kn, "batch", "kv_heads")
+        vn = shard(vn, "batch", "kv_heads")
+    else:
+        # a sharded projection's head dim splits only where the heads do
+        q = shard(q, "batch", "seq", "heads")
+        kn = shard(kn, "batch", "seq", "kv_heads")
+        vn = shard(vn, "batch", "seq", "kv_heads")
+    q = shard(q.reshape(B, S, H, hd), "batch", "seq", "heads", None) \
+        if x.ndim == 3 else q.reshape(B, S, H, hd)
+    q = rope(q, positions, cfg.rope_theta)
     kn = rope(kn.reshape(B, S, K, hd), positions, cfg.rope_theta)
     return q, kn, vn.reshape(B, S, K, hd)
 
@@ -196,7 +238,23 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``fold_base[b] <= p <= positions[b, i]`` — through the tables, so a
     chunk sees earlier chunks and shared prefix blocks; ``tail`` /
     ``sketch`` add the folded span (see ``paged_attend``).  Pools are
-    (NB + 1, bs, K, hd) with the sink last.  Returns (B, S, d)."""
+    (NB + 1, bs, K, hd) with the sink last.  Returns (B, S, d).
+
+    DTensor pools: on a one-device mesh the layer runs on the local
+    tensors (the card's kernels, bitwise the unsharded layer); on a
+    larger mesh as ``_paged_self_attention_sharded``."""
+    if is_dtensor(pool_k):
+        mesh = single_device_mesh(pool_k)
+        if mesh is None:
+            if tail is not None:
+                raise NotImplementedError(
+                    "two-span (sketched) attention on a sharded pool")
+            return _paged_self_attention_sharded(p, x, cfg, pool_k, pool_v,
+                                                 positions, tables,
+                                                 fold_base, use_kernel, slab)
+        return rewrap(paged_self_attention(
+            *unwrap((p, x, cfg, pool_k, pool_v, positions, tables,
+                     fold_base, use_kernel, tail, sketch, slab))), mesh)
     B, S = positions.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -217,7 +275,118 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if x.ndim == 2:
         return by_slabs(lambda t: t @ p["wo"],
                         pad_rows(o.reshape(B * S, H * hd), x.shape[0]), slab)
-    return o.reshape(B, S, H * hd) @ p["wo"]
+    return linear(o.reshape(B, S, H * hd), p["wo"])
+
+
+def _local_range(t: torch.Tensor, dim: int) -> Tuple[int, int]:
+    """(global offset, local length) of this rank's shard of DTensor
+    ``t`` along ``dim``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return int(off[dim]), int(shape[dim])
+
+
+def put_rows_(local: torch.Tensor, idx: Tuple[torch.Tensor, ...],
+              ok: torch.Tensor, rows: torch.Tensor) -> None:
+    """``local[idx] = rows`` for the rows where ``ok``, leaving the others'
+    destinations as they were, with no data-dependent shape: the write
+    adds (rows - old) as integers of the element's width (exact, wrapping)
+    where ``ok`` and 0 elsewhere, so a row that is not ours may share a
+    destination with one that is.  Rows that are ours hit distinct
+    destinations (a slot's new rows), apart from a write sink."""
+    itype = {2: torch.int16, 4: torch.int32}[local.element_size()]
+    bits = local.view(itype)
+    new = rows.to(local.dtype).view(itype)
+    keep = ok.reshape(ok.shape + (1,) * (new.ndim - ok.ndim))
+    delta = torch.where(keep, new - bits[idx], torch.zeros_like(new))
+    bits.index_put_(idx, delta, accumulate=True)
+
+
+def _combine_spans(mesh, spec, axes, m, l, acc):
+    """Merge split-KV statistics over the mesh ``axes`` that split the
+    keys: the max of m, and l and acc rescaled to it and summed.  m, l
+    (B, K, R, S) and acc (B, K, R, S, hd) are this rank's, its rows
+    placed as ``spec``'s leading entry."""
+    if not axes:
+        return m, l, acc
+
+    def reduce(t, op):
+        sp = spec[:t.ndim]
+        return to_local(replicate(from_local(t, mesh, sp, axes, op)), sp)
+
+    mg = reduce(m, "max")
+    corr = torch.exp(m - mg)
+    return mg, reduce(l * corr, "sum"), reduce(acc * corr[..., None], "sum")
+
+
+def _paged_self_attention_sharded(p: dict, x: torch.Tensor,
+                                  cfg: ModelConfig, pool_k: torch.Tensor,
+                                  pool_v: torch.Tensor,
+                                  positions: torch.Tensor,
+                                  tables: torch.Tensor,
+                                  fold_base: torch.Tensor,
+                                  use_kernel: Optional[bool],
+                                  slab: Optional[int]) -> torch.Tensor:
+    """``paged_self_attention`` on a pool split over its block axis (the
+    rules' ``kv_blocks``: split-KV) with its rows split over ``batch``.
+    The projections run as DTensor ops; each rank then writes the new
+    rows whose block it holds (``put_rows_``), attends its slots'
+    queries to the blocks it holds through ``kops.paged_attention_op``
+    on its pool shard (the tables remapped to local block ids, the other
+    ranks' blocks dead entries), and the ranks merge the kernel's
+    (m, l, acc) (``_combine_spans``).  The batch and block axes must not
+    overlap."""
+    B, S = positions.shape
+    hd = cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    rules = current_rules() or {}
+    mesh = pool_k.device_mesh
+    b = rules.get("batch")
+    kb_axes = entry_axes(rules.get("kv_blocks"))
+    if set(entry_axes(b)) & set(kb_axes):
+        raise ValueError("the batch and kv_blocks axes overlap")
+    q, kn, vn = _project_qkv_rope(p, x, cfg, positions, slab)
+    rs = norm_spec((b, None, None, None, None))
+
+    def mine(t, sp):        # this rank's rows; a plain t is replicated
+        if not is_dtensor(t):
+            t = from_local(t, mesh, (None,) * t.ndim)
+        return to_local(t, sp)
+
+    ql = mine(q, rs[:4]).reshape(-1, S, K, H // K, hd)
+    kl, vl = mine(kn, rs[:4]), mine(vn, rs[:4])
+    pos = mine(positions, rs[:2]).long()
+    tl = mine(tables, rs[:2]).long()
+    fb = mine(fold_base, rs[:1])
+    pk, pv = pool_k.to_local(), pool_v.to_local()
+    NB, bs = pool_k.shape[0] - 1, pool_k.shape[1]
+    nb_slot = tl.shape[1]
+    lo, n = _local_range(pool_k, 0)
+    # write: the new rows whose block this rank holds
+    blk = torch.div(pos, bs, rounding_mode="floor")
+    phys = torch.gather(tl, 1, blk.clamp(max=nb_slot - 1))
+    phys = torch.where(blk < nb_slot, phys, NB)
+    ours = (phys >= lo) & (phys < lo + n)
+    idx = ((phys - lo).clamp(0, n - 1), pos % bs)
+    put_rows_(pk, idx, ours, kl)
+    put_rows_(pv, idx, ours, vl)
+    # attend: the blocks this rank holds; the sink and the others' are
+    # dead entries (n)
+    held = (tl >= lo) & (tl < lo + n) & (tl < NB)
+    local = torch.where(held, tl - lo, n).to(torch.int32)
+    m, l, acc = kops.paged_attention_op(
+        ql, pk, pv, local, pos[:, 0].to(torch.int32).contiguous(),
+        fb.to(torch.int32), use_kernel=use_kernel)
+    m, l, acc = _combine_spans(mesh, rs, kb_axes, m, l, acc)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]            # (Bl,K,R,S,hd)
+    o = o.permute(0, 3, 1, 2, 4).to(q.dtype).reshape(-1, S, H * hd)
+    o = from_local(o, mesh, rs[:3])
+    if x.ndim == 2:
+        return by_slabs(lambda t: t @ p["wo"],
+                        pad_rows(o.reshape(B * S, H * hd), x.shape[0]), slab)
+    return linear(o, p["wo"])
 
 
 def init_kv_cache(cfg: ModelConfig, n: int, batch: int, max_seq: int,
@@ -240,7 +409,17 @@ def dense_decode_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     slot b writes its new row at its own ``index[b]`` and attends keys
     ``arange(S_max) <= index[b]``, f32 scores and softmax.  Rows above
     ``index[b]`` (an earlier occupant's, or never written) are masked.
-    Returns (B, 1, d)."""
+    Returns (B, 1, d).  A DTensor cache split over slots and positions
+    (the rules' ``batch`` and ``kv_seq``) runs as
+    ``_dense_decode_attention_sharded``, one on a one-device mesh on its
+    local tensors."""
+    if is_dtensor(cache_k):
+        mesh = single_device_mesh(cache_k)
+        if mesh is None:
+            return _dense_decode_attention_sharded(p, x, cfg, cache_k,
+                                                   cache_v, index)
+        return rewrap(dense_decode_attention(
+            *unwrap((p, x, cfg, cache_k, cache_v, index))), mesh)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -256,7 +435,58 @@ def dense_decode_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     s = s.masked_fill(~visible[:, None, None, :], -1e30)
     pr = torch.softmax(s, dim=-1).to(cache_v.dtype)
     o = torch.einsum("bkrs,bskh->bkrh", pr, cache_v)
-    return o.reshape(B, 1, H * hd) @ p["wo"]
+    return linear(o.reshape(B, 1, H * hd), p["wo"])
+
+
+def _dense_decode_attention_sharded(p: dict, x: torch.Tensor,
+                                    cfg: ModelConfig, cache_k: torch.Tensor,
+                                    cache_v: torch.Tensor,
+                                    index: torch.Tensor) -> torch.Tensor:
+    """``dense_decode_attention`` on a cache split over slots (``batch``)
+    and positions (``kv_seq``; split-KV): each rank writes the new row of
+    each of its slots whose position it holds (``put_rows_``), attends
+    its slots' query to the positions it holds, and the ranks merge
+    their softmax statistics over the ``kv_seq`` axes."""
+    hd = cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    rules = current_rules() or {}
+    mesh = cache_k.device_mesh
+    b = rules.get("batch")
+    ks_axes = entry_axes(rules.get("kv_seq"))
+    rs = norm_spec((b, None, None, None, None))
+    q, kn, vn = _project_qkv_rope(p, x, cfg, index[:, None])
+
+    def mine(t, sp):
+        if not is_dtensor(t):
+            t = from_local(t, mesh, (None,) * t.ndim)
+        return to_local(t, sp)
+
+    ql = mine(q, rs[:4]).float()                             # (Bl,1,H,hd)
+    kl, vl = mine(kn, rs[:4])[:, 0], mine(vn, rs[:4])[:, 0]
+    pos = mine(index, rs[:1]).long()
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    lo, n = _local_range(cache_k, 1)
+    Bl = ck.shape[0]
+    ours = (pos >= lo) & (pos < lo + n)
+    slots = torch.arange(Bl, device=ck.device)
+    idx = (slots, (pos - lo).clamp(0, n - 1))
+    put_rows_(ck, idx, ours, kl)
+    put_rows_(cv, idx, ours, vl)
+    qg = ql.reshape(Bl, K, H // K, hd)
+    s = torch.einsum("bkrh,bskh->bkrs", qg, ck.float()) * (
+        1.0 / math.sqrt(hd))
+    kpos = lo + torch.arange(n, device=ck.device)
+    visible = (kpos[None, :] <= pos[:, None])[:, None, None, :]
+    s = torch.where(visible, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)[..., None]                            # (Bl,K,R,1)
+    pr = torch.where(visible, torch.exp(s - m), torch.zeros_like(s))
+    l = pr.sum(dim=-1)[..., None]
+    acc = torch.einsum("bkrs,bskh->bkrh", pr.to(cv.dtype).float(),
+                       cv.float())[:, :, :, None]            # (Bl,K,R,1,hd)
+    m, l, acc = _combine_spans(mesh, rs, ks_axes, m, l, acc)
+    o = (acc / torch.clamp(l, min=1e-30)[..., None]).to(ck.dtype)
+    o = from_local(o.reshape(Bl, 1, H * hd), mesh, rs[:3])
+    return linear(o, p["wo"])
 
 
 def causal_attention(p: dict, x: torch.Tensor,
@@ -271,14 +501,20 @@ def causal_attention(p: dict, x: torch.Tensor,
     H, K = cfg.num_heads, cfg.num_kv_heads
     positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv_rope(p, x, cfg, positions)
+    # replicate KV at the (small) K-head stage: the context-sharded seq
+    # dim is all-gathered here, before the R-fold head broadcast
+    k = shard(k, "batch", "kv_seq", None, None)
+    v = shard(v, "batch", "kv_seq", None, None)
     k = k.repeat_interleave(H // K, dim=2)
     v = v.repeat_interleave(H // K, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    s = shard(s, "batch", None, "seq", None)
     mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
     s = s.masked_fill(~mask, -1e30)
     pr = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", pr, v)
-    return o.reshape(B, S, H * hd) @ p["wo"]
+    o = shard(o.reshape(B, S, H * hd), "batch", "seq", None)
+    return linear(o, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -292,13 +528,23 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def glu_ffn(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    return (_act(act, g) * u) @ p["w_down"]
+    g = linear(x, p["w_gate"])
+    u = linear(x, p["w_up"])
+    h = _act(act, g) * u
+    if h.ndim == 3:
+        h = shard(h, "batch", "seq", "ff")
+    return linear(h, p["w_down"])
 
 
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens]
+    """The embedding rows of ``tokens``.  DTensor tokens gather on each
+    rank's own tokens from the whole (gathered) table."""
+    if is_dtensor(tokens):
+        mesh, pl = tokens.device_mesh, tuple(tokens.placements)
+        x = placed(gathered(emb, pl)[tokens.to_local()], mesh, pl)
+    else:
+        x = emb[tokens]
+    return shard(x, "batch", "seq", "embed") if x.ndim == 3 else x
 
 
 def head_sketch_len(cfg: ModelConfig) -> int:
@@ -376,9 +622,11 @@ def logits_fn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     ``slab`` rows)."""
     def project(t):
         t, head = _head_io(params, t, cfg)
-        return t @ head
+        return linear(t, head)
 
     out = by_slabs(project, x, slab)
+    if out.ndim == 3:
+        out = shard(out, "batch", "seq", "vocab")
     return (out if rows is None else out[:rows]).float()
 
 
@@ -407,6 +655,8 @@ def cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
     head (padded rows carry init weights, as in the reference).  The
     reference pads the head to a whole number of chunks and masks the
     padding; here the last chunk is narrower, which is the same sum."""
+    if is_dtensor(x):
+        return _cross_entropy_sharded(params, x, labels, cfg, vocab_chunk)
     B, S, _ = x.shape
     x, head = _head_io(params, x, cfg)
     V = head.shape[-1]
@@ -418,3 +668,20 @@ def cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
                                 labels, c0, m, l, gold, use_reentrant=False)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return (lse - gold).mean()
+
+
+def _cross_entropy_sharded(params: dict, x: torch.Tensor,
+                           labels: torch.Tensor, cfg: ModelConfig,
+                           vocab_chunk: int) -> torch.Tensor:
+    """``cross_entropy`` of DTensor activations: each rank's terms over
+    its own (batch, seq) rows, with the head gathered whole, summed
+    across the ranks (``local_sum_mean``)."""
+    from torch.distributed.tensor import Replicate
+    xl, mesh, pl = _rows_local(x)
+    if not is_dtensor(labels):
+        labels = placed(labels, mesh, tuple(Replicate() for _ in pl))
+    ll = labels.redistribute(mesh, pl).to_local()
+    local = {k: gathered(v, pl) for k, v in params.items()
+             if k in ("embed", "head")}
+    loss = cross_entropy(local, xl, ll, cfg, vocab_chunk)
+    return local_sum_mean(loss * ll.numel(), labels.numel(), mesh, pl)

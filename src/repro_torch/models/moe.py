@@ -43,6 +43,16 @@ combine weights, and a dropped (token, choice) pair, weighted 0, adds
 nothing forward or backward.  ``probe`` (models/routing.py) sees every
 call's routing under its layer and may replace it; it is None outside
 oracles and tests.
+
+On sharded (DTensor) activations the routing groups are each rank's
+own (``_moe_ffn_sharded``): x is split over the rules' ``moe_groups``
+axes along its batch dim (the paged paths' rows over the ``batch``
+axes) where every shard then holds whole groups (else it is
+replicated), the experts' weights are gathered (FSDP), and
+the function above runs on each rank's rows; the aux loss comes back as
+the mean of the shards' means (weights' gradients summed over the
+ranks that split the rows).  There is no expert-parallel all-to-all:
+expert-parallel placements are gathered like the others.
 """
 from __future__ import annotations
 
@@ -53,6 +63,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ly
+from repro_torch.models.sharding import (axes_size, current_rules,
+                                         from_local, gathered, is_dtensor,
+                                         local_sum_mean, norm_spec,
+                                         placements, to_local)
 
 # called as probe(layer, positions, routing, cfg) -> routing; see the
 # module docstring
@@ -160,6 +174,8 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     output are the same bits in a decode and in a verify step.
     ``layer`` and ``positions`` ((B, S) absolute positions of x's rows,
     or None) only reach ``probe``."""
+    if is_dtensor(x):
+        return _moe_ffn_sharded(p, x, cfg, layer, with_aux, live, slab)
     m = cfg.moe
     if live is None:
         B, S, d = x.shape
@@ -222,3 +238,35 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(G * g, d)[:T]
     y = y.view(B, S, d) if live is None else ly.pad_rows(y, xs.shape[0])
     return (y, aux_loss(probs, topi, cfg)) if with_aux else y
+
+
+def _moe_ffn_sharded(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                     cfg: ModelConfig, layer: int, with_aux: bool,
+                     live: Optional[Tuple[int, int]], slab: Optional[int]):
+    """``moe_ffn`` of a DTensor x (module docstring): group-local on every
+    rank.  ``probe`` sees no positions here."""
+    mesh = x.device_mesh
+    rules = current_rules() or {}
+    if live is None:
+        (B, S), gax = x.shape[:2], rules.get("moe_groups")
+    else:               # the paged paths' rows, split over the batch axes
+        (B, S), gax = live, rules.get("batch")
+        if x.shape[0] != B * S:                 # padded decode rows
+            gax = None
+    n = axes_size(gax, dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    g = min(cfg.moe.group_size, B * S)
+    if B % n or (B // n) * S % g:
+        gax, n = None, 1
+    spec = norm_spec((gax,) + (None,) * (x.ndim - 1))
+    rows = placements(spec, mesh)
+    lp = {k: gathered(v, rows) for k, v in p.items()}
+    xl = to_local(x, spec)
+    out = moe_ffn(lp, xl, cfg, layer, None, with_aux,
+                  None if live is None else (B // n, S), slab)
+    if not with_aux:
+        return from_local(out, mesh, spec)
+    y, aux = out
+    # aux is the mean over this rank's groups, all ranks' alike in size
+    n = x.shape[0] // xl.shape[0]
+    return (from_local(y, mesh, spec),
+            local_sum_mean(aux, n, mesh, rows))

@@ -21,8 +21,17 @@ run the whole model in f32, the yardstick that drift is measured
 against.  The reference's
 three-operand einsums are ordered here as two-operand products whose
 intermediates stay at (B, nc, cs, cs, H) or (B, nc, cs, H, P).  The
-reference's associative scan over SSD chunks is a sequential loop here
-(the port has no context sharding), which adds in another order.
+reference's associative scan over SSD chunks is a sequential loop here,
+which adds in another order; under context sharding (the rules'
+``ctx_shards`` > 1, ``fsdp_seq``) it takes the reference's two-level
+order instead: a loop within each context shard's chunks, then a
+prefix over the shards' totals folded into every chunk
+(``_state_scan``).
+
+Sharded (DTensor) activations follow the reference's ``shard`` sites.
+The sLSTM time loop runs on each rank's own rows: its inputs are
+redistributed to the batch split alone (the recurrent matrices
+replicated), so no step of the loop moves data between ranks.
 
 No TPU kernel lies on these paths: the reference computes them in plain
 jnp, and the port in plain PyTorch.
@@ -38,6 +47,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ly
+from repro_torch.models.sharding import (current_rules, from_local,
+                                         gathered, is_dtensor, placements,
+                                         shard, spec_for, to_local)
 
 State = Dict[str, torch.Tensor]
 
@@ -161,6 +173,7 @@ def _ssd_chunked(X: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor,
     mask = torch.ones(cs, cs, dtype=torch.bool, device=X.device).tril()
     L = torch.exp(ldiff.masked_fill(~mask[None, None, :, :, None],
                                     -math.inf)).to(wdt)
+    L = shard(L, "batch", "chunks", None, None, "ssm_heads")
     W = scores[..., None] * L                               # (B,nc,i,j,H)
     Yd = torch.einsum("bcijh,bcjhp->bcihp", W, Xt)
 
@@ -168,24 +181,60 @@ def _ssd_chunked(X: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor,
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum).to(wdt)
     S_chunk = torch.einsum("bcjn,bcjhp->bchnp", Bc,
                            decay_to_end[..., None] * Xt)
+    S_chunk = shard(S_chunk, "batch", "chunks", "ssm_heads", None, None)
     dec = torch.exp(cum[:, :, -1, :])                       # (B, nc, H) f32
 
-    # inter-chunk recurrence state_c = state_{c-1} * dec_c + S_c, in f32;
-    # states_in[c] is the state entering chunk c
-    s_f = S_chunk.float()
-    state = (torch.zeros_like(s_f[:, 0]) if init_state is None
-             else init_state.float())
-    states_in = []
-    for c in range(nc):
-        states_in.append(state)
-        state = state * dec[:, c, :, None, None] + s_f[:, c]
-    states_in = torch.stack(states_in, dim=1)               # (B,nc,H,N,P)
+    states_in, state = _state_scan(dec, S_chunk.float(), init_state)
 
     # Yi[i] = exp(cum_i) * (C_i . state_in)
     Yi = torch.einsum("bcin,bchnp->bcihp", Cc, states_in.to(wdt))
     Yi = torch.exp(cum).to(wdt)[..., None] * Yi
     Y = (Yd + Yi).reshape(B_, nc * cs, H, P)[:, :S]
     return Y, state
+
+
+def _state_scan(dec: torch.Tensor, s_f: torch.Tensor,
+                init_state: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inter-chunk recurrence state_c = state_{c-1} * dec_c + S_c in
+    f32: dec (B, nc, H), s_f (B, nc, H, N, P).  Returns (states_in: the
+    state entering each chunk, (B, nc, H, N, P); the final state).
+
+    One loop over the chunks, or, with ``ctx_shards`` = ns > 1 in the
+    rules and ns dividing nc (< nc), the reference's two-level order
+    (``_two_level_state_scan``): each shard's ncl = nc / ns chunks from a
+    zero state, with their running decay products; then the shards'
+    exclusive prefix over their totals, folded into every local chunk.
+    The two orders add alike in exact arithmetic."""
+    B_, nc = s_f.shape[:2]
+    state = (s_f.new_zeros((B_,) + tuple(s_f.shape[2:])) if init_state is None
+             else init_state.float())
+    ns = (current_rules() or {}).get("ctx_shards", 1)
+    if ns <= 1 or nc % ns or nc == ns:
+        states_in = []
+        for c in range(nc):
+            states_in.append(state)
+            state = state * dec[:, c, :, None, None] + s_f[:, c]
+        return torch.stack(states_in, dim=1), state
+    ncl = nc // ns
+    d2 = dec.reshape(B_, ns, ncl, *dec.shape[2:])
+    s2 = s_f.reshape(B_, ns, ncl, *s_f.shape[2:])
+    loc = s2.new_zeros((B_, ns) + tuple(s_f.shape[2:]))
+    dcum = d2.new_ones((B_, ns) + tuple(dec.shape[2:]))
+    loc_in, dec_in = [], []
+    for c in range(ncl):                    # within every shard at once
+        loc_in.append(loc)
+        dec_in.append(dcum)
+        loc = loc * d2[:, :, c, :, None, None] + s2[:, :, c]
+        dcum = dcum * d2[:, :, c]
+    prefix = []
+    for j in range(ns):                     # across the shards' totals
+        prefix.append(state)
+        state = state * dcum[:, j, :, None, None] + loc[:, j]
+    prefix = torch.stack(prefix, dim=1)[:, :, None]         # (B,ns,1,H,N,P)
+    states_in = (torch.stack(loc_in, dim=2)
+                 + prefix * torch.stack(dec_in, dim=2)[..., None, None])
+    return states_in.reshape(s_f.shape), state
 
 
 def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -200,10 +249,10 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     x = ly.rms_norm(x, p["pre_norm"], cfg.norm_eps)
     di, H, P, N = mamba2_dims(cfg)
-    z = x @ p["wz"]
-    xr = x @ p["wx"]
-    BC = x @ p["wBC"]
-    dt_raw = (x @ p["wdt"]).float()
+    z = shard(ly.linear(x, p["wz"]), "batch", "seq", "ssm_inner")
+    xr = shard(ly.linear(x, p["wx"]), "batch", "seq", "ssm_inner")
+    BC = ly.linear(x, p["wBC"])
+    dt_raw = ly.linear(x, p["wdt"]).float()
 
     new_state = None
     if state is None:
@@ -221,7 +270,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Bm, Cm = BC[..., :N], BC[..., N:]
     dt = F.softplus(dt_raw + p["dt_bias"])                  # (B, S, H) f32
     A = -torch.exp(p["A_log"])                              # (H,)
-    X = xr.reshape(B, S, H, P)
+    X = shard(xr.reshape(B, S, H, P), "batch", "seq", "ssm_heads", None)
 
     if state is None:
         Y, final = _ssd_chunked(X, dt * A, dt, Bm, Cm, min(s.chunk, S))
@@ -241,7 +290,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Y = Y + X * p["D"][:, None].to(X.dtype)
     y = Y.reshape(B, S, di)
     y = ly.rms_norm((y * F.silu(z)).to(x.dtype), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], new_state
+    return ly.linear(y, p["out_proj"]), new_state
 
 
 def init_mamba2_state(cfg: ModelConfig, n: int, batch: int,
@@ -311,19 +360,21 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     x = ly.rms_norm(x, p["pre_norm"], cfg.norm_eps)
     dm, H, hd = mlstm_dims(cfg)
-    xb = x @ p["wxb"]
-    zb = x @ p["wzb"]
+    xb = shard(ly.linear(x, p["wxb"]), "batch", "seq", "ssm_inner")
+    zb = ly.linear(x, p["wzb"])
     if state is None:
         xc = F.silu(_causal_conv(xb, p["conv_w"], p["conv_b"]))
     else:
         xc = F.silu(_conv_step(state["conv"], xb, p["conv_w"], p["conv_b"]))
 
-    q = (xc @ p["wq"]).reshape(B, S, H, hd)
-    k = (xc @ p["wk"]).reshape(B, S, H, hd) / math.sqrt(hd)
-    v = (xb @ p["wv"]).reshape(B, S, H, hd)
+    # a sharded inner dim splits into (H, hd) only where the heads do
+    heads = lambda t: shard(t, "batch", "seq", "heads").reshape(B, S, H, hd)
+    q = heads(ly.linear(xc, p["wq"]))
+    k = heads(ly.linear(xc, p["wk"])) / math.sqrt(hd)
+    v = heads(ly.linear(xb, p["wv"]))
     xcf = xc.float()
-    i_pre = xcf @ p["wi"] + p["bi"]                         # (B, S, H)
-    f_pre = xcf @ p["wf"] + p["bf"]
+    i_pre = ly.linear(xcf, p["wi"]) + p["bi"]                         # (B, S, H)
+    f_pre = ly.linear(xcf, p["wf"]) + p["bf"]
     logf = -F.softplus(-f_pre)                              # log sigmoid
 
     new_state = None
@@ -359,7 +410,7 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     h = h.reshape(B, S, dm)
     h = ly.rms_norm(h, p["norm"], cfg.norm_eps) * F.silu(zb)
-    return h @ p["out_proj"], new_state
+    return ly.linear(h, p["out_proj"]), new_state
 
 
 def _mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -498,22 +549,23 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     x = ly.rms_norm(x, p["pre_norm"], cfg.norm_eps)
     H = cfg.num_heads
     hd = d // H
-    pre = {g: ((x @ p[f"w{g}"]).float() + p[f"b{g}"]).reshape(B, S, H, hd)
+    pre = {g: shard(ly.linear(x, p[f"w{g}"]).float() + p[f"b{g}"], "batch", "seq",
+                    "heads").reshape(B, S, H, hd)
            for g in SLSTM_GATES}
     if state is None:
         z = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         carry = (z, z, z, z)
     else:
         carry = (state["c"], state["n"], state["h"], state["m"])
-    hs = []
-    for t in range(S):
-        carry = _slstm_cell(p, *carry, {g: pre[g][:, t] for g in pre})
-        hs.append(carry[2])
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    if state is None and is_dtensor(x):
+        y, carry = _slstm_sharded(p, pre, carry)
+    else:
+        y, carry = _slstm_loop(p, pre, carry)
+    y = y.reshape(B, S, d).to(x.dtype)
     y = ly.rms_norm(y, p["norm"], cfg.norm_eps)
-    g = y @ p["w_up_g"]
-    u = y @ p["w_up"]
-    out = (F.gelu(g, approximate="tanh") * u) @ p["w_down"]
+    g = ly.linear(y, p["w_up_g"])
+    u = ly.linear(y, p["w_up"])
+    out = ly.linear(F.gelu(g, approximate="tanh") * u, p["w_down"])
     new_state = None
     if state is not None:
         for key, val in zip(("c", "n", "h", "m"), carry):
@@ -522,6 +574,31 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     elif want_state:
         new_state = dict(zip(("c", "n", "h", "m"), carry))
     return out, new_state
+
+
+def _slstm_loop(p: dict, pre: Dict[str, torch.Tensor], carry: tuple):
+    """The sLSTM time loop: h (B, S, H, hd) f32 and the final carry."""
+    hs = []
+    for t in range(pre["i"].shape[1]):
+        carry = _slstm_cell(p, *carry, {g: pre[g][:, t] for g in pre})
+        hs.append(carry[2])
+    return torch.stack(hs, dim=1), carry
+
+
+def _slstm_sharded(p: dict, pre: Dict[str, torch.Tensor], carry: tuple):
+    """``_slstm_loop`` on DTensors from a zero carry: each rank runs the
+    loop on its own batch rows, the preactivations split over the batch
+    axis alone and the recurrent matrices replicated (gathered once, not
+    once a step); h comes back split the same way."""
+    rows = spec_for(("batch", None, None, None))
+    mesh = pre["i"].device_mesh
+    pl = placements(rows, mesh)
+    lp = {f"r{g}": gathered(p[f"r{g}"], pl) for g in SLSTM_GATES}
+    lpre = {g: to_local(v, rows) for g, v in pre.items()}
+    z = torch.zeros_like(lpre["i"][:, 0])
+    h, carry = _slstm_loop(lp, lpre, (z, z, z, z))
+    return (from_local(h, mesh, rows),
+            tuple(from_local(c, mesh, rows[:3]) for c in carry))
 
 
 def init_slstm_state(cfg: ModelConfig, n: int, batch: int,

@@ -57,6 +57,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models import moe
 from repro_torch.models import ssm
+from repro_torch.models.sharding import shard
 
 Params = Dict[str, Any]
 
@@ -140,8 +141,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     weights)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g = None
+    if dev.type != "meta":      # "meta": shapes and dtypes, no storage
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
 
@@ -270,6 +273,7 @@ def _train_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
     checkpointed body, beside x: a value appended from inside the body
     would be appended again when the backward recomputes it."""
     aux = x.new_zeros((), dtype=torch.float32)
+    x = shard(x, "batch", "residual", None)
     if cfg.family in RECURRENT_FAMILIES:
         run = _forward_xlstm if cfg.family == "ssm" else _forward_zamba
         x, _ = run(params, x, cfg, "train", None, None)
@@ -277,6 +281,7 @@ def _train_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
         for i, p_l in enumerate(params["blocks"]):
             x, a = checkpoint(_train_block, p_l, x, cfg, i,
                               use_reentrant=False)
+            x = shard(x, "batch", "residual", None)
             aux = aux + a
     return ly.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -336,7 +341,9 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     y = _paged_forward(params, x, cfg, cache, index, tables, kernels, sketch,
                        rows)
-    return y[:B * S].view(B, S, d), cache
+    if y.shape[0] != B * S:                     # row padding
+        y = y[:B * S]
+    return y.reshape(B, S, d), cache
 
 
 def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -355,7 +362,9 @@ def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         fold_base = sketch["fold_base"]
     kv = cache["kv"]
-    h = x.reshape(B * S, d)
+    # the paged paths run rows of (B, S): a context-sharded sequence is
+    # gathered (no split of a slot's rows over ranks)
+    h = shard(x, "batch", None, None).reshape(B * S, d)
     if rows is not None:
         h = ly.pad_rows(h, ly.slab_rows(B * S, rows))
     for i, p_l in enumerate(params["blocks"]):
@@ -367,6 +376,7 @@ def _paged_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                                     kv["v"][i], positions, tables,
                                     fold_base, kernels, tail, sketch, rows)
         h = _ffn_residual(p_l, h + a, cfg, (B, S), i, positions, rows)
+        h = shard(h, "batch", None)
     return ly.by_slabs(lambda t: ly.rms_norm(t, params["final_norm"],
                                              cfg.norm_eps), h, rows)
 
@@ -411,6 +421,8 @@ def _forward_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 h = h + out
                 if want:
                     states[kind].append(ns)
+        if not decode:
+            h = shard(h, "batch", "residual", None)
     if want:
         return h, {k: _stack_states(v) for k, v in states.items()}
     return h, cache if decode else None
@@ -459,6 +471,7 @@ def _forward_zamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
                                blocks["mamba"][i], h, cfg,
                                use_reentrant=False)
             h = checkpoint(_shared_block, p_s, h, cfg, use_reentrant=False)
+            h = shard(h, "batch", "residual", None)
             continue
         for i in range(g * per, (g + 1) * per):
             st = ssm.layer_view(cache["mamba"], i) if decode else None
@@ -481,6 +494,8 @@ def _forward_zamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 kv["k"].append(k)
                 kv["v"].append(v)
         h = _ffn_residual(p_s, h + a, cfg)
+        if not decode:
+            h = shard(h, "batch", "residual", None)
     if want:
         return h, {"mamba": _stack_states(mamba),
                    "shared_kv": {k: torch.stack(v) for k, v in kv.items()}}
@@ -526,7 +541,8 @@ def embed_inputs(params: Params, batch) -> torch.Tensor:
     of ``batch`` itself, a (B, S) token tensor)."""
     if isinstance(batch, dict):
         if "embeds" in batch:
-            return batch["embeds"].to(ly.PDTYPE)
+            return shard(batch["embeds"].to(ly.PDTYPE), "batch", "seq",
+                         "embed")
         batch = batch["tokens"]
     return ly.embed_tokens(params["embed"], batch)
 

@@ -48,6 +48,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels.ops import sketch_apply_op
+from repro_torch.models.sharding import is_dtensor, single_device_mesh, unwrap
 from repro_torch.models.transformer import Params, param_leaves
 from repro_torch.sketch.csvec import (CSVec, accumulate, csvec_zeros, query,
                                      state_bytes)
@@ -118,7 +119,15 @@ def sketched_adamw_update(grads: Params, state: SketchedAdamWState,
                           use_kernel: Optional[bool] = None,
                           ) -> Tuple[Params, SketchedAdamWState]:
     """One sketched-AdamW step, in place on params and state: the
-    reference's math, with f32 bias corrections."""
+    reference's math, with f32 bias corrections.  DTensor params and
+    grads on a one-device mesh step through their local tensors (the
+    card's kernels); on a larger mesh this raises."""
+    out = params
+    if single_device_mesh(params, grads) is not None:
+        params, grads = unwrap(params), unwrap(grads)
+    elif any(is_dtensor(t) for _, ps in param_leaves(params) for t in ps):
+        raise NotImplementedError(
+            "sketched AdamW on parameters sharded over several devices")
     state.step += 1
     bc1, bc2 = bias_corrections(b1, b2, state.step)
     leaves = zip(param_leaves(params), param_leaves(grads), state.moments)
@@ -137,7 +146,7 @@ def sketched_adamw_update(grads: Params, state: SketchedAdamWState,
                         mo.v.coeffs, b1=b1, b2=b2, lr=lr, eps=eps,
                         weight_decay=weight_decay, bc1=bc1, bc2=bc2,
                         use_kernel=use_kernel)
-    return params, state
+    return out, state
 
 
 @dataclasses.dataclass

@@ -55,6 +55,8 @@ def _leaves(state: Any) -> List[Tuple[str, Any, Callable]]:
 def _encode(v: Any) -> np.ndarray:
     if isinstance(v, int):
         return np.asarray(v, dtype=np.int64)
+    if hasattr(v, "full_tensor"):       # a DTensor: stored unsharded
+        v = v.full_tensor()
     t = v.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
@@ -89,10 +91,18 @@ def latest_step(path: str) -> Optional[int]:
         return int(f.read().strip())
 
 
-def restore(path: str, state_like: Any,
-            step: Optional[int] = None) -> Tuple[int, Any]:
+def restore(path: str, state_like: Any, step: Optional[int] = None,
+            placements: Optional[Any] = None,
+            mesh: Optional[Any] = None) -> Tuple[int, Any]:
     """Load checkpoint ``step`` (default: LATEST) into ``state_like`` in
-    place; returns (step, state_like)."""
+    place; returns (step, state_like).
+
+    Elastic restore (the reference's ``shardings=``): with ``placements``,
+    a spec tree like ``state_like`` (launch/shardings.py) and the
+    ``DeviceMesh`` ``mesh``, every tensor leaf is
+    replaced by a DTensor on ``mesh`` placed as its spec, each rank
+    keeping its shard of the stored (unsharded) tensor, on the mesh's
+    device type."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -103,11 +113,49 @@ def restore(path: str, state_like: Any,
     if names != [n for n, _, _ in leaves]:
         raise ValueError(f"checkpoint {step} under {path} holds another "
                          f"state structure")
+    specs = (None if placements is None
+             else _spec_leaves(placements, len(leaves)))
     with np.load(os.path.join(path, f"ckpt_{step:08d}.npz")) as data:
         for i, (_, v, set_) in enumerate(leaves):
             a = data[f"a{i}"]
             if isinstance(v, int):
                 set_(int(a))
+            elif specs is not None:
+                set_(_place(torch.from_numpy(a).to(v.dtype), specs[i],
+                            mesh))
             else:
                 v.copy_(torch.from_numpy(a).to(v.dtype))
     return step, state_like
+
+
+def _spec_leaves(specs: Any, n: int) -> List[Any]:
+    """The spec tree's leaves in the state's leaf order: spec tuples are
+    leaves here (``_walk`` would descend into them)."""
+    out: List[Any] = []
+
+    def walk(node: Any) -> None:
+        if isinstance(node, tuple) or (isinstance(node, int)
+                                       and not isinstance(node, bool)):
+            out.append(node)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+            for f in dataclasses.fields(node):
+                walk(getattr(node, f.name))
+    walk(specs)
+    if len(out) != n:
+        raise ValueError(f"placements hold {len(out)} leaves, the state "
+                         f"{n}")
+    return out
+
+
+def _place(t: torch.Tensor, spec: Any, mesh: Any) -> torch.Tensor:
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.sharding import placements as to_placements
+    t = t.to(mesh.device_type)
+    return distribute_tensor(t, mesh, to_placements(spec, mesh))

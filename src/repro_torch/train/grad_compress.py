@@ -47,9 +47,12 @@ PyTorch, as the reference's are plain jnp (no Pallas kernel lies on
 this path).  On the card ``index_add_`` adds with f32 atomics, so two
 runs may round a bucket's sum apart.
 
-The reference's pod-wise step (``make_podwise_compressed_step``, a
-``shard_map`` over a multi-pod mesh) belongs to the launch tooling and is
-not here.
+``make_podwise_compressed_step`` is the reference's pod-wise step (a
+``shard_map`` over the multi-pod mesh's "pod" axis): each pod rank
+computes its batch shard's gradients, sketches every compressed leaf with
+the step's shared hashes and all-reduces only the sketches (J~ f32
+each) over the pod group, with the uncompressed leaves and the loss;
+each then unsketches the mean sketch.
 """
 from __future__ import annotations
 
@@ -200,4 +203,64 @@ def make_compressed_train_step(
                        lambda c: draw(c, step, dev))
         return loss, grads, ef
 
+    return train_step
+
+
+def _pod_mean_(t: torch.Tensor, group) -> None:
+    """All-reduce ``t`` to its mean over ``group`` in place (a sum, then a
+    division: gloo has no averaging reduction)."""
+    import torch.distributed as dist
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    t.div_(dist.get_world_size(group))
+
+
+def make_podwise_compressed_step(
+        cfg: ModelConfig, mesh,
+        hashes: Optional[Callable[[LeafCodec, int, torch.device],
+                                  Tables]] = None):
+    """The pod-wise compressed step over ``mesh``'s "pod" axis:
+    ``train_step(params, ef, batch, step=0) -> (loss, grads, ef)`` on
+    every pod rank, each with its own batch shard and a copy of the
+    params.  Only the sketches (and the uncompressed leaves and the
+    loss) cross the pod group; ``train_step.allreduced`` then holds the
+    step's all-reduced bytes, ``{"sketch": sum of J~ x 4, "dense": the
+    uncompressed leaves' and the loss's}``.  ``hashes`` as for
+    ``make_compressed_train_step``; every rank draws the same tables."""
+    from repro_torch.launch.shardings import make_rules
+    from repro_torch.models.sharding import logical_rules
+
+    ratio, seed = cfg.sketch.grad_hash_ratio, cfg.sketch.seed
+    base = M.make_train_step(cfg)
+    draw = hashes or (lambda c, step, dev: codec_hashes(c, seed, step, dev))
+    group = mesh.get_group("pod")
+
+    def train_step(params: Params, ef, batch: Dict[str, torch.Tensor],
+                   step: int = 0):
+        # single-pod rules inside, as the reference's per-pod body
+        with logical_rules(make_rules(cfg, "train", False, False)[0]):
+            loss, grads = base(params, batch)
+        dev = loss.device
+        sent = {"sketch": 0, "dense": 0}
+        for (_, pieces), c in zip(param_leaves(grads),
+                                  _leaf_codecs(params, ratio)):
+            if c is None:
+                for g in pieces:
+                    _pod_mean_(g, group)
+                    sent["dense"] += g.numel() * g.element_size()
+                continue
+            tables = draw(c, step, dev)
+            sk = sketch_leaf(pieces, c, tables)
+            _pod_mean_(sk, group)                 # J~ floats cross pods
+            sent["sketch"] += sk.numel() * sk.element_size()
+            if probe is not None:
+                probe(c, pieces, tables, sk)
+            for g, pos, sign in _chunks(pieces, c, tables):
+                g.copy_(sk[pos] * sign)
+        loss = loss.clone()
+        _pod_mean_(loss, group)
+        sent["dense"] += loss.numel() * loss.element_size()
+        train_step.allreduced = sent
+        return loss, grads, ef
+
+    train_step.allreduced = {"sketch": 0, "dense": 0}
     return train_step

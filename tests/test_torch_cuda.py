@@ -1383,3 +1383,149 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
         if not f32 and want.abs().max() > 0:
             cos = (got * want).sum() / (got.norm() * want.norm())
             assert cos >= 0.999, (name, float(cos))
+
+
+# ---------------------------------------------------------------------------
+# The launch tooling at a mesh of one (a world-1 NCCL group)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_one(card, tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, device_id=card)
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+def _local(tree):
+    return tf.tree_map(lambda t: t.to_local() if hasattr(t, "to_local")
+                       else t, tree)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_sharded_train_step_on_a_mesh_of_one(nccl_one, monkeypatch):
+    """FSDP placements on a (1, 1) mesh (the byte threshold at 0, so the
+    reduced leaves shard): loss and gradients bitwise the unsharded
+    step's, and sketched AdamW on the DTensor params after it launches
+    sketch_update and moves every sketched leaf."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import logical_rules
+    from repro_torch.train import data as data_lib
+    card = nccl_one
+    monkeypatch.setattr(SH, "_FSDP_MIN_BYTES", 0)
+    cfg = reduced_config("yi-9b")
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    rules, strategy = SH.make_rules(cfg, "train", False, False, 2)
+    params = tf.init_params(cfg, seed=2, device=card)
+    batch = data_lib.make_batch(cfg, 0, 2, 32, device=card)
+    pd = SH.distribute(params, SH.build_param_pspecs(cfg, params, rules,
+                                                     strategy), mesh)
+    bd = SH.distribute(batch, {k: (rules["batch"], None) for k in batch},
+                       mesh)
+    step = M.make_train_step(cfg)
+    with logical_rules(rules), implicit_replication():
+        loss1, grads1 = step(pd, bd)
+    loss0, grads0 = step(_local(pd), batch)
+    assert torch.equal(loss1.to_local(), loss0)
+    for (_, a), (_, b) in zip(tf.param_leaves(_local(grads1)),
+                              tf.param_leaves(grads0)):
+        for x, y in zip(a, b):
+            assert torch.equal(_bits(x), _bits(y))
+    sketch_update.launches = 0
+    before = tf.tree_map(torch.clone, _local(pd))
+    st = sketched_adamw_init(pd, 4, 3, 1024)
+    sketched_adamw_update(grads1, st, pd)
+    torch.cuda.synchronize()
+    assert sketch_update.launches > 0
+    for (_, a), (_, b), mo in zip(tf.param_leaves(_local(pd)),
+                                  tf.param_leaves(before), st.moments):
+        if hasattr(mo.m, "table"):
+            assert torch.isfinite(mo.m.table).all()
+            assert any(not torch.equal(_bits(x), _bits(y))
+                       for x, y in zip(a, b))
+
+
+def test_sharded_serve_step_on_a_mesh_of_one(nccl_one):
+    """make_serve_step at the decode TP placements on a (1, 1) mesh:
+    logits and pool rows bitwise the unsharded serve step's, through the
+    paged-attention kernel."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import logical_rules
+    card = nccl_one
+    cfg = reduced_config("gemma-2b")
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    rules, _ = SH.make_rules(cfg, "decode", False, False)
+    params = tf.init_params(cfg, seed=2, device=card)
+    pd = SH.distribute(params, SH.build_param_pspecs(cfg, params, rules,
+                                                     "tp"), mesh)
+    cache = M.init_slot_cache(cfg, 4, 64, card)
+    ref_cache = tf.tree_map(lambda t: t.clone(), cache)
+    cd = SH.distribute(cache, SH.cache_pspecs(cfg, cache, rules), mesh)
+    gen = torch.Generator(card).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (5, 4, 1), generator=gen,
+                         device=card)
+    step = M.make_serve_step(cfg)
+    paged_attention.launches = 0
+    with logical_rules(rules), implicit_replication():
+        got = [step(pd, cd, toks[i], torch.full((4,), 3 + i, device=card,
+                                                 dtype=torch.int32)
+                    )[0].full_tensor() for i in range(5)]
+    torch.cuda.synchronize()
+    assert paged_attention.launches > 0
+    want = [step(_local(pd), ref_cache, toks[i],
+                 torch.full((4,), 3 + i, device=card, dtype=torch.int32))[0]
+            for i in range(5)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pool = _local(cd)["kv"]
+    for k in ("k", "v"):
+        assert torch.equal(_bits(pool[k]), _bits(ref_cache["kv"][k]))
+
+
+def test_podwise_step_on_a_pod_of_one(nccl_one):
+    """The pod-wise compressed step over a pod group of one: every
+    estimate bitwise unsketch_leaf of the pod-mean sketch, and the
+    sketch bytes all-reduced the sum of J~ x 4."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import grad_compress as gcm
+    card = nccl_one
+    cfg = dataclasses.replace(reduced_config("yi-9b"), d_model=128,
+                              d_ff=256)
+    params = tf.init_params(cfg, seed=2, device=card)
+    batch = data_lib.make_batch(cfg, 0, 2, 16, device=card)
+    seen = {}
+    gcm.probe = lambda c, pieces, tables, sk: seen.__setitem__(
+        c.leaf_id, sk.clone())
+    try:
+        step = gcm.make_podwise_compressed_step(
+            cfg, make_mesh((1,), ("pod",), "cuda"))
+        _, grads, _ = step(params, gcm.init_error_feedback(params), batch, 3)
+    finally:
+        gcm.probe = None
+    codecs = gcm._leaf_codecs(params, cfg.sketch.grad_hash_ratio)
+    assert seen and step.allreduced["sketch"] == sum(
+        4 * c.Jt for c in codecs if c is not None)
+    for (_, pieces), c in zip(tf.param_leaves(grads), codecs):
+        if c is None:
+            continue
+        tables = gcm.codec_hashes(c, cfg.sketch.seed, 3, card)
+        est = gcm.unsketch_leaf(seen[c.leaf_id], c, tables, pieces,
+                                pieces[0].dtype)
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(est, pieces))

@@ -86,6 +86,8 @@ def run_one(checkout: str, phases) -> None:
     root = os.path.abspath(checkout)
     sys.path.insert(0, os.path.join(root, "src"))
     cs = load_smoke(root)
+    if hasattr(cs, "load_rates"):     # the rates from launch/cost_analysis
+        cs.load_rates()
     home = load_smoke(HOME)
     takes_pieces = any(len(g) > 5 for g in cs.SKETCH_GEOMETRIES.values())
     for name in SHARED:
