@@ -139,7 +139,19 @@ Phases (one line each; any failure exits non-zero):
                  leaf's estimate bitwise unsketch_leaf of the main path's
                  sketch and that sketch within f32 rounding of
                  sketch_leaf of the raw gradient; the compression's ms a
-                 step, its bound, the sketch bytes a step, peak memory
+                 step, its bound, the sketch bytes a step, peak memory.
+                 Between the two, on the same model and optimizer state
+                 after the four steps, the reference's train_4k context
+                 (TRAIN_4K): 2 steps of batch B x 4096 tokens, B 4 if
+                 the dry run's walk of that step at a mesh of one plus
+                 the moment state is at most 72 GB, else 2; losses
+                 finite, peak below the card's memory, sketch_update
+                 launched, and one layer's KV-chunked causal_attention at
+                 (B, 4096) (output and gradients for a seeded cotangent)
+                 within ATTN_GATE of a dense f32 S x S version on the
+                 card; a [train-4k] line (step ms, tokens/s, forward /
+                 backward / sketch_update device ms, peak allocated and
+                 the walk's estimate)
   6. moe       — after yi-9b is freed: granite-moe-3b-a800m at full width
                  cut to 8 of its 32 layers (MOE_LAYERS; the serve phase's
                  16-request stream; no drop
@@ -224,7 +236,13 @@ Phases (one line each; any failure exits non-zero):
                  bytes equal to the card's and its peak within 0.67-1.5
                  of max_memory_allocated, and three production cells'
                  peaks and roofline terms, from a CPU process started
-                 with the script (``start_dryrun``)
+                 with the script (``start_dryrun``); and 4 emulated FSDP
+                 ranks on a yi-9b w_gate leaf (4 layers): each rank's
+                 strided block through the kernel's accumulate into zero
+                 tables, the partials summed in rank order within 1e-5
+                 of max|table| of the unsharded accumulate, each rank's
+                 strided apply from the folded tables within lr x D + 1
+                 ulp of the unsharded apply
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -2941,7 +2959,12 @@ def phase_train(dev):
         cfg.sketch, opt_state_ratio=4, opt_state_rows=3,
         opt_state_min_elems=1 << 16))
     logs = []
-    probe = TrainProbe()
+    kept = {}
+
+    def keep(params, grads, opt):   # updated in place by the last step
+        kept.update(params=params, opt=opt)
+
+    probe = TrainProbe(hooks={TRAIN["steps"] - 1: keep})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
@@ -2989,7 +3012,194 @@ def phase_train(dev):
     del hist, probe
     gc.collect()
     torch.cuda.empty_cache()
+    k4 = train_4k(cfg, kept.pop("params"), kept.pop("opt"), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_compressed(cfg, dev)
+    return launches, k4
+
+
+# the 4096-token part of phase train: the reference's train_4k context on
+# the same model and optimizer state; batch 4 if the walk's estimate of
+# that step at a mesh of one (arguments and activations) plus the moment
+# state is at most ``cap`` bytes, else 2
+TRAIN_4K = dict(steps=2, seq=4096, batches=(4, 2), cap=72e9)
+# one layer's KV-chunked attention against a dense f32 S x S version:
+# output and gradients, fractions of max|dense| (the chunked form rounds
+# its scores, its probabilities and each product to bf16, as the
+# reference does)
+ATTN_GATE = (0.02, 0.05)
+
+
+def walk_estimates():
+    """The dry run's train-4k cells, the first its process prints, read
+    as they come (``collect_dryrun`` reads the rest)."""
+    if "proc" not in _DRYRUN:        # phase train run alone (tools/)
+        start_dryrun(os.path.dirname(os.path.abspath(__file__)))
+    early = _DRYRUN.setdefault("early", [])
+    proc = _DRYRUN["proc"]
+    while len(early) < len(TRAIN_4K["batches"]):
+        ln = proc.stdout.readline()
+        if not ln:
+            fail(f"train-4k: the dry run ended (exit {proc.poll()}) before "
+                 f"its train-4k cells")
+        if ln.startswith("{"):
+            early.append(json.loads(ln))
+    bad = [c for c in early if c.get("status") != "ok"]
+    if bad:
+        fail(f"train-4k: dry-run cells {[(c['shape'], c.get('error')) for c in bad]}")
+    return {c["cut"]["global_batch"]: c for c in early}
+
+
+def dense_attention(p, x, cfg):
+    """Causal attention of x (B, S, d) in f32 throughout: the projections
+    and roped q, k, v, one softmax over the whole masked (B, H, S, S)
+    scores; the plain version of the chunked form on the card."""
+    from repro_torch.models import layers as ly
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = ly._project_qkv_rope(p, x, cfg, torch.arange(S, device=x.device))
+    k = k.repeat_interleave(H // K, dim=2)
+    v = v.repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(hd)
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool,
+                                  device=x.device).tril(), -1e30)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    return o.reshape(B, S, H * hd) @ p["wo"]
+
+
+def attention_gate(cfg, p, B, S, dev):
+    """Layer ``p``'s causal_attention (kv_chunk 1024) at (B, S) in bf16
+    against ``dense_attention`` in f32 from the same bf16 values (one
+    sequence at a time): output, and the gradients of x and of every
+    weight for a seeded cotangent.  Returns the max errors as fractions
+    of max|dense| (output, then the largest over the gradients) and the
+    chunked layer's forward + backward wall ms."""
+    from repro_torch.models import layers as ly
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+    names = sorted(p)
+    leaves = {k: p[k].detach().clone().requires_grad_(True) for k in names}
+    xx = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ly.causal_attention(leaves, xx, cfg)
+    (o.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = [o.detach(), xx.grad] + [leaves[k].grad for k in names]
+    del o, leaves, xx
+    dl = {k: p[k].detach().float().requires_grad_(True) for k in names}
+    outs, gx = [], []
+    for b in range(B):
+        xb = x[b:b + 1].float().requires_grad_(True)
+        ob = dense_attention(dl, xb, cfg)
+        (ob * w[b:b + 1]).sum().backward()
+        outs.append(ob.detach())
+        gx.append(xb.grad)
+        del ob, xb
+    want = [torch.cat(outs), torch.cat(gx)] + [dl[k].grad for k in names]
+    errs = [float((a.float() - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+    return errs[0], max(errs[1:]), wall
+
+
+def train_4k(cfg, params, opt, dev):
+    """The 4096-token steps of phase train on ``params`` and ``opt`` (see
+    the module docstring).  Returns the sketch_update launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.sketch_update import sketch_update
+    from repro_torch.models import model as M
+    from repro_torch.sketch.optimizer import moment_state_bytes
+    from repro_torch.train import data as data_lib
+    from repro_torch.train.optimizer import make_optimizer
+    t_part = time.perf_counter()
+    walks = walk_estimates()
+    state_b = moment_state_bytes(opt)["total"]
+    est = {b: c["memory"]["peak_bytes_per_device"] + state_b
+           for b, c in walks.items()}
+    B = 4 if est[4] <= TRAIN_4K["cap"] else 2
+    S = TRAIN_4K["seq"]
+    step = M.make_train_step(cfg)
+    _, update = make_optimizer(cfg, lr=TRAIN["lr"])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sketch_update.launches = 0              # count the main path alone
+    losses, times = [], []
+    last = TRAIN_4K["steps"] - 1
+    for i in range(TRAIN_4K["steps"]):
+        batch = data_lib.make_batch(cfg, TRAIN["steps"] + i, B, S, SEED, dev)
+        if i == last:
+            fwd = forward_ms(cfg, params, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == last:
+            with profile(activities=[ProfilerActivity.CUDA]) as pf:
+                loss, grads = step(params, batch)
+                torch.cuda.synchronize()
+            fb = sum(ns for _, _, ns in kernel_records(pf)) / 1e6
+            with profile(activities=[ProfilerActivity.CUDA]) as pf:
+                params, opt = update(grads, opt, params)
+                torch.cuda.synchronize()
+            by_name = {}
+            for name, _, ns in kernel_records(pf):
+                by_name[name] = by_name.get(name, 0.0) + ns / 1e6
+            opt_ms = sum(by_name.values())
+            sk = sum(sketch_split(by_name).values())
+        else:
+            loss, grads = step(params, batch)
+            params, opt = update(grads, opt, params)
+        del grads
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        del batch
+    torch.cuda.synchronize()
+    launches = sketch_update.launches
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    p0 = params["blocks"][0]["attn"]
+    err_o, err_g, gate_ms = attention_gate(cfg, p0, B, S, dev)
+    if not all(np.isfinite(losses)) or peak >= total or launches <= 0 \
+            or err_o > ATTN_GATE[0] or err_g > ATTN_GATE[1]:
+        fail(f"train-4k: losses {losses}, peak {peak} of {total} B, "
+             f"sketch_update launches {launches}, attention vs dense "
+             f"{err_o:.3g} / {err_g:.3g} (gate {ATTN_GATE})")
+    tokens = B * S
+    print(f"[train-4k] yi-9b full width and depth, the same model and "
+          f"sketched AdamW state (ratio 4, rows 3) after the 8 x 128 steps: "
+          f"batch {B} x {S} (the walk's estimate at batch 4: "
+          f"{est[4]} B, cap {TRAIN_4K['cap']:.0f}), KV chunks of 1024: "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; step ms " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+          + f" (the second profiled: forward + backward, then the "
+          f"optimizer); {tokens / times[0]:.1f} tokens/s (step 0); device "
+          f"ms: forward {fwd:.3f} (one forward without autograd), backward "
+          f"{fb - fwd:.3f} (recomputes included: the profiled forward + "
+          f"backward's busy {fb:.3f} less the forward), optimizer "
+          f"{opt_ms:.3f} of which sketch_update {sk:.3f}; peak allocated "
+          f"{peak} B ({peak / 2 ** 30:.2f} GiB; {base} B allocated at the "
+          f"start) of the card's {total} B; the walk's estimate "
+          + ", ".join(f"batch {b}: {e} B" for b, e in sorted(est.items()))
+          + f" (its arguments and activations at a (1, 1) mesh, "
+          + ", ".join(f"{c['memory']['peak_bytes_per_device']}" for _, c
+                      in sorted(walks.items()))
+          + f" B, walked in "
+          + ", ".join(f"{c['t_walk_s']}" for _, c in sorted(walks.items()))
+          + f" s, plus the moment state {state_b} B): ratio "
+          f"{peak / est[B]:.4f}; sketch_update launches {launches}; "
+          f"attention (layer 0) at ({B}, {S}) vs dense f32: output "
+          f"{err_o:.3g}, gradients {err_g:.3g} of max|dense| (gate "
+          f"{ATTN_GATE[0]} / {ATTN_GATE[1]}), chunked forward + backward "
+          f"{gate_ms:.1f} ms wall; {time.perf_counter() - t_part:.1f}s; "
+          f"{card()}", flush=True)
+    del params, opt
     return launches
 
 
@@ -4521,9 +4731,14 @@ def _clone_tree(tree):
 LAUNCH_LAYERS = 4          # of yi-9b's 48 (full width)
 LAUNCH_SERVE_LAYERS = 2    # of gemma-2b's 18 (full width)
 LAUNCH_DECODE_STEPS = 12
-# the dry run's cells: the card's yi-9b cut at a (1, 1) mesh, then three
-# at the production mesh; (arch, shape, multi_pod, cut)
-DRYRUN_CELLS = (
+# the dry run's cells: phase train's yi-9b steps at batch B x 4096 at a
+# (1, 1) mesh (read first, by train_4k), the card's yi-9b cut at a (1, 1)
+# mesh, then three at the production mesh; (arch, shape, multi_pod, cut)
+TRAIN_4K_CELLS = tuple(
+    ("yi-9b", "train_4k", False,
+     dict(batch=b, seq=TRAIN_4K["seq"], mesh_shape=(1, 1)))
+    for b in TRAIN_4K["batches"])
+DRYRUN_CELLS = TRAIN_4K_CELLS + (
     ("yi-9b", "train_4k", False,
      dict(layers=LAUNCH_LAYERS, batch=TRAIN["batch"], seq=TRAIN["seq"],
           mesh_shape=(1, 1))),
@@ -4568,12 +4783,17 @@ def start_dryrun(root):
 
 def collect_dryrun():
     proc = _DRYRUN["proc"]
-    out, _ = proc.communicate(timeout=900)
+    # read through the same buffered stream as walk_estimates: a
+    # communicate() with a timeout reads the pipe's descriptor and would
+    # miss lines that readline() has buffered
+    out = proc.stdout.read()
+    proc.wait(timeout=60)
     if proc.returncode != 0:
         _DRYRUN["err"].seek(0)
         fail(f"launch: the dry run exited {proc.returncode}: "
              f"{_DRYRUN['err'].read()[-3000:]}")
-    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    lines = _DRYRUN.get("early", []) + [
+        json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     cells = [c for c in lines if "arch" in c]
     bad = [c for c in cells if c.get("status") != "ok"]
     if len(cells) != len(DRYRUN_CELLS) or bad or "ran_s" not in lines[-1]:
@@ -4758,6 +4978,115 @@ def launch_train(dev, mesh):
     return out
 
 
+EMULATED_RANKS = 4
+
+
+def launch_emulated_ranks(dev):
+    """FSDP's sketched AdamW step of one yi-9b leaf emulated over
+    ``EMULATED_RANKS`` ranks in this process: the w_gate leaf at
+    ``LAUNCH_LAYERS`` layers of (4096, 11008), split along its 11,008
+    columns as ``_fsdp_leaf_spec`` splits it (torch.chunk), so each rank's
+    block of a layer is one strided piece (rows of 2,752 elements 11,008
+    apart).  Each rank's pieces go through the kernel's accumulate into
+    zero tables (b1 = b2 = 0), the partial tables are summed in rank
+    order and folded as the optimizer folds them (``b * 0 + (1 - b) *
+    sum``); the folded tables must lie within 1e-5 of max|table| of the
+    unsharded accumulate's, and each rank's strided apply (the kernel's
+    step) from them must give params within lr x D + one bf16 ulp of the
+    unsharded apply's, D the largest difference of the update direction
+    the two tables give through the plain estimates."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.sketch_update import accumulate, step
+    from repro_torch.sketch.hashing import cached_coeffs
+    from repro_torch.sketch.optimizer import _cols_for, block_pieces
+    from repro_torch.train.optimizer import bias_corrections
+    cfg = get_config("yi-9b")
+    L, rows, cols, R = LAUNCH_LAYERS, cfg.d_model, cfg.d_ff, 3
+    n = rows * cols
+    C = _cols_for(L * n, 4, R)
+    a_ = LAUNCH_ADAMW
+    bc1, bc2 = bias_corrections(a_["b1"], a_["b2"], 1)
+    hyper = dict(lr=a_["lr"], eps=a_["eps"],
+                 weight_decay=a_["weight_decay"], bc1=bc1, bc2=bc2)
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    g = [torch.randn(rows, cols, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(L)]
+    p = [(0.02 * torch.randn(rows, cols, generator=gen, device=dev)).to(
+        torch.bfloat16) for _ in range(L)]
+    cm, cv = (cached_coeffs(SEED + 6, R, device=dev),
+              cached_coeffs(SEED + 7, R, device=dev))
+    zeros = lambda: torch.zeros((R, C), dtype=torch.float32, device=dev)
+    um, uv = zeros(), zeros()
+    whole = [(t, l * n) for l, t in enumerate(g)]
+    accumulate(whole, um, uv, cm, cv, b1=a_["b1"], b2=a_["b2"])
+    up = [t.clone() for t in p]
+    step(whole, [t.reshape(-1) for t in up], um, uv, cm, cv, **hyper)
+    w = -(-cols // EMULATED_RANKS)
+    spans = [(r * w, min(cols, (r + 1) * w)) for r in range(EMULATED_RANKS)]
+    sm, sv = zeros(), zeros()
+    blocks = []
+    for c0, c1 in spans:
+        pieces = []
+        for l in range(L):
+            [(_, off, row, stride)] = block_pieces((rows, cols),
+                                                   (rows, c1 - c0), (0, c0),
+                                                   l * n)
+            pieces.append((g[l][:, c0:c1].contiguous(), off, row, stride))
+        zm, zv = zeros(), zeros()
+        accumulate(pieces, zm, zv, cm, cv, b1=0.0, b2=0.0)
+        sm += zm
+        sv += zv
+        blocks.append(pieces)
+        del zm, zv
+    fm = a_["b1"] * zeros() + (1.0 - a_["b1"]) * sm
+    fv = a_["b2"] * zeros() + (1.0 - a_["b2"]) * sv
+    t_err = max(float((x - y).abs().max() / y.abs().max())
+                for x, y in ((fm, um), (fv, uv)))
+    sp = [t.clone() for t in p]
+    for (c0, c1), pieces in zip(spans, blocks):
+        work = [t[:, c0:c1].contiguous() for t in sp]
+        step(pieces, [t.reshape(-1) for t in work], fm, fv, cm, cv, **hyper)
+        for t, wk in zip(sp, work):
+            t[:, c0:c1] = wk
+    D = worst = 0.0
+    bits = 0
+    for l in range(L):
+        d = []
+        for mt, vt in ((um, uv), (fm, fv)):
+            mh, vh = kref.sketch_retrieve_ref(n, l * n, mt, vt, cm, cv)
+            d.append((mh / bc1) / (torch.sqrt(vh.clamp(min=0) / bc2)
+                                   + a_["eps"]))
+            del mh, vh
+        Dl = float((d[0] - d[1]).abs().max())
+        D = max(D, Dl)
+        del d
+        y1, y0 = sp[l].float().reshape(-1), up[l].float().reshape(-1)
+        _, e = torch.frexp(torch.maximum(y1.abs(), y0.abs()))
+        ulp = torch.ldexp(torch.ones_like(y1), e - 1) * torch.finfo(
+            torch.bfloat16).eps
+        worst = max(worst, float(((y1 - y0).abs() / (a_["lr"] * Dl + ulp))
+                                 .max()))
+        bits += torch.equal(sp[l], up[l])
+        del y1, y0, e, ulp
+    if t_err > 1e-5 or worst > 1.0:
+        fail(f"launch: emulated ranks: tables {t_err:.3g} of max|table|, "
+             f"params worst |dp| / (lr D + ulp) {worst:.3g}")
+    print(f"[launch] emulated FSDP ranks: yi-9b w_gate, {L} layers of "
+          f"({rows}, {cols}), tables ({R}, {C}), split along the {cols} "
+          f"columns over {EMULATED_RANKS} ranks (one strided piece a rank "
+          f"and layer: rows of {spans[0][1] - spans[0][0]} elements {cols} "
+          f"apart): the partial tables summed in rank order and folded "
+          f"within {t_err:.3g} of max|table| of the unsharded accumulate; "
+          f"each rank's strided apply from them: {bits} of {L} layers "
+          f"bitwise the unsharded apply, every element within lr x D + 1 "
+          f"ulp (D {D:.3g}, worst |dp| / bound {worst:.3g}); {card()}",
+          flush=True)
+    del g, p, up, sp, um, uv, sm, sv, fm, fv, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def launch_podwise(dev, mesh):
     """The pod-wise compressed step over a pod group of one against the
     plain compressed step, yi-9b as in ``launch_train``."""
@@ -4905,12 +5234,14 @@ def phase_launch(dev):
             mesh = make_mesh((1, 1), ("data", "model"), "cuda")
             pod = make_mesh((1,), ("pod",), "cuda")
             train = launch_train(dev, mesh)
+            launch_emulated_ranks(dev)
             launch_podwise(dev, pod)
             serve_launches = launch_serve(dev, mesh)
         finally:
             dist.destroy_process_group()
     t_wait = time.perf_counter()
     cells, ran_s = collect_dryrun()
+    cells = cells[len(TRAIN_4K_CELLS):]
     wait = time.perf_counter() - t_wait
     cut = cells[0]["memory"]
     measured = train["card_args"] + train["peak"] - train["base"]
@@ -5020,7 +5351,7 @@ def main() -> None:
     del params                               # free gemma-2b for training
     torch.cuda.empty_cache()
     held("serve and long, gemma-2b freed")
-    sk_launches = phase_train(dev)
+    sk_launches, k4_launches = phase_train(dev)
     gc.collect()
     torch.cuda.empty_cache()
     held("train, yi-9b freed")
@@ -5069,6 +5400,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/sketch_update.cu",
         "replaces": "src/repro/kernels/sketch_update.py:125",
         "launches": sk_launches,
+        # phase train's two steps at batch B x 4096
+        "train_4k_launches": k4_launches,
         # phase train-families' six runs
         "families_launches": fam_launches,
         # phase launch's sketched AdamW after the sharded step

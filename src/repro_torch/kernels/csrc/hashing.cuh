@@ -49,10 +49,13 @@ __host__ __device__ inline Divisor make_divisor(uint32_t d) {
   return D;
 }
 
-__device__ __forceinline__ uint32_t mod(uint32_t n, const Divisor& D) {
+__device__ __forceinline__ uint32_t quotient(uint32_t n, const Divisor& D) {
   const uint32_t t = __umulhi(D.m, n);
-  const uint32_t q = (t + ((n - t) >> D.s1)) >> D.s2;
-  return n - q * D.d;
+  return (t + ((n - t) >> D.s1)) >> D.s2;
+}
+
+__device__ __forceinline__ uint32_t mod(uint32_t n, const Divisor& D) {
+  return n - quotient(n, D) * D.d;
 }
 
 // bucket() with the width as a Divisor.

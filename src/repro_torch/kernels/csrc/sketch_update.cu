@@ -13,7 +13,11 @@
 //   v_hat[idx] = min_r     new_v[r, h'_r(idx)]
 //
 // and, in the fused form, the AdamW step of the leaf's params from those
-// estimates.  Bucket and sign hashes are those of sketch/hashing.py in
+// estimates.  A piece may also be strided: element j of a piece with
+// ``row`` > 0 is coordinate idx = offset + (j / row) * stride + j % row
+// (the local block of a parameter split along one dim: rows of ``row``
+// elements, ``stride`` apart in the flat leaf), so one rank's shard of a
+// sharded leaf is one piece whatever dim the split takes.  Bucket and sign hashes are those of sketch/hashing.py in
 // native uint32 arithmetic (csrc/hashing.cuh).  The index is carried in
 // 64 bits and hashed by its low 32 bits: the reference's int32 iota wraps
 // the same way, and a yi-9b FFN leaf has 2,164,260,864 > 2^31 elements.
@@ -105,17 +109,50 @@ constexpr int kMaxBinsPerRow = 1 << 15;  // 128 KB of shared counters
 constexpr int kMaxSegs = 64;           // pieces a launch
 static_assert(kWindow <= kBinThreads, "one thread a slab of the window");
 
-// The pieces of one launch, passed by value: piece k has n[k] elements
-// at ``data[k]`` (g, or the params for the apply) whose first is
-// coordinate offset[k]; for count and scatter its tiles of ``tile``
-// elements are [tile0[k], tile0[k + 1]).
+// The pieces of one launch, passed by value: segment k has n[k] elements
+// at ``data[k]`` (g, or the params for the apply), elements first[k] ..
+// first[k] + n[k] - 1 of a piece at offset[k] whose rows are row[k]
+// elements stride[k] apart (row 0: contiguous); for count and scatter its
+// tiles of ``tile`` elements are [tile0[k], tile0[k + 1]).
 struct Segs {
   const void* data[kMaxSegs];
   long long offset[kMaxSegs];
   long long n[kMaxSegs];
+  long long first[kMaxSegs];
+  long long row[kMaxSegs];
+  long long stride[kMaxSegs];
   long long tile0[kMaxSegs + 1];
   long long tile;
   int count;
+};
+static_assert(sizeof(Segs) <= 4096, "kernel parameters fit 4 KB");
+
+// The coordinate of a segment's element i, hashed by its low 32 bits: a
+// strided piece's row division by the invariant ``row`` (a piece of a
+// strided segment has fewer than 2^32 elements, checked by the wrapper).
+struct Coord {
+  long long base, stride;
+  uint32_t first;
+  bool strided;
+  sketch::Divisor row;
+  __device__ __forceinline__ Coord(long long offset, long long first_,
+                                   long long row_len, long long stride_)
+      : base(offset), stride(stride_), first(0), strided(row_len > 0) {
+    if (strided) {
+      row = sketch::make_divisor((uint32_t)row_len);
+      first = (uint32_t)first_;
+    } else {
+      base += first_;
+    }
+  }
+  __device__ __forceinline__ Coord(const Segs& s, int k)
+      : Coord(s.offset[k], s.first[k], s.row[k], s.stride[k]) {}
+  __device__ __forceinline__ uint32_t operator()(long long i) const {
+    if (!strided) return (uint32_t)(base + i);
+    const uint32_t j = first + (uint32_t)i;
+    const uint32_t q = sketch::quotient(j, row);
+    return (uint32_t)(base + (long long)q * stride + (j - q * row.d));
+  }
 };
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -201,9 +238,9 @@ bin_count_kernel(Segs segs, const uint32_t* __restrict__ cm,
   __syncthreads();
   long long i0, i1;
   const int k = tile_of(segs, tile, i0, i1);
-  const long long off = segs.offset[k];
+  const Coord at(segs, k);
   for (long long i = i0 + threadIdx.x; i < i1; i += kBinThreads) {
-    const uint32_t b = sketch::bucket(h.a, h.b, (uint32_t)(off + i), C);
+    const uint32_t b = sketch::bucket(h.a, h.b, at(i), C);
     atomicAdd(&hist[b >> kSlabBits], 1u);
   }
   __syncthreads();
@@ -334,10 +371,10 @@ bin_scatter_kernel(Segs segs, const uint32_t* __restrict__ cm,
   long long i0, i1;
   const int k = tile_of(segs, tile, i0, i1);
   const T* g = static_cast<const T*>(segs.data[k]);
-  const long long off = segs.offset[k];
+  const Coord at(segs, k);
   for (long long i = i0 + threadIdx.x; i < i1; i += kBinThreads) {
     bool neg;
-    const uint32_t b = h.bucket((uint32_t)(off + i), C, neg);
+    const uint32_t b = h.bucket(at(i), C, neg);
     const int w = (int)(b >> kSlabBits) - s0;
     if (w < 0 || w >= ns) continue;
     const uint32_t pos = atomicAdd(&cursor[w], 1u);
@@ -463,15 +500,18 @@ __device__ __forceinline__ void estimates(
   }
 }
 
-// Estimates form: m_hat, v_hat (f32, n) of one piece at ``offset``.
+// Estimates form: m_hat, v_hat (f32, n) of one piece at ``offset`` (rows
+// of ``row`` elements ``stride`` apart; row 0: contiguous).
 template <int R>
 __global__ void __launch_bounds__(kThreads)
-retrieve_kernel(long long n, long long offset, const float* __restrict__ m,
+retrieve_kernel(long long n, long long offset, long long row,
+                long long stride, const float* __restrict__ m,
                 const float* __restrict__ v,
                 const uint32_t* __restrict__ cm,
                 const uint32_t* __restrict__ cv, sketch::Divisor C,
                 float* __restrict__ m_hat, float* __restrict__ v_hat) {
   const Coeffs<R> k(cm, cv);
+  const Coord at(offset, 0, row, stride);
   const long long step = (long long)kThreads * kPerThread;
   for (long long base = (long long)blockIdx.x * step + threadIdx.x;
        base < n; base += (long long)gridDim.x * step) {
@@ -482,7 +522,7 @@ retrieve_kernel(long long n, long long offset, const float* __restrict__ m,
     for (int e = 0; e < kPerThread; ++e) {
       const long long i = base + (long long)e * kThreads;
       live[e] = i < n;
-      u[e] = (uint32_t)(offset + i);
+      u[e] = at(i);
     }
     estimates<R>(k, u, live, m, v, C, mh, vh);
 #pragma unroll
@@ -514,7 +554,8 @@ apply_kernel(Segs segs, const float* __restrict__ m,
              const uint32_t* __restrict__ cv, sketch::Divisor C, AdamW h) {
   const int piece = blockIdx.y;
   P* p = static_cast<P*>(const_cast<void*>(segs.data[piece]));
-  const long long n = segs.n[piece], offset = segs.offset[piece];
+  const long long n = segs.n[piece];
+  const Coord at(segs, piece);
   const Coeffs<R> k(cm, cv);
   const long long step = (long long)kThreads * kPerThread;
   for (long long base = (long long)blockIdx.x * step + threadIdx.x;
@@ -526,7 +567,7 @@ apply_kernel(Segs segs, const float* __restrict__ m,
     for (int e = 0; e < kPerThread; ++e) {
       const long long i = base + (long long)e * kThreads;
       live[e] = i < n;
-      u[e] = (uint32_t)(offset + i);
+      u[e] = at(i);
       pf[e] = live[e] ? widen(p[i]) : 0.0f;
     }
     estimates<R>(k, u, live, m, v, C, mh, vh);
@@ -550,7 +591,9 @@ int blocks_for(long long count, long long per_block) {
 }
 
 Segs pack(const void* const* data, const long long* offset,
-          const long long* n, int count, long long tile, long long* tiles) {
+          const long long* n, const long long* first, const long long* row,
+          const long long* stride, int count, long long tile,
+          long long* tiles) {
   Segs s{};
   s.count = count;
   s.tile = tile;
@@ -559,6 +602,9 @@ Segs pack(const void* const* data, const long long* offset,
     s.data[k] = data[k];
     s.offset[k] = offset[k];
     s.n[k] = n[k];
+    s.first[k] = first[k];
+    s.row[k] = row[k];
+    s.stride[k] = stride[k];
     s.tile0[k] = t;
     t += (n[k] + tile - 1) / tile;
   }
@@ -628,7 +674,7 @@ extern "C" void sketch_update_limits(long long* out) {
   out[4] = kStageBytes;
 }
 
-// Accumulate one group of ``count`` pieces (g_bf16: bf16, else f32) into
+// Accumulate one group of ``count`` segments (g_bf16: bf16, else f32) into
 // the (R, C) tables: passes 1-5, five launches (three when the group has
 // no elements), the tables scaled by b1 / b2 first when ``scale``; a1 and
 // a2 are 1-b1 and 1-b2.  Count and scatter blocks take ``tile`` elements
@@ -639,6 +685,7 @@ extern "C" void sketch_update_limits(long long* out) {
 // 4 bytes each for bf16 g, 8 for f32).
 extern "C" int sketch_update_accumulate_launch(
     const void* const* g, const long long* offset, const long long* n,
+    const long long* first, const long long* row, const long long* stride,
     int count, long long tile, int g_bf16, void* m, void* v, const void* cm,
     const void* cv, int R, long long C, void* counts, void* total,
     void* start, void* ws, float b1, float b2, float a1, float a2,
@@ -646,7 +693,8 @@ extern "C" int sketch_update_accumulate_launch(
   if (count < 0 || count > kMaxSegs || tile < 1)
     return (int)cudaErrorInvalidValue;
   long long tiles = 0;
-  const Segs segs = pack(g, offset, n, count, tile, &tiles);
+  const Segs segs = pack(g, offset, n, first, row, stride, count, tile,
+                         &tiles);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const uint32_t* cmu = static_cast<const uint32_t*>(cm);
   const uint32_t* cvu = static_cast<const uint32_t*>(cv);
@@ -664,9 +712,11 @@ extern "C" int sketch_update_accumulate_launch(
                                  a2, scale, s);
 }
 
-// Estimates form: m_hat, v_hat (f32, n) for the piece at ``offset``.
+// Estimates form: m_hat, v_hat (f32, n) for the piece at ``offset``
+// (rows of ``row`` elements ``stride`` apart; row 0: contiguous).
 extern "C" int sketch_update_retrieve_launch(
-    long long n, long long offset, const void* m, const void* v,
+    long long n, long long offset, long long row, long long stride,
+    const void* m, const void* v,
     const void* cm, const void* cv, int R, long long C, void* m_hat,
     void* v_hat, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -680,8 +730,9 @@ extern "C" int sketch_update_retrieve_launch(
   const sketch::Divisor Cd = sketch::make_divisor((uint32_t)C);
 #define SKETCH_RET_CASE(RR)                                              \
   case RR:                                                               \
-    retrieve_kernel<RR><<<nb, kThreads, 0, s>>>(n, offset, mf, vf, cmu,  \
-                                                cvu, Cd, mh, vh);          \
+    retrieve_kernel<RR><<<nb, kThreads, 0, s>>>(n, offset, row, stride, \
+                                                mf, vf, cmu, cvu, Cd, mh,  \
+                                                vh);                       \
     break;
   switch (R) {
     SKETCH_ROWS(SKETCH_RET_CASE)
@@ -696,13 +747,16 @@ extern "C" int sketch_update_retrieve_launch(
 // else f32) from the updated tables, in place; one launch.  inv_bc1 and
 // inv_bc2 are the f32 reciprocals of the bias corrections.
 extern "C" int sketch_update_apply_launch(
-    void* const* p, const long long* offset, const long long* n, int count,
+    void* const* p, const long long* offset, const long long* n,
+    const long long* first, const long long* row, const long long* stride,
+    int count,
     int p_bf16, const void* m, const void* v, const void* cm, const void* cv,
     int R, long long C, float inv_bc1, float inv_bc2, float eps, float wd,
     float lr, void* stream) {
   if (count < 1 || count > kMaxSegs) return (int)cudaErrorInvalidValue;
   long long tiles = 0, most = 0;
-  const Segs segs = pack(p, offset, n, count, 1, &tiles);
+  const Segs segs = pack(p, offset, n, first, row, stride, count, 1,
+                         &tiles);
   for (int k = 0; k < count; ++k) most = n[k] > most ? n[k] : most;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(most, (long long)kThreads * kPerThread), count);

@@ -14,7 +14,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.count_sketch import Index, count_sketch, unsketch
 from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.sketch_update import sketch_apply, sketch_update
+from repro_torch.kernels.sketch_update import (accumulate, sketch_apply,
+                                              sketch_update, step)
 
 
 def _resolve(use_kernel: Optional[bool], dev: torch.device,
@@ -75,7 +76,9 @@ def sketch_update_op(pieces: Sequence[Tuple[torch.Tensor, int]],
                      use_kernel: Optional[bool] = None
                      ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Sketched-moment update-retrieve for one leaf given as pieces
-    ``(g_piece, offset)`` of one flat vector (kernels/sketch_update.py).
+    ``(g_piece, offset)`` of one flat vector, or strided pieces
+    ``(g_piece, offset, row, stride)`` (``ref.piece_layout``;
+    kernels/sketch_update.py).
     Updates both (R, C) tables in place, every piece accumulated before
     this returns, and returns an iterator over each piece's f32
     (m_hat, v_hat).  Given one piece ``[(g, 0)]`` it is the reference's
@@ -90,8 +93,44 @@ def sketch_update_op(pieces: Sequence[Tuple[torch.Tensor, int]],
     m_table.copy_(new_m)
     v_table.copy_(new_v)
     return (ref.sketch_retrieve_ref(g.numel(), off, m_table, v_table,
-                                    coeffs_m, coeffs_v)
-            for g, off in pieces)
+                                    coeffs_m, coeffs_v, row, stride)
+            for g, off, row, stride in map(ref.piece_layout, pieces))
+
+
+def sketch_accumulate_op(pieces: Sequence[tuple], m_table: torch.Tensor,
+                         v_table: torch.Tensor, coeffs_m: torch.Tensor,
+                         coeffs_v: torch.Tensor, *, b1: float, b2: float,
+                         use_kernel: Optional[bool] = None) -> None:
+    """The update half of ``sketch_update_op``, in place on both tables:
+    ``b1 * m + (1-b1) * CS(g)`` and ``b2 * v + (1-b2) * CMS(g^2)`` of the
+    pieces (b1 = b2 = 0 sketches them into zero tables).  ``use_kernel``
+    as for ``paged_attention_op``, decided by the tables' device."""
+    if _resolve(use_kernel, m_table.device, "use_kernel"):
+        accumulate(pieces, m_table, v_table, coeffs_m, coeffs_v, b1=b1,
+                   b2=b2)
+        return
+    new_m, new_v = ref.sketch_accumulate_ref(pieces, m_table, v_table,
+                                             coeffs_m, coeffs_v, b1, b2)
+    m_table.copy_(new_m)
+    v_table.copy_(new_v)
+
+
+def sketch_step_op(pieces: Sequence[tuple], params: Sequence[torch.Tensor],
+                   m_table: torch.Tensor, v_table: torch.Tensor,
+                   coeffs_m: torch.Tensor, coeffs_v: torch.Tensor, *,
+                   lr: float, eps: float, weight_decay: float, bc1: float,
+                   bc2: float, use_kernel: Optional[bool] = None) -> None:
+    """The AdamW step half of ``sketch_apply_op``: each param piece
+    (``params[k]`` for ``pieces[k]``) steps in place from its estimates in
+    the tables as they are (kernels/sketch_update.py:step; plain version
+    ``ref.sketch_step_ref``).  ``use_kernel`` as for
+    ``paged_attention_op``, decided by the tables' device."""
+    kw = dict(lr=lr, eps=eps, weight_decay=weight_decay, bc1=bc1, bc2=bc2)
+    if _resolve(use_kernel, m_table.device, "use_kernel"):
+        step(pieces, params, m_table, v_table, coeffs_m, coeffs_v, **kw)
+    else:
+        ref.sketch_step_ref(pieces, params, m_table, v_table, coeffs_m,
+                            coeffs_v, **kw)
 
 
 def sketch_apply_op(pieces: Sequence[Tuple[torch.Tensor, int]],

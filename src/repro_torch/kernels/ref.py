@@ -50,7 +50,8 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
-from repro_torch.sketch.csvec import CSVec, accumulate, median_rows, query
+from repro_torch.sketch.csvec import (CSVec, accumulate_coords, median_rows,
+                                     query)
 from repro_torch.sketch.hashing import row_buckets_signs
 
 __all__ = ["count_sketch_ref", "count_sketch_tiled_ref",
@@ -108,7 +109,36 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
             acc.reshape(B, K, R, Sq, hd))
 
 
-def sketch_accumulate_ref(pieces: Iterable[Tuple[torch.Tensor, int]],
+def piece_layout(piece) -> Tuple[torch.Tensor, int, int, int]:
+    """(flat g, offset, row, stride) of a sketch piece.  ``(g, offset)``
+    is contiguous: element j of g is coordinate offset + j (row 0).
+    ``(g, offset, row, stride)`` is strided: element j is coordinate
+    offset + (j // row) * stride + j % row, rows of ``row`` elements
+    ``stride`` apart (a parameter's local block when one of its dims is
+    split across ranks); a piece of one row, or of row 0, is contiguous
+    (row 0 is how the kernels mark one)."""
+    g, offset, *rs = piece
+    g = g.reshape(-1)
+    if not rs or int(rs[0]) in (0, g.numel()):
+        return g, int(offset), 0, 0
+    row, stride = int(rs[0]), int(rs[1])
+    if row < 1 or stride < row or g.numel() % row:
+        raise ValueError(f"strided piece of {g.numel()} elements: row "
+                         f"{row}, stride {stride}")
+    return g, int(offset), row, stride
+
+
+def piece_coords(n: int, offset: int, row: int, stride: int,
+                 device) -> torch.Tensor:
+    """The int64 coordinates of a piece's n elements (``piece_layout``)."""
+    j = torch.arange(n, dtype=torch.int64, device=device)
+    if row == 0:
+        return offset + j
+    return offset + torch.div(j, row, rounding_mode="floor") * stride \
+        + j % row
+
+
+def sketch_accumulate_ref(pieces: Iterable[tuple],
                           m_table: torch.Tensor, v_table: torch.Tensor,
                           coeffs_m: torch.Tensor, coeffs_v: torch.Tensor,
                           b1: float, b2: float):
@@ -117,16 +147,19 @@ def sketch_accumulate_ref(pieces: Iterable[Tuple[torch.Tensor, int]],
       new_m = b1 * m_table + (1-b1) * CS(g)        (signed)
       new_v = b2 * v_table + (1-b2) * CMS(g^2)     (unsigned)
 
-    where g is the flat vector whose pieces are ``(g_piece, offset)``;
-    each piece is accumulated in f32."""
+    where g is the flat vector whose pieces are ``(g_piece, offset)`` or
+    strided ``(g_piece, offset, row, stride)`` (``piece_layout``); each
+    piece is accumulated in f32."""
     cs_g = CSVec(table=torch.zeros_like(m_table), coeffs=coeffs_m, d=0,
                  signed=True)
     cs_g2 = CSVec(table=torch.zeros_like(v_table), coeffs=coeffs_v, d=0,
                   signed=False)
-    for g, offset in pieces:
-        gf = g.reshape(-1).to(torch.float32)
-        accumulate(cs_g, gf, offset)
-        accumulate(cs_g2, gf * gf, offset)
+    for piece in pieces:
+        g, offset, row, stride = piece_layout(piece)
+        gf = g.to(torch.float32)
+        idx = piece_coords(gf.numel(), offset, row, stride, gf.device)
+        accumulate_coords(cs_g, idx, gf)
+        accumulate_coords(cs_g2, idx, gf * gf)
     new_m = b1 * m_table + (1.0 - b1) * cs_g.table
     new_v = b2 * v_table + (1.0 - b2) * cs_g2.table
     return new_m, new_v
@@ -134,12 +167,13 @@ def sketch_accumulate_ref(pieces: Iterable[Tuple[torch.Tensor, int]],
 
 def sketch_retrieve_ref(n: int, offset: int, m_table: torch.Tensor,
                         v_table: torch.Tensor, coeffs_m: torch.Tensor,
-                        coeffs_v: torch.Tensor):
-    """(m_hat, v_hat) f32 at coordinates [offset, offset + n): the
-    median-of-rows estimate of the signed table and the min-of-rows
+                        coeffs_v: torch.Tensor, row: int = 0,
+                        stride: int = 0):
+    """(m_hat, v_hat) f32 at the coordinates of a piece of n elements at
+    ``offset`` ([offset, offset + n), or strided rows: ``piece_layout``):
+    the median-of-rows estimate of the signed table and the min-of-rows
     estimate of the count-min table."""
-    idx = offset + torch.arange(n, dtype=torch.int64,
-                                device=m_table.device)
+    idx = piece_coords(n, offset, row, stride, m_table.device)
     m_hat = query(CSVec(table=m_table, coeffs=coeffs_m, d=0, signed=True),
                   idx)
     v_hat = query(CSVec(table=v_table, coeffs=coeffs_v, d=0, signed=False),
@@ -175,28 +209,40 @@ def sketched_leaf_update(p: torch.Tensor, m_hat: torch.Tensor,
     p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
 
 
-def sketch_apply_ref(pieces: Iterable[Tuple[torch.Tensor, int]],
+def sketch_step_ref(pieces: Iterable[tuple], params: Iterable[torch.Tensor],
+                    m_table: torch.Tensor, v_table: torch.Tensor,
+                    coeffs_m: torch.Tensor, coeffs_v: torch.Tensor, *,
+                    lr: float, eps: float, weight_decay: float, bc1: float,
+                    bc2: float) -> None:
+    """The AdamW step of each param piece from the tables as they are, in
+    place: per piece ``sketch_retrieve_ref`` and ``sketched_leaf_update``
+    (each piece's estimates freed before the next's are made)."""
+    for p, piece in zip(params, pieces):
+        g, off, row, stride = piece_layout(piece)
+        m_hat, v_hat = sketch_retrieve_ref(g.numel(), off, m_table, v_table,
+                                           coeffs_m, coeffs_v, row, stride)
+        sketched_leaf_update(p, m_hat, v_hat, lr=lr, eps=eps,
+                             weight_decay=weight_decay, bc1=bc1, bc2=bc2)
+        del m_hat, v_hat
+
+
+def sketch_apply_ref(pieces: Iterable[tuple],
                      params: Iterable[torch.Tensor], m_table: torch.Tensor,
                      v_table: torch.Tensor, coeffs_m: torch.Tensor,
                      coeffs_v: torch.Tensor, *, b1: float, b2: float,
                      lr: float, eps: float, weight_decay: float, bc1: float,
                      bc2: float) -> None:
     """The fused form's plain version, in place on the tables and params:
-    ``sketch_accumulate_ref``, then per piece ``sketch_retrieve_ref`` and
-    ``sketched_leaf_update`` (each piece's estimates freed before the
-    next's are made)."""
+    ``sketch_accumulate_ref``, then ``sketch_step_ref``."""
     pieces = list(pieces)
     new_m, new_v = sketch_accumulate_ref(pieces, m_table, v_table, coeffs_m,
                                          coeffs_v, b1, b2)
     m_table.copy_(new_m)
     v_table.copy_(new_v)
     del new_m, new_v
-    for p, (g, off) in zip(params, pieces):
-        m_hat, v_hat = sketch_retrieve_ref(g.numel(), off, m_table, v_table,
-                                           coeffs_m, coeffs_v)
-        sketched_leaf_update(p, m_hat, v_hat, lr=lr, eps=eps,
-                             weight_decay=weight_decay, bc1=bc1, bc2=bc2)
-        del m_hat, v_hat
+    sketch_step_ref(pieces, params, m_table, v_table, coeffs_m, coeffs_v,
+                    lr=lr, eps=eps, weight_decay=weight_decay, bc1=bc1,
+                    bc2=bc2)
 
 
 def tail_fold_ref(rows: torch.Tensor, positions: torch.Tensor,

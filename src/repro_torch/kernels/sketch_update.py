@@ -4,7 +4,10 @@ sketch_update``.
 
 One leaf's (R, C) f32 moment tables are updated in place from its
 gradient g, one flat vector given as pieces ``(g_piece, offset)`` (element
-j of a piece is coordinate ``offset + j``):
+j of a piece is coordinate ``offset + j``) or strided pieces ``(g_piece,
+offset, row, stride)`` (rows of ``row`` elements ``stride`` apart: one
+rank's block of a parameter split along any one dim; ``kernels/ref.py:
+piece_layout``):
 
   new_m = b1 * m + (1-b1) * CS(g),  new_v = b2 * v + (1-b2) * CMS(g^2),
   m_hat = median-of-rows of new_m,  v_hat = min-of-rows of new_v.
@@ -21,7 +24,8 @@ the kernel source).  Two forms then read the tables:
 * ``sketch_apply`` (the fused form, the optimizer's path on the card)
   takes the AdamW step of the leaf's params from the estimates in one
   launch, in place, with ``sketched_leaf_update``'s arithmetic: m_hat and
-  v_hat never reach memory.
+  v_hat never reach memory.  ``step`` is that launch alone, from the
+  tables as they are (the sharded optimizer's step from gathered tables).
 
 The wrappers check what the kernels take and raise on anything else,
 allocate the work space, launch on the current stream and raise if a
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import piece_layout
 from repro_torch.sketch.hashing import coeff_bits
 
 _c_int, _c_ll, _c_ptr, _c_float = (ctypes.c_int, ctypes.c_longlong,
@@ -50,7 +55,8 @@ MAX_SEGS = 64                 # kMaxSegs: pieces a launch
 MAX_SLABS = 1 << 15           # kMaxBinsPerRow: slabs a table row
 WORKSPACE_BYTES = 4 << 30     # bin entries of one group, at most
 
-Piece = Tuple[torch.Tensor, int]
+Piece = tuple       # (g, offset) or (g, offset, row, stride)
+Layout = Tuple[torch.Tensor, int, int, int]     # piece_layout's
 Segment = Tuple[int, int, int]          # (piece, first element, end)
 
 
@@ -59,18 +65,19 @@ def _lib() -> ctypes.CDLL:
     if getattr(lib, "_argtypes_set", False):
         return lib
     lib.sketch_update_accumulate_launch.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ll, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr, _c_int, _c_ll, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-        _c_float, _c_float, _c_float, _c_float, _c_int, _c_ptr]
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ll,
+        _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ll, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_float, _c_float, _c_float, _c_float,
+        _c_int, _c_ptr]
     lib.sketch_update_accumulate_launch.restype = _c_int
     lib.sketch_update_retrieve_launch.argtypes = [
-        _c_ll, _c_ll, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ll,
-        _c_ptr, _c_ptr, _c_ptr]
+        _c_ll, _c_ll, _c_ll, _c_ll, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
+        _c_ll, _c_ptr, _c_ptr, _c_ptr]
     lib.sketch_update_retrieve_launch.restype = _c_int
     lib.sketch_update_apply_launch.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-        _c_ptr, _c_int, _c_ll, _c_float, _c_float, _c_float, _c_float,
-        _c_float, _c_ptr]
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ll, _c_float, _c_float,
+        _c_float, _c_float, _c_float, _c_ptr]
     lib.sketch_update_apply_launch.restype = _c_int
     lib.sketch_update_limits.argtypes = [_c_ptr]
     lib.sketch_update_limits.restype = None
@@ -127,7 +134,7 @@ def plan_groups(numels: Sequence[int], rows: int, entry: int,
     return groups
 
 
-def _check(pieces: Sequence[Piece], m_table, v_table, coeffs_m,
+def _check(pieces: Sequence[Layout], m_table, v_table, coeffs_m,
            coeffs_v) -> None:
     dev = m_table.device
     if dev.type != "cuda":
@@ -151,11 +158,11 @@ def _check(pieces: Sequence[Piece], m_table, v_table, coeffs_m,
         if c.device != dev or tuple(c.shape) != (R, 4):
             raise ValueError(f"{name} must be ({R}, 4) on {dev}, got "
                              f"{tuple(c.shape)} on {c.device}")
-    dtypes = {g.dtype for g, _ in pieces}
+    dtypes = {g.dtype for g, *_ in pieces}
     if len(dtypes) > 1:
         raise ValueError(f"gradient pieces of one leaf share a dtype, got "
                          f"{sorted(map(str, dtypes))}")
-    for g, offset in pieces:
+    for g, offset, row, _ in pieces:
         if g.device != dev:
             raise ValueError(f"gradient piece on {g.device}, tables on "
                              f"{dev}")
@@ -166,6 +173,9 @@ def _check(pieces: Sequence[Piece], m_table, v_table, coeffs_m,
             raise ValueError("gradient pieces must be contiguous")
         if int(offset) < 0:
             raise ValueError(f"piece offset {offset} is negative")
+        if row and g.numel() >= 1 << 32:
+            raise ValueError(f"a strided piece has {g.numel()} >= 2^32 "
+                             f"elements")
 
 
 def _launched(err: int, what: str) -> None:
@@ -175,10 +185,10 @@ def _launched(err: int, what: str) -> None:
     sketch_update.launches += 1
 
 
-def _arrays(ptrs, offsets, numels):
+def _arrays(ptrs, offsets, numels, firsts, rows, strides):
     k = len(ptrs)
-    return ((_c_ptr * k)(*ptrs), (_c_ll * k)(*offsets),
-            (_c_ll * k)(*numels))
+    return ((_c_ptr * k)(*ptrs),) + tuple(
+        (_c_ll * k)(*a) for a in (offsets, numels, firsts, rows, strides))
 
 
 def accumulate(pieces: Sequence[Piece], m_table: torch.Tensor,
@@ -186,14 +196,14 @@ def accumulate(pieces: Sequence[Piece], m_table: torch.Tensor,
                coeffs_v: torch.Tensor, *, b1: float, b2: float) -> None:
     """Scale both tables and add every piece, in place (see the module
     docstring)."""
-    pieces = [(g.reshape(-1), int(off)) for g, off in pieces]
+    pieces = [piece_layout(p) for p in pieces]
     _check(pieces, m_table, v_table, coeffs_m, coeffs_v)
     lib = _lib()
     R, C = m_table.shape
     dev = m_table.device
     dtype = pieces[0][0].dtype if pieces else torch.bfloat16
     esize = entry_bytes(dtype)
-    groups = plan_groups([g.numel() for g, _ in pieces], R, esize)
+    groups = plan_groups([g.numel() for g, *_ in pieces], R, esize)
     NB = 2 * R * -(-C // SLAB)
     tile = tile_for(C, esize, lib.window, lib.stage_bytes)
     tiles = max(sum(-(-(e - s) // tile) for _, s, e in grp)
@@ -209,8 +219,10 @@ def accumulate(pieces: Sequence[Piece], m_table: torch.Tensor,
     for gi, grp in enumerate(groups):
         ptrs = [pieces[k][0].data_ptr() + s * pieces[k][0].element_size()
                 for k, s, _ in grp]
-        arrs = _arrays(ptrs, [pieces[k][1] + s for k, s, _ in grp],
-                       [e - s for _, s, e in grp])
+        arrs = _arrays(ptrs, [pieces[k][1] for k, _, _ in grp],
+                       [e - s for _, s, e in grp], [s for _, s, _ in grp],
+                       [pieces[k][2] for k, _, _ in grp],
+                       [pieces[k][3] for k, _, _ in grp])
         err = lib.sketch_update_accumulate_launch(
             *arrs, len(grp), tile, int(dtype == torch.bfloat16),
             m_table.data_ptr(), v_table.data_ptr(), cm.data_ptr(),
@@ -229,7 +241,7 @@ def sketch_update(pieces: Sequence[Piece], m_table: torch.Tensor,
                   ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Update the tables in place and return an iterator over each
     piece's (m_hat, v_hat) (the estimates form)."""
-    pieces = [(g.reshape(-1), int(off)) for g, off in pieces]
+    pieces = [piece_layout(p) for p in pieces]
     accumulate(pieces, m_table, v_table, coeffs_m, coeffs_v, b1=b1, b2=b2)
     lib = _lib()
     R, C = m_table.shape
@@ -237,12 +249,13 @@ def sketch_update(pieces: Sequence[Piece], m_table: torch.Tensor,
     stream = torch.cuda.current_stream(m_table.device).cuda_stream
 
     def estimates():
-        for g, offset in pieces:
+        for g, offset, row, stride in pieces:
             n = g.numel()
             m_hat = torch.empty(n, dtype=torch.float32, device=g.device)
             v_hat = torch.empty(n, dtype=torch.float32, device=g.device)
             _launched(lib.sketch_update_retrieve_launch(
-                n, offset, m_table.data_ptr(), v_table.data_ptr(),
+                n, offset, row, stride, m_table.data_ptr(),
+                v_table.data_ptr(),
                 cm.data_ptr(), cv.data_ptr(), R, C, m_hat.data_ptr(),
                 v_hat.data_ptr(), stream), "retrieve")
             yield m_hat, v_hat
@@ -251,19 +264,13 @@ def sketch_update(pieces: Sequence[Piece], m_table: torch.Tensor,
     return estimates()
 
 
-def sketch_apply(pieces: Sequence[Piece], params: Sequence[torch.Tensor],
-                 m_table: torch.Tensor, v_table: torch.Tensor,
-                 coeffs_m: torch.Tensor, coeffs_v: torch.Tensor, *,
-                 b1: float, b2: float, lr: float, eps: float,
-                 weight_decay: float, bc1: float, bc2: float) -> None:
-    """Update the tables in place, then take the AdamW step of each param
-    piece (``params[k]`` of ``pieces[k]``'s numel, bf16 or f32,
-    contiguous) in place from its estimates: the fused form."""
-    pieces = [(g.reshape(-1), int(off)) for g, off in pieces]
+def _params_for(pieces: Sequence[Layout], params: Sequence[torch.Tensor],
+                m_table: torch.Tensor) -> List[torch.Tensor]:
+    """``params`` as a list, checked against the pieces (``step``)."""
     params = list(params)
     if len(params) != len(pieces):
         raise ValueError(f"{len(params)} params for {len(pieces)} pieces")
-    for p, (g, _) in zip(params, pieces):
+    for p, (g, *_) in zip(params, pieces):
         if p.numel() != g.numel() or p.device != m_table.device \
                 or not p.is_contiguous() \
                 or p.dtype not in (torch.bfloat16, torch.float32):
@@ -272,7 +279,19 @@ def sketch_apply(pieces: Sequence[Piece], params: Sequence[torch.Tensor],
                              "device")
     if len({p.dtype for p in params}) > 1:
         raise ValueError("the params of one leaf share a dtype")
-    accumulate(pieces, m_table, v_table, coeffs_m, coeffs_v, b1=b1, b2=b2)
+    return params
+
+
+def step(pieces: Sequence[Piece], params: Sequence[torch.Tensor],
+         m_table: torch.Tensor, v_table: torch.Tensor,
+         coeffs_m: torch.Tensor, coeffs_v: torch.Tensor, *, lr: float,
+         eps: float, weight_decay: float, bc1: float, bc2: float) -> None:
+    """The AdamW step of each param piece (``params[k]`` of ``pieces[k]``'s
+    numel, bf16 or f32, contiguous) in place from its estimates in the
+    tables as they are: one launch a ``MAX_SEGS`` pieces."""
+    pieces = [piece_layout(p) for p in pieces]
+    params = _params_for(pieces, params, m_table)
+    _check(pieces, m_table, v_table, coeffs_m, coeffs_v)
     if not pieces:
         return
     lib = _lib()
@@ -285,12 +304,28 @@ def sketch_apply(pieces: Sequence[Piece], params: Sequence[torch.Tensor],
         part = range(k0, min(len(pieces), k0 + MAX_SEGS))
         arrs = _arrays([params[k].data_ptr() for k in part],
                        [pieces[k][1] for k in part],
-                       [pieces[k][0].numel() for k in part])
+                       [pieces[k][0].numel() for k in part],
+                       [0 for _ in part], [pieces[k][2] for k in part],
+                       [pieces[k][3] for k in part])
         _launched(lib.sketch_update_apply_launch(
             *arrs, len(part), int(params[0].dtype == torch.bfloat16),
             m_table.data_ptr(), v_table.data_ptr(), cm.data_ptr(),
             cv.data_ptr(), R, C, float(inv1), float(inv2), eps,
             weight_decay, lr, stream), "apply")
+
+
+def sketch_apply(pieces: Sequence[Piece], params: Sequence[torch.Tensor],
+                 m_table: torch.Tensor, v_table: torch.Tensor,
+                 coeffs_m: torch.Tensor, coeffs_v: torch.Tensor, *,
+                 b1: float, b2: float, lr: float, eps: float,
+                 weight_decay: float, bc1: float, bc2: float) -> None:
+    """Update the tables in place, then take the AdamW step of each param
+    piece in place from its estimates (``step``): the fused form."""
+    pieces = list(pieces)
+    params = _params_for([piece_layout(p) for p in pieces], params, m_table)
+    accumulate(pieces, m_table, v_table, coeffs_m, coeffs_v, b1=b1, b2=b2)
+    step(pieces, params, m_table, v_table, coeffs_m, coeffs_v, lr=lr,
+         eps=eps, weight_decay=weight_decay, bc1=bc1, bc2=bc2)
 
 
 sketch_update.launches = 0

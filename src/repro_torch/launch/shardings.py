@@ -223,7 +223,7 @@ def build_param_pspecs(cfg: ModelConfig, params_tree: Any, rules,
 # ---------------------------------------------------------------------------
 
 
-def _table_spec(table: torch.Tensor) -> Spec:
+def table_spec(table: torch.Tensor) -> Spec:
     """Sketch tables are (rows, cols), cols lane-aligned: shard cols as
     FSDP shards the largest param dim, rows replicated (rows ~ 3)."""
     c = table.shape[1]
@@ -249,7 +249,7 @@ def opt_state_pspecs(cfg: ModelConfig, opt_state: Any,
         return type(opt_state)(step=(), m=param_specs, v=param_specs)
 
     def csvec(c: CSVec) -> CSVec:
-        return CSVec(table=_table_spec(c.table), coeffs=(None, None),
+        return CSVec(table=table_spec(c.table), coeffs=(None, None),
                      d=c.d, signed=c.signed, seed=c.seed)
 
     out = []

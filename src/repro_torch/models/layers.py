@@ -489,13 +489,14 @@ def _dense_decode_attention_sharded(p: dict, x: torch.Tensor,
     return linear(o, p["wo"])
 
 
-def causal_attention(p: dict, x: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence causal attention of ``forward(mode="train")``: the
-    training path's attention, differentiated by autograd.  f32 scores and
-    one softmax over all keys; the reference's ``causal_attention`` walks
-    KV chunks of 1024 with an online softmax, the same function (one chunk
-    at the training path's sequence lengths).  x: (B, S, d)."""
+def causal_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     kv_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence causal attention of ``forward(mode="train")`` and of
+    zamba2's prompt prefill, differentiated by autograd: the reference's
+    ``causal_attention``, an online softmax over KV chunks of ``kv_chunk``
+    (``_flash_attention``), each chunk's body recomputed in the backward,
+    so a layer's backward holds O(S * kv_chunk) scores, never the
+    (B, H, S, S) ones.  x: (B, S, d)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -507,14 +508,87 @@ def causal_attention(p: dict, x: torch.Tensor,
     v = shard(v, "batch", "kv_seq", None, None)
     k = k.repeat_interleave(H // K, dim=2)
     v = v.repeat_interleave(H // K, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
-    s = shard(s, "batch", None, "seq", None)
-    mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-    s = s.masked_fill(~mask, -1e30)
-    pr = torch.softmax(s, dim=-1).to(v.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", pr, v)
+    o = _flash_attention(q, k, v, min(kv_chunk, S))
     o = shard(o.reshape(B, S, H * hd), "batch", "seq", None)
     return linear(o, p["wo"])
+
+
+def _pin(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
+    """The online softmax's carries on the q / context sharding."""
+    return (shard(m, "batch", None, "seq"), shard(l, "batch", None, "seq"),
+            shard(acc, "batch", "seq", None, None))
+
+
+def _carry(like: torch.Tensor, shape: Tuple[int, ...], fill: float,
+           *axes: Optional[str]) -> torch.Tensor:
+    """An f32 carry of ``shape`` filled with ``fill`` on ``like``'s
+    device; a DTensor placed by ``axes`` when ``like`` is one inside a
+    rules context (so the first chunk's ops see a placed carry)."""
+    rules = current_rules()
+    if not (rules and is_dtensor(like)):
+        return torch.full(shape, fill, dtype=torch.float32,
+                          device=like.device)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.models.sharding import placements, spec_for
+    mesh = like.device_mesh
+    pl = placements(spec_for(axes, rules), mesh)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    t = torch.full(local, fill, dtype=torch.float32,
+                   device=like.to_local().device)
+    return DTensor.from_local(t, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _flash_chunk(q: torch.Tensor, kj: torch.Tensor, vj: torch.Tensor,
+                 k0: int, scale: float, m: torch.Tensor, l: torch.Tensor,
+                 acc: torch.Tensor):
+    """One KV chunk (keys [k0, k0 + kc)) of the online softmax, in the
+    reference's order: scores in f32 masked to -1e30, the new max, p,
+    the correction, l, then acc from p in v's dtype."""
+    S, kc = q.shape[1], kj.shape[1]
+    q_pos = torch.arange(S, device=q.device)
+    k_pos = k0 + torch.arange(kc, device=q.device)
+    mask = q_pos[:, None] >= k_pos[None, :]                  # (S, kc)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kj).float() * scale
+    s = s.masked_fill(~mask, -1e30)
+    s = shard(s, "batch", None, "seq", None)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    pr = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + pr.sum(dim=-1)
+    acc = acc * corr.transpose(1, 2)[..., None] + torch.einsum(
+        "bhqk,bkhd->bqhd", pr.to(vj.dtype), vj).float()
+    return _pin(m_new, l, acc)
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kc: int) -> torch.Tensor:
+    """Online-softmax causal attention of q, k, v (B, S, H, hd) (KV
+    expanded to H heads) over KV chunks of kc keys: the keys padded to a
+    multiple of kc (the padding fails the causal test), f32 running
+    (max, sum, acc), each chunk under ``checkpoint``, as the reference's
+    ``jax.checkpoint`` scan body.  Returns (B, S, H, hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    pad = (-S) % kc
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    m, l, acc = _pin(_carry(q, (B, H, S), -1e30, "batch", None, "seq"),
+                     _carry(q, (B, H, S), 0.0, "batch", None, "seq"),
+                     _carry(q, (B, S, H, hd), 0.0, "batch", "seq", None,
+                            None))
+    for k0 in range(0, S + pad, kc):
+        m, l, acc = checkpoint(_flash_chunk, q, k[:, k0:k0 + kc],
+                               v[:, k0:k0 + kc], k0, scale, m, l, acc,
+                               use_reentrant=False)
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -548,6 +548,113 @@ def test_sketched_optimizer_launches_the_kernel(card):
                     x, y, rtol=1e-5, atol=1e-5 * y.abs().max().item())
 
 
+# (rows, cols, c0, width, base, dtype, work space): a rank's block of a
+# (rows, cols) matrix split along its columns, as one strided piece: a
+# yi-9b w_gate layer's block on 256 ranks at the leaf's last layer's
+# offset (past 2^31), a ragged block, and one whose accumulate is cut
+# into groups in the middle of a row
+STRIDED_SHAPES = [
+    (4096, 11008, 43 * 7, 43, 2_119_172_096, torch.bfloat16, None),
+    (300, 1000, 500, 333, 12_345, torch.float32, None),
+    (512, 4096, 1024, 1024, 0, torch.bfloat16, 100_000 * 6 * 4),
+]
+
+
+@pytest.mark.parametrize("shape", STRIDED_SHAPES)
+def test_strided_piece_kernel_matches_per_row_pieces(card, shape,
+                                                     monkeypatch):
+    """The kernel's strided piece ``(g, offset, row, stride)`` in the
+    count, scatter, slab-add, retrieve and apply passes: its tables within
+    the tables' tolerance of the same block given as one contiguous piece
+    a row and of the plain version (the slab adds vary in order); from
+    equal tables, its estimates and its AdamW step bitwise the per-row
+    pieces' and the plain path's."""
+    from repro_torch.kernels import sketch_update as su
+    rows, cols, c0, w, base, dtype, ws = shape
+    if ws is not None:
+        monkeypatch.setattr(su, "WORKSPACE_BYTES", ws)
+    rng = np.random.RandomState(rows)
+    g = torch.tensor(rng.randn(rows, w), dtype=dtype, device=card)
+    p = torch.tensor(rng.randn(rows, w), dtype=torch.bfloat16, device=card)
+    R, C = 3, 40_000
+    mt = torch.tensor(rng.randn(R, C), dtype=torch.float32, device=card)
+    vt = torch.tensor(np.abs(rng.randn(R, C)), dtype=torch.float32,
+                      device=card)
+    cm, cv = cached_coeffs(5, R, device=card), cached_coeffs(6, R,
+                                                             device=card)
+    strided = [(g, base + c0, w, cols)]
+    per_row = [(g[r], base + r * cols + c0) for r in range(rows)]
+    if ws is not None:
+        assert len(plan_groups([rows * w], R, entry_bytes(dtype))) > 1
+    sm, sv, rm, rv = mt.clone(), vt.clone(), mt.clone(), vt.clone()
+    accumulate(strided, sm, sv, cm, cv, b1=0.9, b2=0.95)
+    accumulate(per_row, rm, rv, cm, cv, b1=0.9, b2=0.95)
+    new_m, new_v = ref.sketch_accumulate_ref(strided, mt, vt, cm, cv, 0.9,
+                                             0.95)
+    for got in ((sm, sv), (rm, rv)):
+        for x, y in zip(got, (new_m, new_v)):
+            torch.testing.assert_close(x, y, rtol=1e-5,
+                                       atol=1e-5 * y.abs().max().item())
+    est = list(sketch_update(strided, sm.clone(), sv.clone(), cm, cv, b1=1.0,
+                             b2=1.0))[0]
+    rows_est = list(sketch_update(per_row, sm.clone(), sv.clone(), cm, cv,
+                                  b1=1.0, b2=1.0))
+    plain = ref.sketch_retrieve_ref(rows * w, base + c0, sm, sv, cm, cv, w,
+                                    cols)
+    for i in range(2):
+        want = torch.cat([e[i] for e in rows_est])
+        assert torch.equal(est[i], want) and torch.equal(est[i], plain[i])
+    hyper = dict(lr=1e-2, eps=1e-8, weight_decay=0.01, bc1=0.1, bc2=0.05)
+    a, b, c = p.clone(), p.clone(), p.clone()
+    su.step(strided, [a.reshape(-1)], sm, sv, cm, cv, **hyper)
+    su.step(per_row, list(b), sm, sv, cm, cv, **hyper)
+    ref.sketch_step_ref(strided, [c.reshape(-1)], sm, sv, cm, cv, **hyper)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_chunked_attention_matches_the_dense_form_at_4096(card):
+    """Reduced yi-9b's attention block in bf16 at B 2, S 4096, kv_chunk
+    1024 on the card: the output and the gradients of x and of every
+    weight for a seeded cotangent, within 2% and 5% of max|dense| of one
+    f32 softmax over the whole masked S x S scores from the same bf16
+    projections (the chunked form rounds its scores, its probabilities
+    and each product to bf16, as the reference does)."""
+    from repro_torch.models import layers as ly
+    cfg = reduced_config("yi-9b")
+    params = tf.init_params(cfg, seed=9, device=card)
+    p = params["blocks"][0]["attn"]
+    S, hd = 4096, cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    gen = torch.Generator(card).manual_seed(9)
+    x = torch.randn(2, S, cfg.d_model, generator=gen, device=card).to(
+        torch.bfloat16)
+    w = torch.randn(2, S, cfg.d_model, generator=gen, device=card)
+
+    def dense(pp, xx):
+        q, k, v = ly._project_qkv_rope(pp, xx, cfg, torch.arange(
+            S, device=card))
+        k = k.repeat_interleave(H // K, dim=2).float()
+        v = v.repeat_interleave(H // K, dim=2).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / np.sqrt(hd)
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool,
+                                      device=card).tril(), -1e30)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+        return ly.linear(o.reshape(2, S, H * hd).to(xx.dtype), pp["wo"])
+
+    outs = []
+    for fn in (lambda pp, xx: ly.causal_attention(pp, xx, cfg, 1024), dense):
+        leaves = {k: t.clone().requires_grad_(True) for k, t in p.items()}
+        xx = x.clone().requires_grad_(True)
+        o = fn(leaves, xx)
+        (o.float() * w).sum().backward()
+        outs.append([o.detach()] + [xx.grad] + [leaves[k].grad
+                                                for k in sorted(leaves)])
+    for i, (got, want) in enumerate(zip(*outs)):
+        tol = 0.02 if i == 0 else 0.05
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (i, err)
+
+
 def test_sketch_update_op_sends_cuda_tensors_to_the_kernel(card):
     g, parts, mt, vt, cm, cv = _sketch_inputs(512, 128, 3, 0, torch.float32,
                                               card)

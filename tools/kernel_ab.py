@@ -22,9 +22,12 @@ paper's sizes), ``model`` and ``sketch_model`` (the full-width gemma-2b
 decode steps at max_seq 512 and, sketched, at 8192, with their
 profiles), ``serve`` (the 16-request stream; runs ``model`` first for its
 logit gap), ``spec`` (the speculative engines on that stream), ``long``
-(the 8k stream), ``long_spec`` (the sketched speculative run) and
+(the 8k stream), ``long_spec`` (the sketched speculative run),
 ``train`` (4 steps of
-full-width yi-9b with sketched AdamW, one profiled).  Every line a phase
+full-width yi-9b with sketched AdamW, one profiled; in a checkout whose
+phase has its 4096-token steps, those too, with the dry-run process they
+read) and ``train_families`` (phase train-families: every family's
+sketched-AdamW steps, one profiled).  Every line a phase
 prints is passed through, prefixed by the checkout.  Exits non-zero if
 any run fails.  A checkout whose ``chip_smoke.py`` has no ``spec`` or
 ``long_spec`` phase says so and skips it.
@@ -41,7 +44,7 @@ import sys
 
 HOME = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("kernel", "sketch", "kv", "cs", "cpd", "model", "sketch_model",
-          "serve", "spec", "long", "long_spec", "train")
+          "serve", "spec", "long", "long_spec", "train", "train_families")
 DEFAULT = "kernel,kv,model,sketch_model,serve,long"
 SHARED = ("GEOMETRIES", "CS_GEOMETRIES", "UNSKETCH_GEOMETRIES",
           "SKETCH_GEOMETRIES")
@@ -123,11 +126,13 @@ def run_one(checkout: str, phases) -> None:
             "long_spec"} & set(phases):
         serve_phases(cs, phases, dev, flush)
     del flush
-    if "train" in phases:
-        import gc
-        gc.collect()
-        torch.cuda.empty_cache()
-        cs.phase_train(dev)
+    import gc
+    for name, fn in (("train", cs.phase_train),
+                     ("train_families", cs.phase_train_families)):
+        if name in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            fn(dev)
 
 
 def serve_phases(cs, phases, dev, flush) -> None:
