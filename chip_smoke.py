@@ -7,8 +7,8 @@ and speculatively; the 512-token speculative and the 8k plain streams at
 cut depth), trains full-width yi-9b
 (also with FCS gradient compression), serves the moe family and the
 other attention configs (granite-moe, deepseek-moe and four more, at
-full width and cut depth), plainly and (granite-moe at full depth,
-deepseek-moe, qwen2.5) speculatively, and the recurrent families
+full width and cut depth), plainly and (granite-moe, deepseek-moe,
+qwen2.5, at cut depth) speculatively, and the recurrent families
 (xlstm-1.3b and zamba2-2.7b at full width and cut depth), and trains
 every family (moe, audio, vlm, ssm, hybrid) through the port's main
 paths, and runs the launch tooling at a mesh of one.
@@ -40,7 +40,11 @@ Phases (one line each; any failure exits non-zero):
                  with 2 and 4 hash rows, with kernel / plain / library
                  (index_add_ for the fold) times and the bound; the fold
                  also held bitwise to a row-by-row fold and to a second
-                 launch, with its grid
+                 launch, with its grid; the sharded serve path's forms
+                 at phase launch's shapes: the column-range fold and the
+                 products pass on a 256-column shard, each bitwise the
+                 unsharded kernel's columns and timed against its plain
+                 version
      cs        — count_sketch and unsketch vs their plain versions at the
                  reference's six shapes, a bf16 case and the cpd path's
                  shapes (the CS oracle's 100 x 1,000,000 sketch and its
@@ -170,7 +174,8 @@ Phases (one line each; any failure exits non-zero):
                  line per config (tok/s, TTFT, chunk ms, captures, the FFN
                  weight bytes a decode step reads); its paged-attention
                  launches are all at shapes phase 2 holds
-     moe-spec  — granite-moe at full width and depth through a plain
+     moe-spec  — granite-moe at full width, MOE_SPEC_GRANITE_LAYERS of its
+                 32 layers, through a plain
                  engine and truncated and ratio-4 drafts at spec_k 4 (40
                  verify rows within C 40: greedy tokens bitwise plain),
                  then an exact draft (the whole target at MOE_SPEC_LAYERS
@@ -207,11 +212,13 @@ Phases (one line each; any failure exits non-zero):
                  decode step's top kernels)
   8. train-families — after the recurrent models are freed: 3 steps of
                  batch 8 x 128 through train/loop.py with sketched AdamW
-                 (ratio 4, rows 3) for granite-moe-3b-a800m (full width
-                 and depth), deepseek-moe-16b (full width, 4 layers),
-                 musicgen-medium and internvl2-2b (full width and depth,
-                 the frontend stubs' embeds batches), xlstm-1.3b and
-                 zamba2-2.7b (full width and depth); losses finite,
+                 (ratio 4, rows 3) for granite-moe-3b-a800m (full width,
+                 16 of 32 layers), deepseek-moe-16b (full width, 4
+                 layers), musicgen-medium and internvl2-2b (full width
+                 and depth, the frontend stubs' embeds batches),
+                 xlstm-1.3b (full width, 24 of 48 layers, three layer
+                 groups) and zamba2-2.7b (full width and depth); losses
+                 finite,
                  sketch_update launched, one sketched leaf that only the
                  family has checked in situ as phase 5 checks norm1;
                  granite, xlstm and zamba2 also an f32 copy's backward
@@ -242,7 +249,18 @@ Phases (one line each; any failure exits non-zero):
                  tables, the partials summed in rank order within 1e-5
                  of max|table| of the unsharded accumulate, each rank's
                  strided apply from the folded tables within lr x D + 1
-                 ulp of the unsharded apply
+                 ulp of the unsharded apply, one rank's pieces timed;
+                 4 emulated kv_blocks ranks (models/ranks.py:run_ranks)
+                 of one full-width gemma-2b layer at the 8k sketched
+                 geometry, the pool split by blocks and the tails by
+                 256-column shards: the decode chunk's fold bitwise the
+                 unsharded fold's columns, one decode step's select
+                 estimates bitwise the unsharded tail_scores kernel's,
+                 its output within 1e-4 x max + 2^-8 x max|v| (bf16 p at
+                 each rank's running max); 4 emulated EP ranks of one
+                 full-width deepseek-moe layer (16 experts each),
+                 forward and backward at 8 x 128 tokens against the
+                 gathered form
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Imports nothing of JAX: the card's machine has none.
 """
@@ -746,6 +764,122 @@ SCORE_GEOMETRIES = {
     "reduced_z2": (2, 2, 6, 32, 2, 64, 512),
     "reduced_z4": (2, 1, 5, 32, 4, 64, 512),
 }
+
+
+# The sharded serve path's forms, at phase launch's emulated ranks
+# (``launch_emulated_kv``: gemma-2b's long geometry, one layer of 8 slots,
+# the pool and the tails split 4 ways): the decode chunk's fold of 32 rows
+# a table into a 256-column shard of C 1024, (G, N, Z, C, D, c0, Cl); the
+# decode step's bucket products on that shard, (B, K, N, hd, Z, C, c0, Cl)
+FOLD_RANGE_GEOMETRY = (16, 32, 3, 1024, 256, 256, 256)
+PRODUCTS_GEOMETRY = (8, 1, 8, 256, 3, 1024, 256, 256)
+
+
+def phase_kv_forms(flush):
+    """The column-range ``tail_fold`` and the products pass on a column
+    shard (``tail_products``) against their plain versions at the
+    emulated ranks' shapes: the range fold bitwise the unsharded kernel's
+    columns and within 1e-5 x max|table| of the plain range fold; the
+    shard's products bitwise the unsharded products' columns and within
+    1e-4 x max of the plain products.  Returns {name: row}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kv_sketch import tail_fold, tail_products
+    from repro_torch.sketch.hashing import cached_coeffs, row_buckets_signs
+    dev = flush.device
+    out = {}
+    G, N, Z, C, D, c0, Cl = FOLD_RANGE_GEOMETRY
+    rows, pos, counts, tail, cf = fold_inputs(G, N, Z, C, D, dev, SEED + 40,
+                                              True)
+    whole = tail.clone()
+    tail_fold(rows, pos, counts, whole, cf)
+    part = tail[:, :, c0:c0 + Cl].contiguous()
+    start = part.clone()
+    tail_fold(rows, pos, counts, part, cf, c0, C)
+    want = ref.tail_fold_ref(rows, pos, counts, start.clone(), cf, c0, C)
+    torch.cuda.synchronize()
+    if not torch.equal(part, whole[:, :, c0:c0 + Cl]):
+        fail("tail_fold column range: not bitwise the unsharded fold's "
+             "columns")
+    err = (part - want).abs().max().item()
+    tol = 1e-5 * want.abs().max().item()
+    if not err <= tol:
+        fail(f"tail_fold column range: max err {err} (tol {tol})")
+    kernel_ms = device_ms(lambda: tail_fold(rows, pos, counts, part, cf, c0,
+                                            C), 50, flush)[0]
+    scratch = start.clone()
+    plain_ms = device_ms(lambda: ref.tail_fold_ref(
+        rows, pos, counts, scratch, cf, c0, C), 10, flush)[0]
+    bk, sg = row_buckets_signs(cf, pos.reshape(-1), C, signed=True)
+    valid = (torch.arange(N, device=dev)[None, :]
+             < counts[:, None]).reshape(1, -1).expand(Z, -1)
+    mine = valid & (bk >= c0) & (bk < c0 + Cl)                # (Z, G*N)
+    g = torch.arange(G, device=dev).repeat_interleave(N)[None, :]
+    flat = ((g * Z + torch.arange(Z, device=dev)[:, None]) * Cl
+            + bk - c0)[mine]
+    vals = (sg[:, :, None] * rows.reshape(1, G * N, D).float()
+            .expand(Z, -1, -1))[mine]
+    table = start.reshape(G * Z * Cl, D).clone()
+    library_ms = device_ms(lambda: table.index_add_(0, flat, vals), 50,
+                           flush)[0]
+    # bytes: the valid rows with a bucket in the range read once, each
+    # touched table row of the shard read and written once, positions and
+    # counts read once; one add per (row, hash row) in the range
+    needed = int(mine.any(dim=0).sum())
+    touched = int(torch.unique(flat).numel())
+    nbytes = needed * D * 2 + touched * D * 4 * 2 + G * N * 4 + G * 4
+    b_ms, by = bound(nbytes, int(mine.sum()) * D)
+    out["tail_fold_cols"] = dict(
+        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=b_ms, bound_by=by, max_abs_err=err)
+    print(f"[kernel] tail_fold column range (G={G}, N={N}, Z={Z}, columns "
+          f"[{c0}, {c0 + Cl}) of C={C}, D={D}): bitwise the unsharded "
+          f"fold's columns; max|err| {err:.3e} vs the plain range fold "
+          f"(tol {tol:.3e}) kernel_ms={kernel_ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={library_ms:.5f} (index_add_ of the "
+          f"range's {int(mine.sum())} terms) bound_ms={b_ms:.6f} ({nbytes} "
+          f"B: {needed} rows, {touched} table rows touched)")
+    del rows, pos, counts, tail, whole, part, start, want, scratch, table
+    B, K, Nq, hd, Z, C, c0, Cl = PRODUCTS_GEOMETRY
+    gen = torch.Generator(dev).manual_seed(SEED + 41)
+    q = torch.randn((B, K, Nq, hd), generator=gen, device=dev)
+    tk = torch.randn((B, Z, C, K, hd), generator=gen, device=dev)
+    shard = tk[:, :, c0:c0 + Cl].contiguous()
+    got = tail_products(q, shard)
+    whole = tail_products(q, tk)
+    want = ref.tail_products_ref(q, shard)
+    torch.cuda.synchronize()
+    if not torch.equal(got, whole[..., c0:c0 + Cl]):
+        fail("tail_products on a column shard: not bitwise the unsharded "
+             "products' columns")
+    err = (got - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    if not err <= tol:
+        fail(f"tail_products on a column shard: max err {err} (tol {tol})")
+    kernel_ms = device_ms(lambda: tail_products(q, shard), 50, flush)[0]
+    plain_ms = device_ms(lambda: ref.tail_products_ref(q, shard), 10,
+                         flush)[0]
+    # the same products as one f32 batched matmul (TF32 is off in main)
+    q3, tkv = q[:, :, None], shard.permute(0, 3, 1, 4, 2)
+    library_ms = device_ms(lambda: torch.matmul(q3, tkv), 50, flush)[0]
+    nbytes = (q.numel() + shard.numel() + got.numel()) * 4
+    flops = 2 * B * K * Z * Nq * Cl * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    out["tail_products_cols"] = dict(
+        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        max_abs_err=err)
+    print(f"[kernel] tail_products on a column shard (B={B}, K={K}, N={Nq}, "
+          f"hd={hd}, Z={Z}, columns [{c0}, {c0 + Cl}) of C={C}): bitwise "
+          f"the unsharded products' columns; max|err| {err:.3e} vs the "
+          f"plain products (tol {tol:.3e}) kernel_ms={kernel_ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} (f32 "
+          f"torch.matmul) bound_ms={max(t_bytes, t_ops):.6f} ({nbytes} "
+          f"B, {flops} flop in 3xTF32)")
+    del q, tk, shard, got, whole, want, q3, tkv
+    torch.cuda.empty_cache()
+    return out
 
 
 def fold_inputs(G, N, Z, C, D, dev, seed, ragged):
@@ -3386,7 +3520,7 @@ def train_compressed(cfg, dev):
 # the moe family at full width, cut to MOE_LAYERS of its layers (granite
 # 32, deepseek 28): each engine's eager twin launches every layer's
 # kernels from the host, and the cut keeps the whole run well inside its
-# time limit.  Phase train-families trains granite-moe at full depth.
+# time limit.  Phase train-families trains granite-moe at 16 layers.
 MOE = ("granite-moe-3b-a800m", "deepseek-moe-16b")
 MOE_LAYERS = 8
 # the largest router-logit gap by which a routing decision of one path
@@ -3690,9 +3824,14 @@ MOE_SPEC_K = 4
 MOE_SPEC_RATIO = 4
 MOE_SPEC_REQUESTS = 8
 # granite's exact-draft engine (draft = the whole target) and deepseek's
-# engines serve at this depth; granite's spec-vs-plain engines at all 32
-# layers, qwen2.5's at CUT_LAYERS
+# engines serve at this depth; granite's spec-vs-plain engines at
+# MOE_SPEC_GRANITE_LAYERS, qwen2.5's at CUT_LAYERS
 MOE_SPEC_LAYERS = 4
+# granite's spec-vs-plain engines, cut from 32 layers to keep the whole
+# run well inside its time limit on a slow host (their eager twins launch
+# every layer from the host); a verify step's 40 rows fit C 40 at any
+# depth, so the greedy tokens must equal the plain engine's all the same
+MOE_SPEC_GRANITE_LAYERS = 16
 SPEC_DRAFTS = {"truncated_depth1": dict(spec_k=MOE_SPEC_K, draft_depth=1),
                "cs_depth1_ratio4": dict(spec_k=MOE_SPEC_K, draft_depth=1,
                                         draft_sketch_ratio=MOE_SPEC_RATIO)}
@@ -3866,7 +4005,8 @@ def phase_moe_spec(dev):
     every spec engine graphed and as its eager twin (``spec_engine``),
     each against a plain engine run once (``plain_engine``).
 
-    granite-moe-3b-a800m at full width and depth: a plain engine, a
+    granite-moe-3b-a800m at full width, MOE_SPEC_GRANITE_LAYERS layers: a
+    plain engine, a
     truncated depth-1 draft and that draft compressed at ratio 4, spec_k
     4, on 8 requests of phase moe's stream shape.  A verify step routes
     8 x 5 = 40 rows, within C = 40, so nothing can drop and every greedy
@@ -3924,10 +4064,11 @@ def phase_moe_spec(dev):
     def tokens(run):
         return {c.rid: c.tokens for c in run["done"]}
 
-    # granite-moe at full width and depth
+    # granite-moe at full width, cut in depth
     t0 = time.perf_counter()
     arch = "granite-moe-3b-a800m"
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=MOE_SPEC_GRANITE_LAYERS)
     params = tf.init_params(cfg, seed=SEED, device=dev)
     C = moe.capacity(cfg)
     if SERVE["max_batch"] * (MOE_SPEC_K + 1) > C:
@@ -3942,8 +4083,8 @@ def phase_moe_spec(dev):
                  f"from the plain engine's tokens")
         if runs[name][0]["stats"].spec_rounds <= 0:
             fail(f"moe-spec {arch} {name}: no speculative round")
-    print(f"[moe-spec] {arch} full width and depth ({cfg.num_layers} "
-          f"layers): {n} greedy tokens of both spec engines bitwise the "
+    print(f"[moe-spec] {arch} full width, {cfg.num_layers} of 32 "
+          f"layers: {n} greedy tokens of both spec engines bitwise the "
           f"plain engine's (verify rows {SERVE['max_batch']} x "
           f"{MOE_SPEC_K + 1} <= C {C}: no drop possible); "
           f"{time.perf_counter() - t0:.1f}s; {card()}")
@@ -4468,14 +4609,17 @@ def phase_recurrent(dev):
 # pieces its direction covers: None for all, else a test of (leaf, layer,
 # layers)).  deepseek-moe-16b's
 # 16.9 B params and their gradients do not fit one card: 4 of its 28
-# layers.  The leaf is one that only the family has: an expert stack, the
+# layers; granite-moe and xlstm-1.3b run at half depth (16 of 32, and
+# three of xlstm's six layer groups, 24 of 48) to keep the whole run
+# well inside its time limit on a slow host (PERF.md section 4).  The
+# leaf is one that only the family has: an expert stack, the
 # shared experts, the embedding table the frontend stubs' batches never
 # read (a zero gradient), an mLSTM projection, a Mamba-2 projection
-FAMILIES = (("granite-moe-3b-a800m", None, "blocks/moe/we_gate", 1e-3, None),
+FAMILIES = (("granite-moe-3b-a800m", 16, "blocks/moe/we_gate", 1e-3, None),
             ("deepseek-moe-16b", 4, "blocks/moe/ws_gate", None, None),
             ("musicgen-medium", None, "embed", None, None),
             ("internvl2-2b", None, "embed", None, None),
-            ("xlstm-1.3b", None, "blocks/mlstm/out_proj", 1e-2,
+            ("xlstm-1.3b", 24, "blocks/mlstm/out_proj", 1e-2,
              lambda name, i, n: name in ("head", "final_norm")
              or (name.startswith("blocks/slstm/") and i == n - 1)),
             ("zamba2-2.7b", None, "blocks/mamba/wx", 1e-3, None))
@@ -4979,6 +5123,7 @@ def launch_train(dev, mesh):
 
 
 EMULATED_RANKS = 4
+STRIDED_WINDOWS = 3
 
 
 def launch_emulated_ranks(dev):
@@ -5026,6 +5171,8 @@ def launch_emulated_ranks(dev):
     spans = [(r * w, min(cols, (r + 1) * w)) for r in range(EMULATED_RANKS)]
     sm, sv = zeros(), zeros()
     blocks = []
+    from repro_torch.kernels.sketch_update import sketch_update
+    sketch_update.launches = 0
     for c0, c1 in spans:
         pieces = []
         for l in range(L):
@@ -5072,6 +5219,78 @@ def launch_emulated_ranks(dev):
     if t_err > 1e-5 or worst > 1.0:
         fail(f"launch: emulated ranks: tables {t_err:.3g} of max|table|, "
              f"params worst |dp| / (lr D + ulp) {worst:.3g}")
+    launches = sketch_update.launches
+    # one rank's work timed: its strided pieces accumulated into zero
+    # tables, then its step from the folded tables, each a mean of 50
+    # calls in each of STRIDED_WINDOWS windows; the plain versions on the
+    # same pieces, a mean of 10.  The kernels' records read low in some
+    # profiler windows (the step 4.6-7.5 ms) while the same windows' host
+    # wall and CUDA events hold at ~8.3 ms a step (NVIDIA H100 80GB
+    # HBM3), so the times are the events' (each call's host-side launch
+    # included); the records, the step's also on fresh copies of the
+    # tables, are printed beside them.  Bound: the fused form's bytes (g
+    # once, both tables read and written once, the bf16 params read and
+    # written once)
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
+    pieces = blocks[0]
+    work = [t[:, spans[0][0]:spans[0][1]].contiguous().reshape(-1)
+            for t in sp]
+    zm, zv = zeros(), zeros()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def by_events(fn):
+        fn()
+        means = []
+        for _ in range(STRIDED_WINDOWS):
+            t = 0.0
+            for _ in range(50):
+                flush.bitwise_not_()
+                ev[0].record()
+                fn()
+                ev[1].record()
+                ev[1].synchronize()
+                t += ev[0].elapsed_time(ev[1])
+            means.append(t / 50)
+        return means
+
+    def by_records(fn):
+        return zip(*[device_ms(fn, 50, flush)[::2]
+                     for _ in range(STRIDED_WINDOWS)])
+
+    run_acc = lambda: accumulate(pieces, zm, zv, cm, cv, b1=0.0, b2=0.0)
+    run_step = lambda: step(pieces, work, fm, fv, cm, cv, **hyper)
+    accs, steps = by_events(run_acc), by_events(run_step)
+    acc_rec, acc_walls = by_records(run_acc)
+    step_rec, step_walls = by_records(run_step)
+    fm2, fv2 = fm.clone(), fv.clone()
+    fresh, _ = by_records(lambda: step(pieces, work, fm2, fv2, cm, cv,
+                                       **hyper))
+    del fm2, fv2
+    acc_ms, step_ms = sum(accs) / len(accs), sum(steps) / len(steps)
+    plain_ms = device_ms(lambda: (
+        kref.sketch_accumulate_ref(pieces, zm, zv, cm, cv, 0.0, 0.0),
+        kref.sketch_step_ref(pieces, work, fm, fv, cm, cv, **hyper)), 10,
+        flush)[0]
+    N = sum(pc[0].numel() for pc in pieces)
+    abytes = N * 2 + 2 * 2 * R * C * 4 + 2 * N * 2
+    flops = N * (3 + 2 * R + R * (R - 1) + (R - 1)) + 2 * R * C
+    s_bound, s_by = bound(abytes, flops)
+    strided = dict(kernel_ms=acc_ms + step_ms, accumulate_ms=acc_ms,
+                   step_ms=step_ms, plain_ms=plain_ms, bound_ms=s_bound,
+                   bound_by=s_by, launches=launches)
+    ms = lambda xs: " / ".join(f"{x:.5f}" for x in xs)
+    print(f"[launch] emulated FSDP ranks, one rank's strided pieces timed "
+          f"({len(pieces)} pieces, {N} elements, tables ({R}, {C})): "
+          f"accumulate {acc_ms:.5f} ms + step {step_ms:.5f} ms (CUDA "
+          f"events, means of 50 calls; windows: accumulate {ms(accs)}, "
+          f"step {ms(steps)}; profiler kernel records: accumulate "
+          f"{ms(acc_rec)} (host wall a call {ms(acc_walls)}), step "
+          f"{ms(step_rec)} (host wall {ms(step_walls)}), step on fresh "
+          f"copies of the tables {ms(fresh)}); plain "
+          f"{plain_ms:.5f} ms (mean of 10); bound_ms={s_bound:.6f} ({abytes}"
+          f" B, {s_by}); sketch_update launches in the emulated ranks' check "
+          f"{launches}; {card()}", flush=True)
+    del flush, zm, zv, work
     print(f"[launch] emulated FSDP ranks: yi-9b w_gate, {L} layers of "
           f"({rows}, {cols}), tables ({R}, {C}), split along the {cols} "
           f"columns over {EMULATED_RANKS} ranks (one strided piece a rank "
@@ -5083,6 +5302,256 @@ def launch_emulated_ranks(dev):
           f"ulp (D {D:.3g}, worst |dp| / bound {worst:.3g}); {card()}",
           flush=True)
     del g, p, up, sp, um, uv, sm, sv, fm, fv, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return strided
+
+
+EMULATED_KV_POS = (700, 1500, 2600, 3100, 4000, 5200, 6900, 8100)
+
+
+def launch_emulated_kv(dev):
+    """The sharded two-span attention and fold on ``EMULATED_RANKS``
+    emulated ``kv_blocks`` ranks in this process (models/ranks.py:
+    ``run_ranks``, each collective over the ranks in rank order):
+    gemma-2b at full width, one layer, 8 slots at the long geometry
+    (max_seq 8192, Z 3, C 1024, window 1024), the pool split by blocks and
+    the tails by 256-column shards.  The tails hold each slot's rows
+    below its window (an unsharded fold); then one decode chunk's fold (32
+    rows a slot, ``kv_sketch.fold_pool_rank``) must leave each rank's
+    shard bitwise the unsharded fold's columns, and one decode step of the
+    layer (``layers.paged_attention_rank``) must give select estimates
+    bitwise the unsharded ``tail_scores`` kernel's, the tail span's
+    statistics m and l bitwise and acc within 1e-4 x max|acc| of the
+    unsharded ``tail_attend``'s, and an f32 attention output within 1e-3
+    x max|output| of the unsharded step's (``paged_attention_op``,
+    ``tail_attend`` and ``kv_sketch.two_span_output`` on the whole pool
+    and tails): the exact span's split-KV merge rounds p to bf16 at each
+    rank's running max, which the card read at 1.9e-4 x max|output|.
+    Returns the kernels' launches in the emulated ranks' fold and step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.count_sketch import count_sketch
+    from repro_torch.kernels.kv_sketch import (tail_fold, tail_products,
+                                               tail_scores, tail_select)
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model as M
+    from repro_torch.models import ranks
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import kv_sketch as kvs
+    n = EMULATED_RANKS
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=1)
+    params = tf.init_params(cfg, seed=SEED + 8, device=dev)
+    p = params["blocks"][0]["attn"]
+    B, W, Z = len(EMULATED_KV_POS), LONG["window"], LONG["rows"]
+    C = kvs.tail_cols(LONG["max_seq"], LONG["ratio"])
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cache = M.init_slot_cache(cfg, B, LONG["max_seq"], dev, (1, n),
+                              tail=(Z, C))
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    for k in ("k", "v"):
+        cache["kv"][k].copy_(torch.randn(cache["kv"][k].shape, generator=gen,
+                                         device=dev))
+    pool, tables, tail = cache["kv"], cache["tables"], cache["tail"]
+    NB = pool["k"].shape[1] - 1
+    pos = torch.tensor(EMULATED_KV_POS, device=dev)[:, None]
+    # the window's exact span starts at a block boundary W below the
+    # query; the chunk's fold then takes up to 32 of the rows in between
+    ff = torch.clamp((pos[:, 0] - W) // 16 * 16 - 32, min=0).to(torch.int32)
+    fl = torch.clamp((pos[:, 0] - W) // 16 * 16 - ff, 0, 32).to(torch.int32)
+    coeffs = kvs.tail_coeffs(cfg.serve, device=dev)
+    kvs.fold_pool(pool, tail, tables, torch.zeros_like(ff), ff, coeffs,
+                  int(ff.max()))
+    per, w = (NB + 1) // n, C // n
+    shards = [(pool["k"][:, r * per:(r + 1) * per].clone(),
+               pool["v"][:, r * per:(r + 1) * per].clone(),
+               tail[..., r * w:(r + 1) * w, :, :].clone()) for r in range(n)]
+    counters = (tail_fold, tail_products, tail_select, paged_attention,
+                count_sketch)
+    for c in counters:
+        c.launches = 0
+    got_tails = ranks.run_ranks([kvs.fold_pool_rank(
+        sk, sv, r * per, NB, st, r * w, C, tables, ff, fl, coeffs, 32)
+        for r, (sk, sv, st) in enumerate(shards)])
+    fold_launches = tail_fold.launches
+    torch.cuda.synchronize()
+    kvs.fold_pool(pool, tail, tables, ff, fl, coeffs, 32)
+    fold_bits = all(torch.equal(t, tail[..., r * w:(r + 1) * w, :, :])
+                    for r, t in enumerate(got_tails))
+    fb = ff + fl
+    sketch = {"coeffs": coeffs, "pos_hash": kvs.pos_buckets_signs(
+        coeffs, kvs.pos_domain(LONG["max_seq"], 16), C)}
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, kn, vn = ly._project_qkv_rope(p, x, cfg, pos)
+    qg = q.reshape(B, 1, K, H // K, hd)
+    estimates = []
+    select = kops.tail_select_op
+
+    def spy(prod, *a, **k):
+        out = select(prod, *a, **k)
+        estimates.append(out)
+        return out
+
+    kops.tail_select_op = spy
+    try:
+        outs = ranks.run_ranks([ly.paged_attention_rank(
+            qg, kn, vn, pos, tables.long(), fb, sk[0], sv[0], r * per, NB,
+            None, (st[0, 0], st[1, 0]), sketch, r * w,
+            ly.padded_rows(H // K))
+            for r, (sk, sv, st) in enumerate(zip(
+                [s[0] for s in shards], [s[1] for s in shards], got_tails))])
+    finally:
+        kops.tail_select_op = select
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    launches["tail_fold"] = fold_launches
+    # the unsharded step: the rows written, the two spans merged (as
+    # layers.paged_attend, before its cast to the activations' dtype)
+    at = (torch.gather(tables.long(), 1, pos // 16), pos % 16)
+    pool["k"][0].index_put_(at, kn)
+    pool["v"][0].index_put_(at, vn)
+    m_e, l_e, acc_e = kops.paged_attention_op(
+        qg, pool["k"][0, :NB], pool["v"][0, :NB], tables, pos[:, 0].to(
+            torch.int32).contiguous(), fb)
+    m_t, l_t, acc_t = kvs.tail_attend(
+        qg, tail[0, 0], tail[1, 0], coeffs, sketch["pos_hash"], fb,
+        1.0 / hd ** 0.5, slab=ly.padded_rows(H // K))
+    want = kvs.two_span_output(
+        fb, acc_e / torch.clamp(l_e, min=1e-30)[..., None], m_e, l_e, acc_e,
+        m_t, l_t, acc_t)
+    est = tail_scores(kvs._query_rows(qg), tail[0, 0], coeffs,
+                      sketch["pos_hash"].bk.shape[1])
+    torch.cuda.synchronize()
+    est_bits = len(estimates) == n and all(torch.equal(e, est)
+                                           for e in estimates)
+    # the tail span alone (f32 throughout): the ranks' statistics against
+    # the unsharded ones, m and l bitwise (the same estimates), acc within
+    # 1e-4 x max|acc|
+    spans = ranks.run_ranks([kvs.tail_attend_rank(
+        qg, st[0, 0], st[1, 0], coeffs, sketch["pos_hash"], fb,
+        1.0 / hd ** 0.5, r * w, slab=ly.padded_rows(H // K))
+        for r, st in enumerate(got_tails)])
+    ml_bits = all(torch.equal(a[0], m_t) and torch.equal(a[1], l_t)
+                  for a in spans)
+    t_err = max(float((a[2] - acc_t).abs().max()) for a in spans)
+    t_tol = 1e-4 * float(acc_t.abs().max())
+    # the merged output: the exact span's split-KV merge rounds p to bf16
+    # at each rank's running max (kernels/csrc/paged_attention.cu:
+    # numerics), not at the unsharded kernel's; the card reads 1.9e-4 x
+    # max|output| (NVIDIA H100 80GB HBM3), gated at 1e-3 x max|output|
+    err = max(float((o - want).abs().max()) for o in outs)
+    tol = 1e-3 * float(want.abs().max())
+    written = all(torch.equal(s[k_][0], pool[kk][0, r * per:(r + 1) * per])
+                  for r, s in enumerate(shards)
+                  for k_, kk in ((0, "k"), (1, "v")))
+    if not (fold_bits and est_bits and ml_bits and t_err <= t_tol
+            and err <= tol and written) or min(launches.values()) <= 0:
+        fail(f"launch: emulated kv_blocks ranks: fold shards bitwise "
+             f"{fold_bits}, select estimates bitwise {est_bits}, tail m and "
+             f"l bitwise {ml_bits}, tail acc err {t_err:.3g} (tol "
+             f"{t_tol:.3g}), output err {err:.3g} (tol {tol:.3g}), rows "
+             f"written bitwise {written}, launches {launches}")
+    print(f"[launch] emulated kv_blocks ranks: gemma-2b full width, one "
+          f"layer, {B} slots at max_seq {LONG['max_seq']}, window {W}, tails "
+          f"Z {Z} x C {C}, pool of {NB + 1} blocks and the tails split over "
+          f"{n} ranks ({per} blocks, {w} columns each): the decode chunk's "
+          f"fold (up to 32 rows a slot; fold_base {fb.tolist()}) bitwise the "
+          f"unsharded fold's columns on every rank; one decode step: select "
+          f"estimates bitwise the unsharded tail_scores kernel's on every "
+          f"rank; the tail span's m and l bitwise, its acc within "
+          f"{t_err:.3g} (1e-4 x max|acc| = {t_tol:.3g}); attention output "
+          f"(f32, before the cast) within {err:.3g} of the unsharded step's "
+          f"({err / float(want.abs().max()):.3g} of max|output|; gate 1e-3 x"
+          f" max|output| = {tol:.3g}: bf16 p at each rank's running max); "
+          f"new rows written bitwise; launches {launches}; "
+          f"{card()}", flush=True)
+    del params, cache, pool, tail, shards, got_tails, outs, estimates
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+EMULATED_EP_TOKENS = (8, 128)
+
+
+def launch_emulated_ep(dev):
+    """Expert-parallel MoE on ``EMULATED_RANKS`` emulated ranks in this
+    process: one deepseek-moe-16b layer at full width (64 experts, 16 a
+    rank), forward and backward at 8 x 128 tokens, each rank routing every
+    token and running its own experts (``moe.moe_rank``), the experts'
+    outputs gathered in rank order before the combine.  Output, aux loss and
+    expert gradients against the gathered form (``moe_ffn`` with all 64):
+    the combine gathers the experts' outputs and each expert's GEMMs are
+    the same launches, so they must agree bitwise; the input's gradient
+    (its experts' shares summed in another order) within GRAD_TOL["bf16"]
+    of max."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import ranks
+    from repro_torch.models import transformer as tf
+    n = EMULATED_RANKS
+    tol = 0.03                     # tests/test_torch_distributed.py GRAD_TOL
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=1)
+    E = cfg.moe.num_experts
+    p = tf.init_params(cfg, seed=SEED + 10, device=dev)["blocks"][0]["moe"]
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    Bt, St = EMULATED_EP_TOKENS
+    x = torch.randn((Bt, St, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    gy = torch.randn((Bt, St, cfg.d_model), generator=gen, device=dev)
+    leaves = moe.EXPERT_LEAVES
+
+    def grads(y, aux, wrt):
+        return torch.autograd.grad((y.float() * gy).sum() + aux, wrt)
+
+    pa = {k: v.clone().requires_grad_(k in leaves) for k, v in p.items()}
+    xa = x.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    want, aux = moe.moe_ffn(pa, xa, cfg, with_aux=True)
+    wg = grads(want, aux, [xa] + [pa[k] for k in leaves])
+    torch.cuda.synchronize()
+    t_gathered = time.perf_counter() - t0
+    ex = {k: p[k].clone().requires_grad_(True) for k in leaves}
+    xb = x.clone().requires_grad_(True)
+    El = E // n
+    t0 = time.perf_counter()
+    bodies = []
+    for r in range(n):
+        lp = {k: v for k, v in p.items() if k not in leaves}
+        lp.update({k: ex[k][r * El:(r + 1) * El] for k in leaves})
+        bodies.append(moe.moe_rank(lp, xb, cfg, with_aux=True,
+                                   expert0=r * El))
+    outs = ranks.run_ranks(bodies)
+    y, a = outs[0]
+    gg = grads(y, a, [xb] + [ex[k] for k in leaves])
+    torch.cuda.synchronize()
+    t_ep = time.perf_counter() - t0
+    rel = lambda got, w: float((got.detach().float() - w.detach().float())
+                               .abs().max() / w.detach().float().abs().max()
+                               .clamp(min=1e-30))
+    out_bits = all(torch.equal(o[0], want) for o in outs)
+    grad_bits = [torch.equal(g_, w_) for g_, w_ in zip(gg[1:], wg[1:])]
+    errs = {"output": max(rel(o[0], want) for o in outs),
+            "dx": rel(gg[0], wg[0])}
+    errs.update({k: rel(g_, w_) for k, g_, w_ in zip(leaves, gg[1:],
+                                                      wg[1:])})
+    aux_bits = all(torch.equal(o[1], aux) for o in outs)
+    if not (out_bits and all(grad_bits) and aux_bits) or errs["dx"] > tol:
+        fail(f"launch: emulated EP ranks: output bitwise {out_bits}, expert "
+             f"gradients bitwise {dict(zip(leaves, grad_bits))}, aux equal "
+             f"{aux_bits}; relative errors {errs} (dx tol {tol})")
+    print(f"[launch] emulated EP ranks: deepseek-moe-16b full width, one "
+          f"layer, {E} experts over {n} ranks ({El} each), {Bt} x {St} "
+          f"tokens, forward and backward: output bitwise the gathered form's "
+          f"{out_bits}, expert gradients bitwise {dict(zip(leaves, grad_bits))}"
+          f"; max |diff| / max of the gathered form: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (dx tol {tol}); aux loss equal; host wall gathered "
+          f"{t_gathered:.3f}"
+          f" s, emulated ranks {t_ep:.3f} s; {card()}", flush=True)
+    del p, pa, ex, outs, wg, gg
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5234,7 +5703,9 @@ def phase_launch(dev):
             mesh = make_mesh((1, 1), ("data", "model"), "cuda")
             pod = make_mesh((1,), ("pod",), "cuda")
             train = launch_train(dev, mesh)
-            launch_emulated_ranks(dev)
+            strided = launch_emulated_ranks(dev)
+            kv_launches = launch_emulated_kv(dev)
+            launch_emulated_ep(dev)
             launch_podwise(dev, pod)
             serve_launches = launch_serve(dev, mesh)
         finally:
@@ -5277,7 +5748,8 @@ def phase_launch(dev):
           f" overlapping {overlapped_phases(_DRYRUN['t0'], ran_s) or 'none'};"
           f" {wait:.1f} s waited for here")
     return {"paged_attention": serve_launches,
-            "sketch_update": train["launches"]}
+            "sketch_update": train["launches"], "kv": kv_launches,
+            "strided": strided}
 
 
 def main() -> None:
@@ -5325,6 +5797,7 @@ def main() -> None:
     lap("phase kernel, paged_attention")
     sk_rows = phase_sketch_kernel(flush)
     fold_rows, score_rows = phase_kv_kernels(flush)
+    form_rows = phase_kv_forms(flush)
     cs_rows, un_rows = phase_cs_kernels(flush)
     held("the kernel phases (the 256 MB flush buffer held)")
     lap("phases kernel (sketch_update), kv, cs")
@@ -5412,7 +5885,10 @@ def main() -> None:
         "library_ms": None,
         # ms, plain_ms and bound_ms are the estimates form's (the plain
         # version's contract); the train path runs the fused form
-        "apply_ms": sk["apply_ms"], "apply_bound_ms": sk["apply_bound_ms"]}]}
+        "apply_ms": sk["apply_ms"], "apply_bound_ms": sk["apply_bound_ms"],
+        # phase launch's emulated FSDP ranks: one rank's strided pieces,
+        # accumulate and step
+        "strided": launch_launches["strided"]}]}
     for name, main, geo, replaces in (
             ("tail_fold", "decode_fold", fold_rows,
              "src/repro/kernels/kv_sketch.py:90"),
@@ -5428,6 +5904,23 @@ def main() -> None:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # the sharded serve path's forms (phase launch's emulated kv_blocks
+    # ranks): the column-range fold, and the products pass on a column
+    # shard with its select pass on the gathered products
+    kv = launch_launches["kv"]
+    for name, replaces, launches, extra in (
+            ("tail_fold_cols", "src/repro/kernels/kv_sketch.py:90",
+             kv["tail_fold"], {}),
+            ("tail_products_cols", "src/repro/kernels/kv_sketch.py:129",
+             kv["tail_products"], {"select_launches": kv["tail_select"]})):
+        r = form_rows[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/kv_sketch.cu",
+            "replaces": replaces, "launches": launches, **extra,
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for name, main, geo, replaces in (
             ("count_sketch", CS_MAIN, cs_rows,
              "src/repro/kernels/count_sketch.py:43"),

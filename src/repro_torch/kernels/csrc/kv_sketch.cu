@@ -28,6 +28,13 @@
 // as a row-by-row sequential fold: the result is bitwise that fold, and
 // the same on every run (no atomics).  The plain model of the tiling is
 // tests/test_torch_kv_sketch.py:tail_fold_tiled_ref.
+//   Column range.  A table split over ranks by its bucket columns (the
+// sharded serve path's tails) holds columns [c0, c0 + Cl) of the C a row
+// hashes against.  A row whose bucket lies outside them is treated as a
+// row past the count (it matches nothing and adds nothing); the others
+// add at bucket - c0.  Each held element so receives the same additions
+// in the same order as in the unsharded fold: a shard is bitwise its
+// columns of that fold.  The unsharded call is the range [0, C).
 //   Bound: bytes.  Each valid row read once (D x 2 B for bf16) and each
 //   touched table row read and written once (D x 4 B each way); about one
 //   flop per byte.  A tile costs one dependent round trip (the gather);
@@ -69,6 +76,12 @@
 //      (decode: 8 slots x 1 row tile x 32 chunks).  Gathering straight
 //      from P in device memory costs one L2 sector per product (on an
 //      H100, 0.149 of 0.235 ms at the 8k chunk prefill).
+//   On a tail split by its bucket columns (the sharded serve path) the
+//   passes run apart: each rank's products of its columns (pass 1 at its
+//   Cl columns), the ranks' products gathered back to C, then pass 2.  A
+//   product depends on its own bucket's row alone, summed over hd in one
+//   order whatever block holds it, so the gathered products, and the
+//   estimates, are bitwise the unsharded call's.
 //   A single fused kernel with the (Z, N, C) products in shared memory
 //   (the TPU's layout) would have to recompute every product in each of
 //   the T tiles the grid needs to fill 132 SMs, and would re-read tail_k
@@ -140,8 +153,8 @@ tail_fold_kernel(const T* __restrict__ rows, const int32_t* __restrict__ pos,
                  const int32_t* __restrict__ counts,
                  float* __restrict__ tail, long long tail_stride,
                  const uint32_t* __restrict__ coeffs, int N, uint32_t C,
-                 int D) {
-  __shared__ uint32_t bk[kFoldTile];
+                 uint32_t c_lo, uint32_t c_n, int D) {
+  __shared__ uint32_t bk[kFoldTile];            // local bucket (- c_lo)
   __shared__ bool neg[kFoldTile];
   __shared__ bool first[kFoldTile];
   __shared__ int next[kFoldTile];
@@ -155,7 +168,7 @@ tail_fold_kernel(const T* __restrict__ rows, const int32_t* __restrict__ pos,
   const uint32_t as = coeffs[4 * z + 2], bs = coeffs[4 * z + 3];
   const T* x = rows + (size_t)g * N * D;
   const int32_t* p = pos + (size_t)g * N;
-  float* t = tail + (size_t)g * tail_stride + (size_t)z * C * D;
+  float* t = tail + (size_t)g * tail_stride + (size_t)z * c_n * D;
   // tile 0's positions (warp 0, one row a lane) and rows are requested
   // with the count: rows past it lie inside the (N, D) block and are
   // never added
@@ -166,16 +179,19 @@ tail_fold_kernel(const T* __restrict__ rows, const int32_t* __restrict__ pos,
   for (int n0 = 0, buf = 0; n0 < n_valid; n0 += kFoldTile, buf ^= 1) {
     const int nt = min(kFoldTile, n_valid - n0);
     if (tid < kFoldTile) {
-      // buckets; rows past the count get distinct values >= 2^31 (C <
-      // 2^31) so they match nothing; then each row's bucket-mates
+      // local buckets; rows past the count or outside the column range
+      // get distinct values >= 2^31 (C < 2^31) so they match nothing and
+      // are no bucket's first row; then each row's bucket-mates
       const uint32_t u = (uint32_t)p_tile;
-      const uint32_t bkt = lane < nt ? sketch::bucket(a, b, u, C)
-                                     : 0x80000000u | lane;
+      const uint32_t loc = lane < nt ? sketch::bucket(a, b, u, C) - c_lo
+                                     : c_n;
+      const bool own = loc < c_n;
+      const uint32_t bkt = own ? loc : 0x80000000u | lane;
       const uint32_t same = __match_any_sync(0xffffffffu, bkt);
       const uint32_t later = same & ~((2u << lane) - 1u);
       bk[lane] = bkt;
       neg[lane] = sketch::negative(as, bs, u);
-      first[lane] = __ffs(same) - 1 == lane;
+      first[lane] = own && __ffs(same) - 1 == lane;
       next[lane] = later ? __ffs(later) - 1 : -1;
       const int n1 = n0 + kFoldTile + lane;      // next tile's position
       if (n1 < N) p_tile = p[n1];
@@ -403,15 +419,17 @@ scores_select_kernel(const float* __restrict__ P,
 }  // namespace
 
 // tail_fold: rows (G, N, D) bf16 (rows_bf16 = 1) or f32, positions (G, N)
-// int32, counts (G,) int32, tail (G, Z, C, D) f32 whose g-th table starts
-// tail_stride floats after the (g-1)-th, coefficients (Z, 4) uint32.  The
-// 16-byte copies need rows and tail 16-byte aligned, D a multiple of 8
-// (bf16 rows) or 4 (f32), and tail_stride a multiple of 4.
+// int32, counts (G,) int32, tail (G, Z, Cl, D) f32 holding bucket columns
+// [c0, c0 + Cl) of C, whose g-th table starts tail_stride floats after the
+// (g-1)-th, coefficients (Z, 4) uint32.  The 16-byte copies need rows and
+// tail 16-byte aligned, D a multiple of 8 (bf16 rows) or 4 (f32), and
+// tail_stride a multiple of 4.
 extern "C" int tail_fold_launch(const void* rows, int rows_bf16,
                                 const void* positions, const void* counts,
                                 void* tail, long long tail_stride,
                                 const void* coeffs, int G, int N, int Z,
-                                long long C, int D, void* stream) {
+                                long long C, long long c0, long long Cl,
+                                int D, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid(G, Z, (D + kFoldCols - 1) / kFoldCols);
   const int32_t* p = static_cast<const int32_t*>(positions);
@@ -421,11 +439,11 @@ extern "C" int tail_fold_launch(const void* rows, int rows_bf16,
   if (rows_bf16)
     tail_fold_kernel<__nv_bfloat16><<<grid, kFoldThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(rows), p, cnt, t, tail_stride, c,
-        N, (uint32_t)C, D);
+        N, (uint32_t)C, (uint32_t)c0, (uint32_t)Cl, D);
   else
     tail_fold_kernel<float><<<grid, kFoldThreads, 0, s>>>(
         static_cast<const float*>(rows), p, cnt, t, tail_stride, c, N,
-        (uint32_t)C, D);
+        (uint32_t)C, (uint32_t)c0, (uint32_t)Cl, D);
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,10 @@ element g, the first ``counts[g]`` rows of ``rows[g]`` (N, D) at absolute
 slice of ``FOLD_COLS`` columns.  ``tail`` may be a strided view
 (the serve path folds one slot's tables out of the stacked per-slot
 tensor): its last three axes must be contiguous, its batch stride is free.
+With ``col0`` and ``cols`` the tables hold bucket columns [col0, col0 +
+Cl) of ``cols`` (a tail split by columns over ranks): rows hash against
+``cols`` and only those landing in the range add, bitwise the range's
+columns of the unsharded fold.
 
 ``tail_scores(q, tail_k, coeffs, T)`` returns the median-of-rows score
 estimates (B, K, N, T) f32 for queries q (B, K, N, hd) f32 against the
@@ -20,16 +24,25 @@ in 3xTF32 (f32-level error), in decode tiles of 16 query rows x 64
 buckets when N <= 16 and 64 x 64 tiles otherwise; hd must be a multiple
 of 4.
 
-Both check what the kernels take and raise on anything else, allocate
+Its two passes are also wrappers of their own, for a tail split by
+columns over ranks (serve/kv_sketch.py:tail_attend_rank):
+``tail_products(q, tail_k)`` gives the bucket products (B, K, Z, N, Cl)
+f32 of a column shard's tables (B, Z, Cl, K, hd), and ``tail_select(prod,
+coeffs, T)`` the estimates (B, K, N, T) from products gathered back to
+all C columns, bitwise ``tail_scores`` of the whole tables.
+
+All check what the kernels take and raise on anything else, allocate
 outputs and scratch, launch on the current stream and raise if a launch
 was refused.  They take only CUDA tensors; ``kernels/ops.py`` sends CPU
 tensors to the plain versions.  ``tail_fold.launches`` counts fold
 launches (one per call); ``tail_scores.launches`` counts score launches
-(two per call: products, then select).
+(two per call: products, then select); ``tail_products.launches`` and
+``tail_select.launches`` one per call each.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -49,7 +62,7 @@ def _lib() -> ctypes.CDLL:
         return lib
     lib.tail_fold_launch.argtypes = [
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ptr, _c_int,
-        _c_int, _c_int, _c_ll, _c_int, _c_ptr]
+        _c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_int, _c_ptr]
     lib.tail_fold_launch.restype = _c_int
     lib.tail_scores_products_launch.argtypes = [
         _c_ptr, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_ptr]
@@ -87,9 +100,11 @@ def _raise_on(err: int, what: str) -> None:
 
 def tail_fold(rows: torch.Tensor, positions: torch.Tensor,
               counts: torch.Tensor, tail: torch.Tensor,
-              coeffs: torch.Tensor) -> torch.Tensor:
+              coeffs: torch.Tensor, col0: int = 0,
+              cols: Optional[int] = None) -> torch.Tensor:
     """Fold rows (G, N, D) bf16/f32 at positions (G, N) int32, the first
-    counts[g] (G,) int32 of each, into tail (G, Z, C, D) f32 in place.
+    counts[g] (G,) int32 of each, into tail (G, Z, Cl, D) f32 in place:
+    bucket columns [col0, col0 + Cl) of ``cols`` (default: all Cl).
     Returns ``tail``."""
     dev = tail.device
     _on(dev, "tail_fold", rows=rows, positions=positions, counts=counts,
@@ -121,26 +136,28 @@ def tail_fold(rows: torch.Tensor, positions: torch.Tensor,
         if t.dtype != torch.int32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 {shape}")
-    _rows_ok(Z, C, coeffs)
+    cols = C if cols is None else int(cols)
+    col0 = int(col0)
+    if not 0 <= col0 <= col0 + C <= cols:
+        raise ValueError(f"columns [{col0}, {col0 + C}) outside [0, {cols})")
+    _rows_ok(Z, cols, coeffs)
     if G == 0 or N == 0:
         return tail
     cf = coeff_bits(coeffs)
     err = _lib().tail_fold_launch(
         rows.data_ptr(), int(rows.dtype == torch.bfloat16),
         positions.data_ptr(), counts.data_ptr(), tail.data_ptr(),
-        tail.stride(0), cf.data_ptr(), G, N, Z, C, D,
+        tail.stride(0), cf.data_ptr(), G, N, Z, cols, col0, C, D,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "tail_fold")
     tail_fold.launches += 1
     return tail
 
 
-def tail_scores(q: torch.Tensor, tail_k: torch.Tensor, coeffs: torch.Tensor,
-                T: int) -> torch.Tensor:
-    """Median-of-rows score estimates (B, K, N, T) f32; see the module
-    docstring."""
+def _products(q: torch.Tensor, tail_k: torch.Tensor) -> torch.Tensor:
+    """Checks and pass 1: products (B, K, Z, N, C) f32."""
     dev = q.device
-    _on(dev, "tail_scores", tail_k=tail_k, coeffs=coeffs)
+    _on(dev, "tail_scores", tail_k=tail_k)
     if q.ndim != 4 or tail_k.ndim != 5:
         raise ValueError(f"q must be (B, K, N, hd) and tail_k (B, Z, C, K, "
                          f"hd); got {tuple(q.shape)} / "
@@ -153,36 +170,98 @@ def tail_scores(q: torch.Tensor, tail_k: torch.Tensor, coeffs: torch.Tensor,
     for name, t in (("q", q), ("tail_k", tail_k)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-    _rows_ok(Z, C, coeffs)
+    if not 1 <= Z <= MAX_ROWS:
+        raise ValueError(f"{Z} hash rows; the kernels take 1 to {MAX_ROWS}")
+    if not 1 <= C < 2 ** 31:
+        raise ValueError(f"{C} columns")
     if hd % 4 or q.data_ptr() % 16 or tail_k.data_ptr() % 16:
         raise ValueError(f"the products copy 16 bytes at a time: hd ({hd}) "
                          f"must be a multiple of 4 and q and tail_k 16-byte "
                          f"aligned")
+    if B * K * Z > 65535 or -(-N // 16) > 65535:
+        raise ValueError(f"grid out of range for B*K*Z={B * K * Z}, N={N}")
+    prod = torch.empty((B, K, Z, N, C), dtype=torch.float32, device=dev)
+    if B * K * N == 0:
+        return prod
+    _raise_on(_lib().tail_scores_products_launch(
+        q.data_ptr(), tail_k.data_ptr(), prod.data_ptr(), B, K, N, Z, C, hd,
+        torch.cuda.current_stream(dev).cuda_stream), "tail_scores products")
+    return prod
+
+
+def _select(prod: torch.Tensor, coeffs: torch.Tensor,
+            T: int) -> torch.Tensor:
+    """Checks and pass 2: estimates (B, K, N, T) f32 from products
+    (B, K, Z, N, C)."""
+    dev = prod.device
+    _on(dev, "tail_scores", coeffs=coeffs)
+    if prod.ndim != 5:
+        raise ValueError(f"products must be (B, K, Z, N, C); got "
+                         f"{tuple(prod.shape)}")
+    B, K, Z, N, C = prod.shape
+    if prod.dtype != torch.float32 or not prod.is_contiguous():
+        raise ValueError("products must be contiguous float32")
+    _rows_ok(Z, C, coeffs)
     T = int(T)
     if Z * C * 4 > SELECT_SMEM:
         raise ValueError(f"the select stages a query row's {Z} x {C} "
                          f"products in shared memory: at most "
                          f"{SELECT_SMEM} bytes")
-    if B * K * Z > 65535 or -(-N // 8) > 65535 or T < 1:
-        raise ValueError(f"grid out of range for B*K*Z={B * K * Z}, N={N}, "
-                         f"T={T}")
+    if B * K > 65535 or -(-N // 8) > 65535 or T < 1:
+        raise ValueError(f"grid out of range for B*K={B * K}, N={N}, T={T}")
     out = torch.empty((B, K, N, T), dtype=torch.float32, device=dev)
     if B * K * N == 0:
         return out
-    prod = torch.empty((B * K, Z, N, C), dtype=torch.float32, device=dev)
     cf = coeff_bits(coeffs)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib.tail_scores_products_launch(
-        q.data_ptr(), tail_k.data_ptr(), prod.data_ptr(), B, K, N, Z, C, hd,
-        stream), "tail_scores products")
-    tail_scores.launches += 1
-    _raise_on(lib.tail_scores_select_launch(
+    _raise_on(_lib().tail_scores_select_launch(
         prod.data_ptr(), cf.data_ptr(), out.data_ptr(), B * K, N, Z, C, T,
-        stream), "tail_scores select")
-    tail_scores.launches += 1
+        torch.cuda.current_stream(dev).cuda_stream), "tail_scores select")
+    return out
+
+
+def tail_scores(q: torch.Tensor, tail_k: torch.Tensor, coeffs: torch.Tensor,
+                T: int) -> torch.Tensor:
+    """Median-of-rows score estimates (B, K, N, T) f32; see the module
+    docstring."""
+    _on(q.device, "tail_scores", tail_k=tail_k, coeffs=coeffs)
+    if tail_k.ndim == 5:
+        # the select's limits, checked before the products launch
+        _rows_ok(tail_k.shape[1], tail_k.shape[2], coeffs)
+        if tail_k.shape[1] * tail_k.shape[2] * 4 > SELECT_SMEM:
+            raise ValueError(f"the select stages a query row's "
+                             f"{tail_k.shape[1]} x {tail_k.shape[2]} "
+                             f"products in shared memory: at most "
+                             f"{SELECT_SMEM} bytes")
+    if int(T) < 1:
+        raise ValueError(f"T={T}")
+    prod = _products(q, tail_k)
+    out = _select(prod, coeffs, T)
+    if out.numel():
+        tail_scores.launches += 2
+    return out
+
+
+def tail_products(q: torch.Tensor, tail_k: torch.Tensor) -> torch.Tensor:
+    """The bucket products (B, K, Z, N, Cl) f32 of queries q (B, K, N, hd)
+    f32 against one column shard's key tables tail_k (B, Z, Cl, K, hd) f32
+    (``tail_scores``' pass 1)."""
+    prod = _products(q, tail_k)
+    if prod.numel():
+        tail_products.launches += 1
+    return prod
+
+
+def tail_select(prod: torch.Tensor, coeffs: torch.Tensor,
+                T: int) -> torch.Tensor:
+    """Median-of-rows estimates (B, K, N, T) f32 from the products
+    (B, K, Z, N, C) of all C columns (``tail_scores``' pass 2)."""
+    out = _select(prod, coeffs, T)
+    if out.numel():
+        tail_select.launches += 1
     return out
 
 
 tail_fold.launches = 0
 tail_scores.launches = 0
+tail_products.launches = 0
+tail_select.launches = 0

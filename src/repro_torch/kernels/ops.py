@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.count_sketch import Index, count_sketch, unsketch
-from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
+from repro_torch.kernels.kv_sketch import (tail_fold, tail_products,
+                                           tail_scores, tail_select)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.sketch_update import (accumulate, sketch_apply,
                                               sketch_update, step)
@@ -158,14 +159,17 @@ def sketch_apply_op(pieces: Sequence[Tuple[torch.Tensor, int]],
 def tail_fold_op(rows: torch.Tensor, positions: torch.Tensor,
                  counts: torch.Tensor, tail: torch.Tensor,
                  coeffs: torch.Tensor,
-                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+                 use_kernel: Optional[bool] = None, col0: int = 0,
+                 cols: Optional[int] = None) -> torch.Tensor:
     """Fold the first ``counts[g]`` rows of each ``rows[g]`` into the
-    tables ``tail[g]``, in place (kernels/kv_sketch.py:tail_fold).
-    ``use_kernel`` as for ``paged_attention_op``, decided by the tables'
-    device."""
+    tables ``tail[g]``, in place (kernels/kv_sketch.py:tail_fold); with
+    ``col0`` / ``cols`` the tables are bucket columns [col0, col0 + Cl)
+    of ``cols``.  ``use_kernel`` as for ``paged_attention_op``, decided
+    by the tables' device."""
     if _resolve(use_kernel, tail.device, "use_kernel"):
-        return tail_fold(rows, positions, counts, tail, coeffs)
-    return ref.tail_fold_ref(rows, positions, counts, tail, coeffs)
+        return tail_fold(rows, positions, counts, tail, coeffs, col0, cols)
+    return ref.tail_fold_ref(rows, positions, counts, tail, coeffs, col0,
+                             cols)
 
 
 def tail_scores_op(q: torch.Tensor, tail_k: torch.Tensor,
@@ -178,6 +182,28 @@ def tail_scores_op(q: torch.Tensor, tail_k: torch.Tensor,
     if _resolve(use_kernel, q.device, "use_kernel"):
         return tail_scores(q, tail_k, coeffs, T)
     return ref.tail_scores_ref(q, tail_k, coeffs, T)
+
+
+def tail_products_op(q: torch.Tensor, tail_k: torch.Tensor,
+                     use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """The bucket products (B, K, Z, N, Cl) of queries (B, K, N, hd)
+    against a column shard's key tables (B, Z, Cl, K, hd)
+    (kernels/kv_sketch.py:tail_products, ``tail_scores``' first pass).
+    ``use_kernel`` as for ``paged_attention_op``."""
+    if _resolve(use_kernel, q.device, "use_kernel"):
+        return tail_products(q, tail_k)
+    return ref.tail_products_ref(q, tail_k)
+
+
+def tail_select_op(prod: torch.Tensor, coeffs: torch.Tensor, T: int,
+                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Median-of-rows estimates (B, K, N, T) from the products
+    (B, K, Z, N, C) of all C columns (kernels/kv_sketch.py:tail_select,
+    ``tail_scores``' second pass).  ``use_kernel`` as for
+    ``paged_attention_op``."""
+    if _resolve(use_kernel, prod.device, "use_kernel"):
+        return tail_select(prod, coeffs, T)
+    return ref.tail_select_ref(prod, coeffs, T)
 
 
 def count_sketch_op(x: torch.Tensor, h: torch.Tensor, s: torch.Tensor,

@@ -247,26 +247,37 @@ def sketch_apply_ref(pieces: Iterable[tuple],
 
 def tail_fold_ref(rows: torch.Tensor, positions: torch.Tensor,
                   counts: torch.Tensor, tail: torch.Tensor,
-                  coeffs: torch.Tensor) -> torch.Tensor:
+                  coeffs: torch.Tensor, col0: int = 0,
+                  cols: Optional[int] = None) -> torch.Tensor:
     """In place: ``tail[g, z, h_z(p)] += s_z(p) * rows[g, n]`` for the
     first ``counts[g]`` rows n of each batch element, p = positions[g, n].
     rows (G, N, D); positions (G, N) int; counts (G,) int; tail
-    (G, Z, C, D) f32 (may be a strided view); coeffs (Z, 4) int64.
+    (G, Z, Cl, D) f32 (may be a strided view) holding bucket columns
+    [col0, col0 + Cl) of ``cols`` (default: all of them), the rows hashed
+    against ``cols`` and those landing outside the range dropped, so a
+    column shard's fold is bitwise its columns of the whole one (each
+    kept term is added in the same order); coeffs (Z, 4) int64.
     Returns ``tail``."""
     G, N, D = rows.shape
     _, Z, C, _ = tail.shape
-    bk, sg = row_buckets_signs(coeffs, positions.reshape(-1), C,
+    cols = C if cols is None else int(cols)
+    bk, sg = row_buckets_signs(coeffs, positions.reshape(-1), cols,
                                signed=True)                    # (Z, G*N)
     valid = (torch.arange(N, device=rows.device)[None, :]
              < counts.to(rows.device)[:, None]).reshape(1, G * N)
     sg = torch.where(valid, sg, torch.zeros_like(sg))
     g = torch.arange(G, device=rows.device).repeat_interleave(N)
     z = torch.arange(Z, device=rows.device)[:, None]
-    flat = ((g[None, :] * Z + z) * C + bk).reshape(-1)          # (Z*G*N,)
-    vals = sg[:, :, None] * rows.reshape(1, G * N, D).float()
+    local = bk.long() - int(col0)
+    keep = ((local >= 0) & (local < C)).reshape(-1)
+    flat = ((g[None, :] * Z + z) * C + local).reshape(-1)       # (Z*G*N,)
+    vals = (sg[:, :, None] * rows.reshape(1, G * N, D).float()).reshape(
+        -1, D)
+    if C != cols:
+        flat, vals = flat[keep], vals[keep]
     delta = torch.zeros((G * Z * C, D), dtype=torch.float32,
                         device=rows.device)
-    delta.index_add_(0, flat, vals.reshape(-1, D))
+    delta.index_add_(0, flat, vals)
     tail.add_(delta.view(G, Z, C, D))
     return tail
 
@@ -299,14 +310,32 @@ def tail_scores_ref(q: torch.Tensor, tail_k: torch.Tensor,
                     coeffs: torch.Tensor, T: int) -> torch.Tensor:
     """Median-of-rows score estimates ``out[b, k, n, t] = median_z
     s_z(t) * q[b, k, n] . tail_k[b, z, h_z(t), k]`` for t in [0, T).
-    q (B, K, N, hd) f32; tail_k (B, Z, C, K, hd) f32 -> (B, K, N, T)."""
-    C = tail_k.shape[2]
-    qa = torch.einsum("bknh,bzckh->zbknc", q.float(), tail_k.float())
+    q (B, K, N, hd) f32; tail_k (B, Z, C, K, hd) f32 -> (B, K, N, T):
+    ``tail_select_ref`` of ``tail_products_ref``."""
+    return tail_select_ref(tail_products_ref(q, tail_k), coeffs, T)
+
+
+def tail_products_ref(q: torch.Tensor, tail_k: torch.Tensor
+                      ) -> torch.Tensor:
+    """The bucket products ``P[b, k, z, n, c] = q[b, k, n] . tail_k[b, z,
+    c, k]``: q (B, K, N, hd); tail_k (B, Z, C, K, hd), all C columns or a
+    column shard -> (B, K, Z, N, C) f32.  One (N, hd) x (hd, C) product
+    a (b, k, z); each column's sum over hd does not depend on the others,
+    so a shard's products are bitwise its columns of the whole ones."""
+    tk = tail_k.float().permute(0, 3, 1, 4, 2)                # (B,K,Z,hd,C)
+    return torch.matmul(q.float()[:, :, None], tk)
+
+
+def tail_select_ref(prod: torch.Tensor, coeffs: torch.Tensor,
+                    T: int) -> torch.Tensor:
+    """Median-of-rows estimates (B, K, N, T) from the products (B, K, Z,
+    N, C) of all C columns: ``median_z s_z(t) * P[b, k, z, n, h_z(t)]``."""
+    C = prod.shape[-1]
     bk, sg = row_buckets_signs(
-        coeffs, torch.arange(T, dtype=torch.int64, device=q.device), C,
+        coeffs, torch.arange(T, dtype=torch.int64, device=prod.device), C,
         signed=True)                                            # (Z, T)
-    est = torch.stack([qa[z][..., bk[z].long()] * sg[z]
-                       for z in range(qa.shape[0])])            # (Z,B,K,N,T)
+    est = torch.stack([prod[:, :, z][..., bk[z].long()] * sg[z]
+                       for z in range(prod.shape[2])])          # (Z,B,K,N,T)
     return median_rows(est)
 
 

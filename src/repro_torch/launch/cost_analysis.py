@@ -32,7 +32,10 @@ Cost model (per device, this rank's shards):
                      once (storages tracked from allocation to release)
 
 ``CommDebugMode`` counts the collectives alongside, as a cross-check of
-the walk's own count.
+the walk's own count.  ``CostMode.collectives`` lists each collective
+with its group and buffer shapes, and the port's calling function
+(``_site``): the record that shows which leaves a step gathers over
+which mesh axes.
 
 Roofline constants: the H100 SXM's (NVIDIA datasheet peaks, not
 measurements): dense bf16 989 TFLOP/s and 3.35 TB/s HBM3, as
@@ -155,6 +158,8 @@ class CostMode(TorchDispatchMode):
         self.ici_bytes = 0.0
         self.dcn_bytes = 0.0
         self.per_op: Dict[str, float] = defaultdict(float)
+        # (op, group ranks, input shapes, output shapes, calling site)
+        self.collectives: list = []
         self.live = 0
         self.peak = 0
         self._held: Dict[int, int] = {}
@@ -206,6 +211,10 @@ class CostMode(TorchDispatchMode):
                 self.dcn_bytes += 2.0 * ob * (pods - 1) / pods / L
             self.per_op[coll] += traffic
             self.per_op[coll + "_count"] += 1
+            self.collectives.append((coll, tuple(ranks),
+                                     [tuple(t.shape) for t in flat_in],
+                                     [tuple(t.shape) for t in flat_out],
+                                     _site()))
             rec["coll"] = traffic
         elif not (func.is_view or name in _NO_BYTES):
             from torch.utils.flop_counter import flop_registry

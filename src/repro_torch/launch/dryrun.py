@@ -131,7 +131,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     """One cell's record.  ``layers`` / ``batch`` / ``seq`` cut the config
     and the shape, ``mesh_shape`` replaces the production mesh's (same
     axes) — the card's check at a mesh of one; ``sites`` keeps the
-    walk's per-op and per-function tables (cost_debug.py).  ``zero1`` is
+    walk's per-op and per-function tables (cost_debug.py) and its list of
+    collectives (op, group ranks, shapes, site).  ``zero1`` is
     accepted and ignored, as in the reference."""
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.distributed.tensor.experimental import implicit_replication
@@ -255,6 +256,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if sites:
         cell["by_op"] = {k: dict(v) for k, v in cm.by_op.items()}
         cell["by_site"] = {k: dict(v) for k, v in cm.by_site.items()}
+        cell["collective_list"] = [list(c) for c in cm.collectives]
     return cell
 
 

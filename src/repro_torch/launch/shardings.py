@@ -89,10 +89,17 @@ def select_strategy(cfg: ModelConfig, kind: str, multi_pod: bool,
     return "fsdp_seq"
 
 
+def expert_parallel(cfg: ModelConfig) -> bool:
+    """The reference's rule: a moe config's experts are split over
+    ``model`` (expert parallelism) when E is a multiple of the model
+    axis.  Tests on a narrower mesh replace this function."""
+    return bool(cfg.moe) and cfg.moe.num_experts % MODEL_AXIS == 0
+
+
 def make_rules(cfg: ModelConfig, kind: str, long_context: bool,
                multi_pod: bool, global_batch: int = 0
                ) -> Tuple[Dict[str, MeshAxes], str]:
-    ep = bool(cfg.moe) and cfg.moe.num_experts % MODEL_AXIS == 0
+    ep = expert_parallel(cfg)
     if kind == "decode":
         return decode_rules(multi_pod, long_context), "tp"
     strategy = select_strategy(cfg, kind, multi_pod, global_batch)
@@ -139,7 +146,7 @@ def _fsdp_leaf_spec(name: str, leaf: torch.Tensor, L: int,
     dropped."""
     shape = tuple(leaf.shape)
     nbytes = _nbytes(leaf) * max(L, 1)
-    ep = bool(cfg.moe) and cfg.moe.num_experts % MODEL_AXIS == 0
+    ep = expert_parallel(cfg)
     spec: list = [None] * len(shape)
     if name.startswith("r") and len(shape) == 3 and shape[0] <= 64:
         # sLSTM recurrent gate matrices (H, hd, hd), read inside the time
@@ -174,8 +181,7 @@ def _fsdp_leaf_spec(name: str, leaf: torch.Tensor, L: int,
 def _tp_leaf_spec(name: str, leaf: torch.Tensor, cfg: ModelConfig) -> Spec:
     inner = leaf.ndim
     m = v = "model"
-    E = cfg.moe.num_experts if cfg.moe else 0
-    expert_parallel = E > 0 and E % MODEL_AXIS == 0
+    ep = expert_parallel(cfg)
     base: Optional[tuple] = None
     if name == "embed":
         base = (v, None)
@@ -191,9 +197,9 @@ def _tp_leaf_spec(name: str, leaf: torch.Tensor, cfg: ModelConfig) -> Spec:
     elif name in ("bq", "bk", "bv", "conv_bx", "conv_b"):
         base = (m,)
     elif name in ("we_gate", "we_up"):
-        base = (m, None, None) if expert_parallel else (None, None, m)
+        base = (m, None, None) if ep else (None, None, m)
     elif name == "we_down":
-        base = (m, None, None) if expert_parallel else (None, m, None)
+        base = (m, None, None) if ep else (None, m, None)
     elif name in ("conv_wx", "conv_w"):
         base = (None, m)
     elif name in ("dt_bias", "A_log", "D") and inner == 1:

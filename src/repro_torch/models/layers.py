@@ -43,10 +43,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models.ranks import Collective, mesh_collect, run
 from repro_torch.models.sharding import (current_rules, entry_axes,
                                          from_local, gathered, is_dtensor,
                                          local_sum_mean, norm_spec, placed,
-                                         replicate, rewrap, shard,
+                                         placements, rewrap, shard,
                                          single_device_mesh, to_local,
                                          unwrap)
 
@@ -205,9 +206,8 @@ def paged_attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qg, tail[0], tail[1], sketch["coeffs"], sketch["pos_hash"],
             fold_base, 1.0 / math.sqrt(qg.shape[-1]), use_kernel=use_kernel,
             slab=tail_slab)
-        merged = kvs.merge_spans(m_e, l_e, acc_e, m_t, l_t, acc_t)
-        o = torch.where((fold_base > 0)[:, None, None, None, None], merged,
-                        o)
+        o = kvs.two_span_output(fold_base, o, m_e, l_e, acc_e, m_t, l_t,
+                                acc_t)
     return o.permute(0, 3, 1, 2, 4).to(qg.dtype)
 
 
@@ -240,18 +240,18 @@ def paged_self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``sketch`` add the folded span (see ``paged_attend``).  Pools are
     (NB + 1, bs, K, hd) with the sink last.  Returns (B, S, d).
 
-    DTensor pools: on a one-device mesh the layer runs on the local
-    tensors (the card's kernels, bitwise the unsharded layer); on a
-    larger mesh as ``_paged_self_attention_sharded``."""
+    DTensor pools (and tails): on a one-device mesh the layer runs on the
+    local tensors (the card's kernels, bitwise the unsharded layer); on a
+    larger mesh as ``_paged_self_attention_sharded``: the pool split by
+    blocks and the tail by bucket columns over ``kv_blocks``, both by
+    slots over ``batch``, for decode, verify and chunk rows alike."""
     if is_dtensor(pool_k):
         mesh = single_device_mesh(pool_k)
         if mesh is None:
-            if tail is not None:
-                raise NotImplementedError(
-                    "two-span (sketched) attention on a sharded pool")
             return _paged_self_attention_sharded(p, x, cfg, pool_k, pool_v,
                                                  positions, tables,
-                                                 fold_base, use_kernel, slab)
+                                                 fold_base, use_kernel, slab,
+                                                 tail, sketch)
         return rewrap(paged_self_attention(
             *unwrap((p, x, cfg, pool_k, pool_v, positions, tables,
                      fold_base, use_kernel, tail, sketch, slab))), mesh)
@@ -304,21 +304,68 @@ def put_rows_(local: torch.Tensor, idx: Tuple[torch.Tensor, ...],
     bits.index_put_(idx, delta, accumulate=True)
 
 
-def _combine_spans(mesh, spec, axes, m, l, acc):
-    """Merge split-KV statistics over the mesh ``axes`` that split the
-    keys: the max of m, and l and acc rescaled to it and summed.  m, l
-    (B, K, R, S) and acc (B, K, R, S, hd) are this rank's, its rows
-    placed as ``spec``'s leading entry."""
-    if not axes:
-        return m, l, acc
-
-    def reduce(t, op):
-        sp = spec[:t.ndim]
-        return to_local(replicate(from_local(t, mesh, sp, axes, op)), sp)
-
-    mg = reduce(m, "max")
+def merge_split_stats(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
+    """Merge split-KV statistics over the ranks that split the keys, as a
+    body of models/ranks.py: the max of m (a "max"), and l and acc
+    rescaled to it and summed (two "sum"s).  m, l (B, K, R, S) and acc
+    (B, K, R, S, hd) are this rank's, its rows on dim 0."""
+    mg = yield Collective("max", m)
     corr = torch.exp(m - mg)
-    return mg, reduce(l * corr, "sum"), reduce(acc * corr[..., None], "sum")
+    l = yield Collective("sum", l * corr)
+    acc = yield Collective("sum", acc * corr[..., None])
+    return mg, l, acc
+
+
+def paged_attention_rank(ql: torch.Tensor, kl: torch.Tensor,
+                         vl: torch.Tensor, pos: torch.Tensor,
+                         tables: torch.Tensor, fold_base: torch.Tensor,
+                         pool_k: torch.Tensor, pool_v: torch.Tensor,
+                         lo: int, NB: int, use_kernel: Optional[bool],
+                         tail: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                         sketch: Optional[dict] = None, col0: int = 0,
+                         tail_slab: Optional[int] = None):
+    """One rank's attention over a pool split by blocks, as a body of
+    models/ranks.py whose collectives run over the ranks that split the
+    blocks (and the tail's columns).  ql (B, S, K, R, hd), kl / vl
+    (B, S, K, hd), pos / tables / fold_base: this rank's B slots' rows;
+    pool_k / pool_v: its (n, bs, K, hd) blocks [lo, lo + n) of the NB + 1
+    (the sink last); tail: its (B, Z, Cl, K, hd) k and v tables, bucket
+    columns [col0, col0 + Cl).
+
+    The rank writes the new rows whose block it holds (``put_rows_``),
+    attends its queries to those blocks through
+    ``kops.paged_attention_op`` (the tables remapped to local block ids,
+    the others' blocks dead entries) and merges the ranks' (m, l, acc)
+    (a "max" and two "sum"s); with a tail, the folded span's statistics
+    come from ``kv_sketch.tail_attend_rank`` and merge with the exact
+    span's as in ``paged_attend``.  Returns o (B, K, R, S, hd) f32."""
+    n, bs = pool_k.shape[0], pool_k.shape[1]
+    nb_slot = tables.shape[1]
+    blk = torch.div(pos, bs, rounding_mode="floor")
+    phys = torch.gather(tables, 1, blk.clamp(max=nb_slot - 1))
+    phys = torch.where(blk < nb_slot, phys, NB)
+    ours = (phys >= lo) & (phys < lo + n)
+    idx = ((phys - lo).clamp(0, n - 1), pos % bs)
+    put_rows_(pool_k, idx, ours, kl)
+    put_rows_(pool_v, idx, ours, vl)
+    # attend: the blocks this rank holds; the sink and the others' are
+    # dead entries (n)
+    held = (tables >= lo) & (tables < lo + n) & (tables < NB)
+    local = torch.where(held, tables - lo, n).to(torch.int32)
+    fb = fold_base.to(torch.int32)
+    m, l, acc = kops.paged_attention_op(
+        ql, pool_k, pool_v, local, pos[:, 0].to(torch.int32).contiguous(),
+        fb, use_kernel=use_kernel)
+    mg, l, acc = yield from merge_split_stats(m, l, acc)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]            # (B,K,R,S,hd)
+    if tail is None:
+        return o
+    from repro_torch.serve import kv_sketch as kvs
+    m_t, l_t, acc_t = yield from kvs.tail_attend_rank(
+        ql, tail[0], tail[1], sketch["coeffs"], sketch["pos_hash"], fb,
+        1.0 / math.sqrt(ql.shape[-1]), col0, use_kernel, tail_slab)
+    return kvs.two_span_output(fb, o, mg, l, acc, m_t, l_t, acc_t)
 
 
 def _paged_self_attention_sharded(p: dict, x: torch.Tensor,
@@ -328,16 +375,19 @@ def _paged_self_attention_sharded(p: dict, x: torch.Tensor,
                                   tables: torch.Tensor,
                                   fold_base: torch.Tensor,
                                   use_kernel: Optional[bool],
-                                  slab: Optional[int]) -> torch.Tensor:
+                                  slab: Optional[int],
+                                  tail: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor]] = None,
+                                  sketch: Optional[dict] = None
+                                  ) -> torch.Tensor:
     """``paged_self_attention`` on a pool split over its block axis (the
-    rules' ``kv_blocks``: split-KV) with its rows split over ``batch``.
-    The projections run as DTensor ops; each rank then writes the new
-    rows whose block it holds (``put_rows_``), attends its slots'
-    queries to the blocks it holds through ``kops.paged_attention_op``
-    on its pool shard (the tables remapped to local block ids, the other
-    ranks' blocks dead entries), and the ranks merge the kernel's
-    (m, l, acc) (``_combine_spans``).  The batch and block axes must not
-    overlap."""
+    rules' ``kv_blocks``: split-KV) with its rows split over ``batch``,
+    and a tail (if any) split by bucket columns over ``kv_blocks`` and by
+    slots over ``batch`` (launch/shardings.py:_tail_spec).  The
+    projections run as DTensor ops; each rank then runs
+    ``paged_attention_rank`` on its slots, blocks and columns, its
+    collectives over the ``kv_blocks`` axes.  The batch and block axes
+    must not overlap."""
     B, S = positions.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -355,32 +405,24 @@ def _paged_self_attention_sharded(p: dict, x: torch.Tensor,
             t = from_local(t, mesh, (None,) * t.ndim)
         return to_local(t, sp)
 
-    ql = mine(q, rs[:4]).reshape(-1, S, K, H // K, hd)
-    kl, vl = mine(kn, rs[:4]), mine(vn, rs[:4])
-    pos = mine(positions, rs[:2]).long()
-    tl = mine(tables, rs[:2]).long()
-    fb = mine(fold_base, rs[:1])
-    pk, pv = pool_k.to_local(), pool_v.to_local()
-    NB, bs = pool_k.shape[0] - 1, pool_k.shape[1]
-    nb_slot = tl.shape[1]
-    lo, n = _local_range(pool_k, 0)
-    # write: the new rows whose block this rank holds
-    blk = torch.div(pos, bs, rounding_mode="floor")
-    phys = torch.gather(tl, 1, blk.clamp(max=nb_slot - 1))
-    phys = torch.where(blk < nb_slot, phys, NB)
-    ours = (phys >= lo) & (phys < lo + n)
-    idx = ((phys - lo).clamp(0, n - 1), pos % bs)
-    put_rows_(pk, idx, ours, kl)
-    put_rows_(pv, idx, ours, vl)
-    # attend: the blocks this rank holds; the sink and the others' are
-    # dead entries (n)
-    held = (tl >= lo) & (tl < lo + n) & (tl < NB)
-    local = torch.where(held, tl - lo, n).to(torch.int32)
-    m, l, acc = kops.paged_attention_op(
-        ql, pk, pv, local, pos[:, 0].to(torch.int32).contiguous(),
-        fb.to(torch.int32), use_kernel=use_kernel)
-    m, l, acc = _combine_spans(mesh, rs, kb_axes, m, l, acc)
-    o = acc / torch.clamp(l, min=1e-30)[..., None]            # (Bl,K,R,S,hd)
+    col0, tl = 0, None
+    if tail is not None:
+        if not is_dtensor(tail[0]):
+            raise ValueError("a sharded pool's tails must be DTensors "
+                             "(launch/shardings.py:cache_pspecs)")
+        want = placements(norm_spec((b, None, rules.get("kv_blocks"), None,
+                                     None)), mesh)
+        tk, tv = (t.redistribute(mesh, want) for t in tail)
+        tl, col0 = (tk.to_local(), tv.to_local()), _local_range(tk, 2)[0]
+    lo, _ = _local_range(pool_k, 0)
+    body = paged_attention_rank(
+        mine(q, rs[:4]).reshape(-1, S, K, H // K, hd), mine(kn, rs[:4]),
+        mine(vn, rs[:4]), mine(positions, rs[:2]).long(),
+        mine(tables, rs[:2]).long(), mine(fold_base, rs[:1]),
+        pool_k.to_local(), pool_v.to_local(), lo, pool_k.shape[0] - 1,
+        use_kernel, tl, sketch, col0,
+        None if slab is None else padded_rows(H // K))
+    o = run(body, mesh_collect(mesh, kb_axes))
     o = o.permute(0, 3, 1, 2, 4).to(q.dtype).reshape(-1, S, H * hd)
     o = from_local(o, mesh, rs[:3])
     if x.ndim == 2:
@@ -483,7 +525,8 @@ def _dense_decode_attention_sharded(p: dict, x: torch.Tensor,
     l = pr.sum(dim=-1)[..., None]
     acc = torch.einsum("bkrs,bskh->bkrh", pr.to(cv.dtype).float(),
                        cv.float())[:, :, :, None]            # (Bl,K,R,1,hd)
-    m, l, acc = _combine_spans(mesh, rs, ks_axes, m, l, acc)
+    m, l, acc = run(merge_split_stats(m, l, acc),
+                    mesh_collect(mesh, ks_axes))
     o = (acc / torch.clamp(l, min=1e-30)[..., None]).to(ck.dtype)
     o = from_local(o.reshape(Bl, 1, H * hd), mesh, rs[:3])
     return linear(o, p["wo"])

@@ -44,11 +44,13 @@ def param_specs(cfg: ModelConfig) -> Params:
 
 def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     device: DeviceLike = None,
-                    split: Tuple[int, int] = (1, 1)) -> dict:
+                    split: Tuple[int, int] = (1, 1),
+                    tail: Optional[Tuple[int, int]] = None) -> dict:
     """A decode cache of ``batch`` slots of ``max_seq`` rows: a recurrent
     family's ``init_cache``, or an attention family's paged pool with
     its tables, laid out for a ``split`` = (n_b, n_kv) block axis
-    (module docstring)."""
+    (module docstring).  ``tail`` = (rows, cols) adds a sketched engine's
+    zeroed FCS tail tables (serve/kv_sketch.py) as ``cache["tail"]``."""
     dev = resolve_device(device)
     if cfg.family in tf.RECURRENT_FAMILIES:
         return tf.init_cache(cfg, batch, max_seq, device=dev)
@@ -61,7 +63,9 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
                          f"{n_b} x {n_kv} ways")
     NB = pool_blocks(batch * nb, n_b * n_kv)
     per = (NB + 1) // (n_b * n_kv)          # blocks a shard holds
-    cache = tf.init_paged_cache(cfg, NB, bs, device=dev)
+    cache = tf.init_paged_cache(cfg, NB, bs, device=dev,
+                                tail=None if tail is None else (batch,
+                                                                *tail))
     grp = batch // n_b
     b = torch.arange(batch, device=dev)[:, None]
     j = torch.arange(nb, device=dev)[None, :]
@@ -163,17 +167,45 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
+def tail_sketch(cfg: ModelConfig, cache: dict,
+                fold_base: Optional[torch.Tensor] = None) -> Optional[dict]:
+    """The two-span state (``transformer.forward``'s ``sketch``) of a
+    paged cache with FCS tail tables, None without them: its tails, the
+    (B,) ``fold_base`` (zeros: nothing folded) and the tables' hashes,
+    the serve config's (``kv_sketch.tail_coeffs``) over the position
+    domain of the cache's block tables.  The tails and the pool may be
+    DTensors (the sharded serve path); the hashes are plain tensors on
+    their device."""
+    if "tail" not in cache:
+        return None
+    from repro_torch.serve import kv_sketch as kvs
+    tail = cache["tail"]
+    dev = (tail.to_local() if is_dtensor(tail) else tail).device
+    B, C = tail.shape[2], tail.shape[4]
+    T = cache["tables"].shape[1] * cache["kv"]["k"].shape[2]
+    coeffs = kvs.tail_coeffs(cfg.serve, device=dev)
+    if fold_base is None:
+        fold_base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    return {"tail": tail, "fold_base": fold_base, "coeffs": coeffs,
+            "pos_hash": kvs.pos_buckets_signs(coeffs, T, C)}
+
+
 def make_serve_step(cfg: ModelConfig, kernels: Optional[bool] = None):
-    """``serve_step(params, cache, tokens, index) -> (logits (B, Vp) f32,
-    cache)``: one decode step of every slot, the cache updated in place
-    (``decode_step``; an attention family's through the cache's tables,
-    ``kernels`` choosing the paged attention as in ``forward``)."""
+    """``serve_step(params, cache, tokens, index, fold_base=None) ->
+    (logits (B, Vp) f32, cache)``: one decode step of every slot, the
+    cache updated in place (``decode_step``; an attention family's
+    through the cache's tables, ``kernels`` choosing the paged attention
+    as in ``forward``).  A cache with FCS tail tables decodes two-span
+    (``tail_sketch``), ``fold_base`` (B,) int32 the first position of
+    each slot's exact span; its folds are ``kv_sketch.fold_pool``'s."""
     def serve_step(params: Params, cache: dict, tokens: torch.Tensor,
-                   index: torch.Tensor):
+                   index: torch.Tensor,
+                   fold_base: Optional[torch.Tensor] = None):
         if cfg.family in tf.RECURRENT_FAMILIES:
             return tf.decode_step(params, cache, tokens, index, cfg)
         logits, _ = tf.decode_step(params, {"kv": cache["kv"]}, tokens,
                                    index, cfg, tables=cache["tables"],
-                                   kernels=kernels)
+                                   kernels=kernels,
+                                   sketch=tail_sketch(cfg, cache, fold_base))
         return logits, cache
     return serve_step

@@ -48,11 +48,24 @@ On sharded (DTensor) activations the routing groups are each rank's
 own (``_moe_ffn_sharded``): x is split over the rules' ``moe_groups``
 axes along its batch dim (the paged paths' rows over the ``batch``
 axes) where every shard then holds whole groups (else it is
-replicated), the experts' weights are gathered (FSDP), and
-the function above runs on each rank's rows; the aux loss comes back as
-the mean of the shards' means (weights' gradients summed over the
-ranks that split the rows).  There is no expert-parallel all-to-all:
-expert-parallel placements are gathered like the others.
+replicated), the weights are gathered (FSDP), and the function above
+runs on each rank's rows as ``moe_rank``, one rank's body of
+models/ranks.py; the aux loss comes back as the mean of the shards'
+means (weights' gradients summed over the ranks that split the rows).
+
+Expert parallelism (the rules' ``experts`` axes, the reference's
+``train_rules(expert_parallel=True)``, where ``moe_groups`` leaves them
+out): expert leaves placed with their expert dim over those axes stay
+split there, gathered over the other axes alone.  Every rank of an
+expert group routes its groups in full (the router replicated), builds
+the dispatch of its own E / n experts and runs them; the experts'
+outputs are gathered over the expert axes into the whole (G, E, C, d)
+(an all-gather: every rank of an expert group holds the same groups, so
+no all-to-all is needed), and the combine runs as above, the same bits
+as the gathered form's.  In the backward each rank's expert
+gradients come from its slice of the gathered outputs' gradient and
+stay on its shard; the dispatched rows' gradient, each rank's experts'
+share, is summed over the expert axes (an all-reduce in the backward).
 """
 from __future__ import annotations
 
@@ -63,10 +76,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ly
+from repro_torch.models.ranks import Collective, mesh_collect, run, solo
 from repro_torch.models.sharding import (axes_size, current_rules,
-                                         from_local, gathered, is_dtensor,
-                                         local_sum_mean, norm_spec,
-                                         placements, to_local)
+                                         entry_axes, from_local, gathered,
+                                         is_dtensor, local_sum_mean,
+                                         norm_spec, placements, to_local)
 
 # called as probe(layer, positions, routing, cfg) -> routing; see the
 # module docstring
@@ -176,6 +190,21 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     or None) only reach ``probe``."""
     if is_dtensor(x):
         return _moe_ffn_sharded(p, x, cfg, layer, with_aux, live, slab)
+    return solo(moe_rank(p, x, cfg, layer, positions, with_aux, live, slab))
+
+
+def moe_rank(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+             layer: int = 0, positions: Optional[torch.Tensor] = None,
+             with_aux: bool = False, live: Optional[Tuple[int, int]] = None,
+             slab: Optional[int] = None, expert0: int = 0):
+    """``moe_ffn`` as one rank's body (models/ranks.py): p's expert
+    leaves hold experts [expert0, expert0 + El) of the E.  The rank
+    routes every row of x, runs its experts on their rows and, when El <
+    E, gathers the experts' outputs (El, G*C, d) over the ranks that
+    split the experts (a "gather" along the experts) before the combine,
+    the rows it dispatches marked a "fan_out" (each rank's experts'
+    share of their gradient summed over the ranks); with all E experts
+    it asks for nothing."""
     m = cfg.moe
     if live is None:
         B, S, d = x.shape
@@ -211,13 +240,18 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     table.scatter_(1, slot, tok)
     grp = torch.arange(G, device=dev)[:, None]
     xz = torch.cat([xg, xg.new_zeros((G, 1, d))], dim=1)
-    ein = xz[grp, table[:, :E * C]]                           # (G, E*C, d)
-    ein = ein.view(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    El = p["we_gate"].shape[0]                     # this rank's experts
+    if El != E:     # each rank dispatches rows to its own experts alone
+        xz = yield Collective("fan_out", xz)
+    ein = xz[grp, table[:, expert0 * C:(expert0 + El) * C]]   # (G,El*C,d)
+    ein = ein.view(G, El, C, d).transpose(0, 1).reshape(El, G * C, d)
     if slab is None or G == 1:
-        eout = _experts(p, ein, cfg.act)                      # (E, G*C, d)
+        eout = _experts(p, ein, cfg.act)                     # (El, G*C, d)
     else:
         eout = torch.cat([_experts(p, e.contiguous(), cfg.act)
                           for e in ein.split(C, dim=1)], dim=1)
+    if El != E:
+        eout = yield Collective("gather", eout, dim=0)
     eout = eout.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
 
     # combine: each token's K outputs, weighted in bf16, summed in f32
@@ -240,11 +274,49 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     return (y, aux_loss(probs, topi, cfg)) if with_aux else y
 
 
+EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
+
+
+def _expert_shard(w: torch.Tensor, rows, ep_dims: Tuple[int, ...]
+                  ) -> Tuple[torch.Tensor, int]:
+    """An expert leaf w (E, ., .) whose expert dim is split over the mesh
+    dims ``ep_dims``, gathered over the other mesh dims alone, as this
+    rank's local (El, ., .) tensor, and the index of its first expert.
+    Its gradient comes back split as the leaf's experts, summed
+    (``Partial``) over the mesh dims that split the rows ``rows``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    keep = tuple(Shard(0) if i in ep_dims else Replicate()
+                 for i in range(mesh.ndim))
+    grad = tuple(Shard(0) if i in ep_dims else
+                 Partial() if isinstance(r, Shard) else Replicate()
+                 for i, r in enumerate(rows))
+    w = w.redistribute(mesh, keep)
+    return w.to_local(grad_placements=grad), ly._local_range(w, 0)[0]
+
+
+def _expert_dims(p: Dict[str, torch.Tensor], rules: dict, mesh
+                 ) -> Tuple[int, ...]:
+    """The mesh dims of the rules' ``experts`` axes that split every
+    expert leaf's expert dim (none: the leaves are gathered whole)."""
+    names = list(mesh.mesh_dim_names)
+    dims = tuple(names.index(a) for a in entry_axes(rules.get("experts"))
+                 if a in names and mesh.shape[names.index(a)] > 1)
+    from torch.distributed.tensor import Shard
+    for k in EXPERT_LEAVES:
+        w = p.get(k)
+        if not dims or not is_dtensor(w) or any(
+                w.placements[i] != Shard(0) for i in dims):
+            return ()
+    return dims
+
+
 def _moe_ffn_sharded(p: Dict[str, torch.Tensor], x: torch.Tensor,
                      cfg: ModelConfig, layer: int, with_aux: bool,
                      live: Optional[Tuple[int, int]], slab: Optional[int]):
     """``moe_ffn`` of a DTensor x (module docstring): group-local on every
-    rank.  ``probe`` sees no positions here."""
+    rank, expert-parallel where the rules and the expert leaves'
+    placements say so.  ``probe`` sees no positions here."""
     mesh = x.device_mesh
     rules = current_rules() or {}
     if live is None:
@@ -259,10 +331,17 @@ def _moe_ffn_sharded(p: Dict[str, torch.Tensor], x: torch.Tensor,
         gax, n = None, 1
     spec = norm_spec((gax,) + (None,) * (x.ndim - 1))
     rows = placements(spec, mesh)
-    lp = {k: gathered(v, rows) for k, v in p.items()}
+    ep = _expert_dims(p, rules, mesh)
+    lp = {k: gathered(v, rows) for k, v in p.items()
+          if not (ep and k in EXPERT_LEAVES)}
+    e0 = 0
+    for k in EXPERT_LEAVES if ep else ():
+        lp[k], e0 = _expert_shard(p[k], rows, ep)
     xl = to_local(x, spec)
-    out = moe_ffn(lp, xl, cfg, layer, None, with_aux,
-                  None if live is None else (B // n, S), slab)
+    names = mesh.mesh_dim_names
+    out = run(moe_rank(lp, xl, cfg, layer, None, with_aux,
+                       None if live is None else (B // n, S), slab, e0),
+              mesh_collect(mesh, [names[i] for i in ep]))
     if not with_aux:
         return from_local(out, mesh, spec)
     y, aux = out

@@ -312,7 +312,10 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     int32, "tail": (2, L, B, Z, C, K, hd) tables of these B slots,
     "coeffs": (Z, 4) hash coefficients, "pos_hash": the (Z, T) position
     buckets and signs of ``kv_sketch.pos_buckets_signs``}.  Without it
-    nothing is folded and the exact span starts at 0.
+    nothing is folded and the exact span starts at 0.  With a DTensor
+    pool the tails are DTensors too, split by bucket columns over the
+    rules' ``kv_blocks`` (models/model.py:tail_sketch builds the state;
+    models/layers.py runs each rank's two spans).
 
     ``rows`` (paged modes only): the step rows: run the B*S rows padded
     with zero rows to a whole number of ``rows``-row slabs, every GEMM

@@ -31,7 +31,8 @@ from repro_torch.cpd.rtpm import rtpm_decompose
 from repro_torch.kernels.count_sketch import (bucket_links, count_sketch,
                                               plan, unsketch)
 from repro_torch.kernels import ref
-from repro_torch.kernels.kv_sketch import tail_fold, tail_scores
+from repro_torch.kernels.kv_sketch import (tail_fold, tail_products,
+                                           tail_scores, tail_select)
 from repro_torch.kernels.ops import (count_sketch_op, sketch_update_op,
                                      tail_fold_op, tail_scores_op,
                                      unsketch_op)
@@ -778,6 +779,52 @@ def test_tail_scores_kernel_matches_plain_version(card, shape):
     assert tail_scores.launches == before + 2
     want = ref.tail_scores_ref(q, tk, cf, T)
     torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_tail_fold_column_range_is_bitwise_its_columns(card, shape, n):
+    """A tail split by bucket columns: each shard's fold is bitwise the
+    unsharded fold's columns, and within 1e-5 x max|table| of the plain
+    range fold."""
+    rows, pos, counts, tail, cf = _fold_inputs(*shape, card, seed=6)
+    C = tail.shape[2]
+    whole = tail.clone()
+    tail_fold(rows, pos, counts, whole, cf)
+    w = C // n
+    for c0 in range(0, n * w, w):
+        part = tail[:, :, c0:c0 + w].contiguous()
+        want = ref.tail_fold_ref(rows, pos, counts, part.clone(), cf, c0, C)
+        tail_fold(rows, pos, counts, part, cf, c0, C)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, :, c0:c0 + w])
+        torch.testing.assert_close(part, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", SCORE_SHAPES)
+def test_split_score_passes_are_bitwise_tail_scores(card, shape):
+    """The products pass on column shards, gathered, then the select pass:
+    bitwise the fused ``tail_scores``; the products within 1e-4 x max of
+    the plain products."""
+    B, K, N, hd, Z, C, T = shape
+    rng = np.random.RandomState(2)
+    q = torch.tensor(rng.randn(B, K, N, hd), dtype=torch.float32,
+                     device=card)
+    tk = torch.tensor(rng.randn(B, Z, C, K, hd), dtype=torch.float32,
+                      device=card)
+    cf = cached_coeffs(11, Z, device=card)
+    cuts = [0, C // 3, C // 2, C]
+    p0, s0 = tail_products.launches, tail_select.launches
+    prod = torch.cat([tail_products(q, tk[:, :, a:b].contiguous())
+                      for a, b in zip(cuts, cuts[1:])], dim=-1)
+    got = tail_select(prod, cf, T)
+    torch.cuda.synchronize()
+    assert (tail_products.launches, tail_select.launches) == (p0 + 3, s0 + 1)
+    assert torch.equal(got, tail_scores(q, tk, cf, T))
+    want = ref.tail_products_ref(q, tk)
+    torch.testing.assert_close(prod, want, rtol=0,
                                atol=1e-4 * want.abs().max().item())
 
 

@@ -243,6 +243,388 @@ def test_sharded_decode_matches_unsharded(arch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# Sharded two-span (sketched) decode, verify and chunk on a 2 x 2 mesh
+# ---------------------------------------------------------------------------
+
+SK_SLOTS, SK_SEQ, SK_ROWS, SK_RATIO, SK_PROMPT = 4, 128, 3, 4, 48
+
+
+def _sketched_steps(cfg, params, cache, state, fold, record):
+    """The checked sequence, the same on the unsharded and the sharded
+    cache: a fold, a chunk of 8 tokens a slot, two decode steps, a second
+    fold and a verify step at spec_k 2 (3 tokens a slot); ``record(what,
+    tensor)`` sees every logits tensor and each fold's tail."""
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    fb = state["fold_base"].clone()
+    step = M.make_serve_step(cfg)
+    for i, (ff_len, toks, kind) in enumerate(state["script"]):
+        idx = state["index"][i]
+        if kind.startswith("slot"):
+            # one slot's fold-through (the whole stacked tail, the other
+            # slots folding nothing) and its prefill chunk, which reads
+            # its one-slot tail view
+            b = int(kind[4:])
+            fold(cache, fb, ff_len)
+            fb = fb + ff_len
+            record(f"tail{i}", cache["tail"])
+            one = {"kv": cache["kv"], "tail": cache["tail"][:, :, b:b + 1],
+                   "tables": cache["tables"][b:b + 1]}
+            tf.prefill_chunk(params, {"kv": cache["kv"]}, toks,
+                             cache["tables"][b], idx[b:b + 1], cfg,
+                             sketch=M.tail_sketch(cfg, one, fb[b:b + 1]))
+            continue
+        if ff_len is not None:
+            fold(cache, fb, ff_len)
+            fb = fb + ff_len
+            record(f"tail{i}", cache["tail"])
+        sk = M.tail_sketch(cfg, cache, fb)
+        if kind == "chunk":
+            y, _ = tf.forward(params, tf.embed_inputs(params, toks), cfg,
+                              mode="chunk", cache={"kv": cache["kv"]},
+                              index=idx, tables=cache["tables"], sketch=sk)
+            record(f"logits{i}", ly.logits_fn(params, y, cfg))
+        elif kind == "decode":
+            record(f"logits{i}", step(params, cache, toks, idx, fb)[0])
+        else:
+            record(f"logits{i}", tf.verify_step(
+                params, {"kv": cache["kv"]}, toks, idx, cfg,
+                cache["tables"], sketch=sk)[0])
+    record("fold_base", fb)
+
+
+def _sketched_rank(rank, world, tmp, long_context):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import logical_rules
+    from repro_torch.serve import kv_sketch as kvs
+
+    cfg = _cfg("gemma-2b")
+    state = torch.load(os.path.join(tmp, "in.pt"), weights_only=False)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules, _ = SH.make_rules(cfg, "decode", long_context, False)
+    params = SH.distribute(state["params"], SH.build_param_pspecs(
+        cfg, state["params"], rules, "tp"), mesh)
+    cache = SH.distribute(state["cache"], SH.cache_pspecs(
+        cfg, state["cache"], rules), mesh)
+    coeffs = kvs.tail_coeffs(cfg.serve)
+    got = {}
+
+    def fold(c, fb, n):
+        kvs.fold_pool(c["kv"], c["tail"], c["tables"], fb, n, coeffs,
+                      state["fold_cap"])
+
+    def record(what, t):
+        got[what] = (t.full_tensor() if hasattr(t, "full_tensor")
+                     else t).clone()
+
+    with logical_rules(rules), implicit_replication():
+        _sketched_steps(cfg, params, cache, state, fold, record)
+    got["pool"] = {k: v.full_tensor() for k, v in cache["kv"].items()}
+    got["tables"] = cache["tables"].full_tensor()
+    got["local_tail"] = tuple(cache["tail"].to_local().shape)
+    if rank == 0:
+        torch.save(got, os.path.join(tmp, "out.pt"))
+
+
+@pytest.mark.parametrize("long_context", [False, True])
+def test_sharded_sketched_steps_match_unsharded(long_context, tmp_path):
+    """Reduced gemma-2b in f32 with FCS tail tables on a 2 x 2 (data,
+    model) mesh at the decode placements: the pool split by blocks and
+    the tails by slots (data) and bucket columns (model), or, under the
+    long-context rules, the slots unsplit and the blocks and columns
+    over both axes, where one slot's fold-through and prefill chunk run
+    on its one-slot tail view.  Each fold of aged rows
+    (``kv_sketch.fold_pool``) is bitwise the unsharded fold; the chunk,
+    decode and verify (spec_k 2) logits of the two-span attention are
+    within 1e-4 x max|logit| of the unsharded steps', with slots that
+    folded nothing, some, and more; the pool rows and tails at the end
+    within 1e-4 x max, tables and fold_base bitwise."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import kv_sketch as kvs
+
+    cfg = _cfg("gemma-2b")
+    params = tf.tree_map(lambda t: t.float(),
+                         tf.init_params(cfg, seed=6, device="cpu"))
+    rules, _ = SH.make_rules(cfg, "decode", long_context, False)
+    C = kvs.tail_cols(SK_SEQ, SK_RATIO)
+    cache = M.init_slot_cache(cfg, SK_SLOTS, SK_SEQ, "cpu",
+                              SH.cache_split(rules, {"data": 2, "model": 2}),
+                              tail=(SK_ROWS, C))
+    cache = tf.tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                        cache)
+    g = torch.Generator().manual_seed(7)
+    tok = lambda S: torch.randint(0, cfg.vocab_size, (SK_SLOTS, S),
+                                  generator=g)
+    # the prompt, unsharded, then the tails' first folds: slot 0 keeps
+    # its whole context exact
+    start = torch.zeros((SK_SLOTS,), dtype=torch.int32)
+    tf.forward(params, tf.embed_inputs(params, tok(SK_PROMPT)), cfg,
+               mode="chunk", cache={"kv": cache["kv"]}, index=start,
+               tables=cache["tables"])
+    coeffs = kvs.tail_coeffs(cfg.serve)
+    cap = 16
+    fb = torch.zeros((SK_SLOTS,), dtype=torch.int32)
+    for n in ([0, 16, 16, 16], [0, 0, 16, 16]):
+        n = torch.tensor(n, dtype=torch.int32)
+        kvs.fold_pool(cache["kv"], cache["tail"], cache["tables"], fb, n,
+                      coeffs, cap)
+        fb = fb + n
+    i32 = lambda v: torch.full((SK_SLOTS,), v, dtype=torch.int32)
+    state = {"fold_base": fb, "fold_cap": cap, "script": [
+        (torch.tensor([0, 16, 0, 16], dtype=torch.int32), tok(8), "chunk"),
+        (None, tok(1), "decode"), (None, tok(1), "decode"),
+        (torch.tensor([16, 16, 16, 0], dtype=torch.int32), tok(3),
+         "verify")],
+        "index": [i32(SK_PROMPT), i32(SK_PROMPT + 8), i32(SK_PROMPT + 9),
+                  i32(SK_PROMPT + 10)]}
+    if long_context:
+        # slot 0's next prompt rows (every fold takes rows written before
+        # the steps, so the folds compare bitwise)
+        state["script"].append((torch.tensor([16, 0, 0, 0],
+                                             dtype=torch.int32),
+                                tok(8)[:1], "slot0"))
+        state["index"].append(i32(SK_PROMPT + 13))
+    torch.save({"params": params, "cache": cache, **state},
+               tmp_path / "in.pt")
+    want = {}
+
+    def fold(c, fbb, n):
+        kvs.fold_pool(c["kv"], c["tail"], c["tables"], fbb, n, coeffs, cap)
+
+    _sketched_steps(cfg, params, cache, state, fold,
+                    lambda w, t: want.__setitem__(w, t.clone()))
+    assert want["fold_base"].tolist() == ([32, 48, 48, 48] if long_context
+                                          else [16, 48, 48, 48])
+    _spawn(4, tmp_path, _sketched_rank, long_context)
+    got = torch.load(tmp_path / "out.pt")
+    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    split = (SK_SLOTS, C // 4) if long_context else (SK_SLOTS // 2, C // 2)
+    assert got["local_tail"] == (2, L, split[0], SK_ROWS, split[1], K, hd)
+    for k, w in want.items():
+        if k.startswith("tail"):
+            assert torch.equal(got[k], w), k
+        elif k == "fold_base":
+            assert torch.equal(got[k], w)
+        else:
+            assert float((got[k] - w).abs().max()) <= 1e-4 * float(
+                w.abs().max()), k
+    for k in ("k", "v"):
+        w = cache["kv"][k]
+        assert float((got["pool"][k] - w).abs().max()) <= 1e-4 * float(
+            w.abs().max()), k
+    assert torch.equal(got["tables"], cache["tables"])
+
+
+SK_REF_TOL = 0.03        # of max|logit|, tests/test_torch_kv_sketch.py
+
+
+@pytest.mark.parametrize("long_context", [False, True])
+def test_sharded_sketched_steps_match_reference(long_context, tmp_path):
+    """The sharded two-span decode and verify (spec_k 2) steps against the
+    reference's sketched steps: the reference's reduced gemma-2b weights,
+    its pool (prompts written by its ``prefill_chunk``) and its tails
+    (folded by its ``fold_pool``; one slot folds nothing) carried across,
+    the pool and tails placed on a 2 x 2 mesh as in
+    ``test_sharded_sketched_steps_match_unsharded``.  Logits within the
+    sketched model tolerance of tests/test_torch_kv_sketch.py (3% of
+    max|logit|), and the greedy token where the reference's top two
+    logits stand further apart than twice that."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import reduced_config as ref_reduced
+    from repro.models import transformer as rtf
+    from repro.serve import kv_sketch as rkvs
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import bridge
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import kv_sketch as kvs
+
+    cfg, tcfg = ref_reduced("gemma-2b"), _cfg("gemma-2b")
+    assert cfg.serve.kv_sketch_rows == tcfg.serve.kv_sketch_rows == SK_ROWS
+    params = rtf.init_params(jax.random.PRNGKey(0), cfg)
+    tparams = tf.tree_map(lambda t: t.float(), bridge.from_reference(
+        jax.tree.map(np.asarray, params), tcfg, device="cpu"))
+    rules, _ = SH.make_rules(tcfg, "decode", long_context, False)
+    C = kvs.tail_cols(SK_SEQ, SK_RATIO)
+    tcache = M.init_slot_cache(tcfg, SK_SLOTS, SK_SEQ, "cpu",
+                               SH.cache_split(rules, {"data": 2, "model": 2}),
+                               tail=(SK_ROWS, C))
+    tables = tcache["tables"].numpy()
+    NB1, bs = tcache["kv"]["k"].shape[1], tcache["kv"]["k"].shape[2]
+    cache = rtf.init_paged_cache(cfg, NB1, bs)   # the port's sink block too
+    rng = np.random.RandomState(8)
+    lens = [48, 32, 64, 48]
+    for b, n in enumerate(lens):
+        prompt = rng.randint(0, cfg.vocab_size, (1, n)).astype(np.int32)
+        for off in range(0, n, bs):
+            cache = rtf.prefill_chunk(params, cache,
+                                      jnp.asarray(prompt[:, off:off + bs]),
+                                      jnp.asarray(tables[b]), off, cfg)
+    fb = np.array([32, 0, 48, 16], np.int32)
+    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    jc = rkvs.tail_coeffs(cfg.serve)
+    tail = rkvs.fold_pool(
+        cache["kv"], {n: jnp.zeros((L, SK_SLOTS, SK_ROWS, C, K, hd),
+                                   jnp.float32) for n in ("k", "v")},
+        jnp.asarray(tables), jnp.zeros((SK_SLOTS,), jnp.int32),
+        jnp.asarray(fb), jc, fold_cap=48)
+    T = tables.shape[1] * bs
+    sk = {"fold_base": jnp.asarray(fb), "onehot": rkvs.pos_onehot(jc, T, C)}
+    pos = np.asarray(lens, np.int32)
+    cur = rng.randint(0, cfg.vocab_size, (SK_SLOTS, 1)).astype(np.int32)
+    draft = rng.randint(0, cfg.vocab_size, (SK_SLOTS, 3)).astype(np.int32)
+    want_d, c1 = rtf.decode_step(params, {**cache, "tail": tail},
+                                 jnp.asarray(cur), jnp.asarray(pos), cfg,
+                                 tables=jnp.asarray(tables), sketch=sk)
+    want_v, _ = rtf.verify_step(params, c1, jnp.asarray(draft),
+                                jnp.asarray(pos + 1), cfg,
+                                jnp.asarray(tables), sketch=sk)
+    for k in ("k", "v"):
+        tcache["kv"][k] = bridge.to_torch(np.asarray(cache["kv"][k]),
+                                          "cpu").float()
+    tcache["tail"] = bridge.tail_from_reference(
+        jax.tree.map(np.asarray, tail), "cpu")
+    t = lambda a: torch.as_tensor(np.asarray(a))
+    state = {"fold_base": t(fb), "fold_cap": 0,
+             "script": [(None, t(cur).long(), "decode"),
+                        (None, t(draft).long(), "verify")],
+             "index": [t(pos), t(pos + 1)]}
+    torch.save({"params": tparams, "cache": tcache, **state},
+               tmp_path / "in.pt")
+    _spawn(4, tmp_path, _sketched_rank, long_context)
+    got = torch.load(tmp_path / "out.pt")
+    assert torch.equal(got["fold_base"], t(fb))
+    V = cfg.vocab_size
+    for what, want in (("logits0", want_d), ("logits1", want_v)):
+        w = np.asarray(want)[..., :V]
+        g = got[what][..., :V].numpy()
+        tol = SK_REF_TOL * np.abs(w).max()
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=what)
+        srt = np.sort(w, axis=-1)
+        sure = srt[..., -1] - srt[..., -2] > 2 * tol
+        np.testing.assert_array_equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE train step on a 2 x 2 mesh
+# ---------------------------------------------------------------------------
+
+
+def _ep_step(rank, world, tmp):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import EXPERT_LEAVES
+    from repro_torch.models.sharding import logical_rules
+    from repro_torch.models.transformer import param_leaves
+
+    cfg = _cfg("deepseek-moe-16b")
+    E = cfg.moe.num_experts
+    state = torch.load(os.path.join(tmp, "in.pt"), weights_only=False)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    SH.expert_parallel = lambda c: True     # E 8 on a 2-wide model axis
+    SH._FSDP_MIN_BYTES = 0
+    rules, strategy = SH.make_rules(cfg, "train", False, False, 4)
+    rules["ctx_shards"] = 2
+    assert rules["experts"] == "model" and rules["moe_groups"] == ("data",)
+    params = SH.distribute(state["params"], SH.build_param_pspecs(
+        cfg, state["params"], rules, strategy), mesh)
+    batch = SH.distribute(state["batch"], {
+        k: (rules["batch"], None) for k in state["batch"]}, mesh)
+    experts = [p for blk in params["blocks"] for k, p in blk["moe"].items()
+               if k in EXPERT_LEAVES]
+    shapes = set()
+    for p in experts:
+        loc = tuple(p.to_local().shape)
+        shapes |= {loc, (E // 2,) + tuple(p.shape[1:])}
+    model_ranks = tuple(dist.get_process_group_ranks(mesh.get_group("model")))
+    out = {}
+    for form, r in (("ep", rules), ("gathered", dict(rules, experts=None))):
+        cm = CA.CostMode()
+        with logical_rules(r), implicit_replication(), cm:
+            loss, grads = M.make_train_step(cfg)(params, batch)
+        local = [tuple(g.to_local().shape) for blk in grads["blocks"]
+                 for k, g in blk["moe"].items() if k in EXPERT_LEAVES]
+        out[form] = {
+            "loss": loss.full_tensor(),
+            "grads": [[g.full_tensor() for g in pieces]
+                      for _, pieces in param_leaves(grads)],
+            "expert_grads_local": local,
+            "expert_model_gathers": sum(
+                1 for op, ranks, ins, _, _ in cm.collectives
+                if op == "all-gather" and ranks == model_ranks
+                and ins and ins[0] in shapes)}
+    out["experts_local"] = [tuple(p.to_local().shape) for p in experts]
+    if rank == 0:
+        torch.save(out, os.path.join(tmp, "out.pt"))
+
+
+def test_expert_parallel_train_step_keeps_experts_sharded(tmp_path):
+    """Reduced deepseek-moe (E 8, f32) on a 2 x 2 (data, model) mesh under
+    forced expert parallelism (the reference's rule asks E % 16): each
+    rank's expert leaves and their gradients hold E / 2 experts, no
+    all-gather of an expert leaf runs over the model axis (the gathered
+    form, the same placements with the rules' ``experts`` unset, has
+    them), and the loss and every gradient equal the gathered form's
+    within LOSS_TOL / GRAD_TOL["f32"], the unsharded step's too, and the
+    loss the reference's within REF_LOSS_TOL."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import reduced_config as ref_reduced
+    from repro.models import transformer as rtf
+    from repro_torch.models import bridge
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import param_leaves
+
+    cfg, tcfg = ref_reduced("deepseek-moe-16b"), _cfg("deepseek-moe-16b")
+    E = tcfg.moe.num_experts
+    params = rtf.init_params(jax.random.PRNGKey(2), cfg)
+    tparams = tf.tree_map(lambda t: t.float(), bridge.from_reference(
+        jax.tree.map(np.asarray, params), tcfg, device="cpu"))
+    toks = np.random.RandomState(8).randint(0, cfg.vocab_size, (4, 65))
+    batch = {"tokens": toks[:, :64], "labels": toks[:, 1:]}
+    ref_loss = float(rtf.loss_fn(params, {k: jnp.asarray(v, jnp.int32)
+                                          for k, v in batch.items()}, cfg))
+    tbatch = {k: torch.as_tensor(v).long() for k, v in batch.items()}
+    torch.save({"params": tparams, "batch": tbatch}, tmp_path / "in.pt")
+    loss, grads = M.make_train_step(tcfg)(tparams, tbatch)
+    _spawn(4, tmp_path, _ep_step)
+    out = torch.load(tmp_path / "out.pt")
+    L = tcfg.num_layers
+    assert len(out["experts_local"]) == 3 * L
+    for shp in out["experts_local"] + out["ep"]["expert_grads_local"]:
+        assert shp[0] == E // 2, shp
+    assert out["ep"]["expert_model_gathers"] == 0
+    assert out["gathered"]["expert_model_gathers"] >= 3 * L
+    ep, gat = out["ep"], out["gathered"]
+    assert abs(float(ep["loss"]) - float(gat["loss"])) <= LOSS_TOL * abs(
+        float(gat["loss"]))
+    assert abs(float(ep["loss"]) - float(loss)) <= LOSS_TOL * abs(
+        float(loss))
+    assert abs(float(ep["loss"]) - ref_loss) <= REF_LOSS_TOL * abs(ref_loss)
+    for (name, want), got, base in zip(param_leaves(grads), ep["grads"],
+                                       gat["grads"]):
+        for w, g, b in zip(want, got, base):
+            for ref_g in (b, w):
+                scale = float(ref_g.abs().max()) or 1.0
+                err = float((g - ref_g).abs().max())
+                assert err <= GRAD_TOL["f32"] * scale, (name, err, scale)
+
+
+# ---------------------------------------------------------------------------
 # The pod-wise compressed step
 # ---------------------------------------------------------------------------
 

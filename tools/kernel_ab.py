@@ -16,7 +16,8 @@ the checkout's own phase does not take is timed here instead, through
 the checkout's ``sketch_update`` wrapper in the estimates form, as the
 newer phase times it.  ``--phases`` picks them, in this order (default
 ``kernel,kv,model,sketch_model,serve,long``): ``kernel`` (paged
-attention), ``sketch`` (sketch_update), ``kv`` (tail_fold, tail_scores),
+attention), ``sketch`` (sketch_update), ``kv`` (tail_fold, tail_scores,
+and the sharded forms where the checkout has them),
 ``cs`` (count_sketch, unsketch), ``cpd`` (the paper core and CPD at the
 paper's sizes), ``model`` and ``sketch_model`` (the full-width gemma-2b
 decode steps at max_seq 512 and, sketched, at 8192, with their
@@ -27,7 +28,11 @@ logit gap), ``spec`` (the speculative engines on that stream), ``long``
 full-width yi-9b with sketched AdamW, one profiled; in a checkout whose
 phase has its 4096-token steps, those too, with the dry-run process they
 read) and ``train_families`` (phase train-families: every family's
-sketched-AdamW steps, one profiled).  Every line a phase
+sketched-AdamW steps, one profiled) and ``ranks`` (phase launch's
+emulated ranks, which need no process group: one FSDP rank's strided
+sketch_update pieces timed, the kv_blocks ranks' sharded two-span
+attention and fold, the EP ranks' MoE layer; each where the checkout
+has it, with the card's clocks after).  Every line a phase
 prints is passed through, prefixed by the checkout.  Exits non-zero if
 any run fails.  A checkout whose ``chip_smoke.py`` has no ``spec`` or
 ``long_spec`` phase says so and skips it.
@@ -44,7 +49,8 @@ import sys
 
 HOME = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("kernel", "sketch", "kv", "cs", "cpd", "model", "sketch_model",
-          "serve", "spec", "long", "long_spec", "train", "train_families")
+          "serve", "spec", "long", "long_spec", "train", "train_families",
+          "ranks")
 DEFAULT = "kernel,kv,model,sketch_model,serve,long"
 SHARED = ("GEOMETRIES", "CS_GEOMETRIES", "UNSKETCH_GEOMETRIES",
           "SKETCH_GEOMETRIES")
@@ -118,6 +124,8 @@ def run_one(checkout: str, phases) -> None:
             sketch_leaf(cs, name, geo, flush)
     if "kv" in phases:
         cs.phase_kv_kernels(flush)
+        if hasattr(cs, "phase_kv_forms"):
+            cs.phase_kv_forms(flush)
     if "cs" in phases:
         cs.phase_cs_kernels(flush)
     if "cpd" in phases:
@@ -133,6 +141,19 @@ def run_one(checkout: str, phases) -> None:
             gc.collect()
             torch.cuda.empty_cache()
             fn(dev)
+    if "ranks" in phases:
+        for fn in ("launch_emulated_ranks", "launch_emulated_kv",
+                   "launch_emulated_ep"):
+            if hasattr(cs, fn):
+                getattr(cs, fn)(dev)
+                clocks = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                     "temperature.gpu,power.draw", "--format=csv,noheader"],
+                    capture_output=True, text=True).stdout.strip()
+                print(f"[ab] after {fn}: sm, mem clocks, temperature, "
+                      f"power: {clocks}", flush=True)
+            else:
+                print(f"[ab] this checkout has no {fn}")
 
 
 def serve_phases(cs, phases, dev, flush) -> None:
