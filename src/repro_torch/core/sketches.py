@@ -6,9 +6,11 @@ by the median in estimators.py).
 
 General tensors: every repetition's combined position
 sum_n h_n(i_n) (mod J for TS) and sign prod_n s_n(i_n) are broadcast on
-the fly, and the signed tensor is scatter-added in one ``index_add_``
-over all D repetitions (no stored long hash pair).  HCS contracts each
-mode with its signed one-hot.  These sit outside any kernel in the
+the fly, and the signed tensor is scatter-added in one pass over all D
+repetitions (no stored long hash pair), in an order fixed by the data
+(``sketch/csvec.py:index_add_ordered_``: a stable sort of the positions
+on the card, no atomics), so two calls agree bitwise.  HCS contracts
+each mode with its signed one-hot.  These sit outside any kernel in the
 reference and stay plain torch here.
 
 CP-form tensors (Eqs. 3, 5, 8): per-mode CS of the factor columns
@@ -29,6 +31,7 @@ import torch
 from repro_torch.core.count_sketch import cs_apply_cols
 from repro_torch.core.hashes import ModeHash, fcs_sketch_len
 from repro_torch.kernels.ops import unsketch_op
+from repro_torch.sketch.csvec import index_add_ordered_
 
 # ---------------------------------------------------------------------------
 # General tensors
@@ -52,7 +55,7 @@ def _sketch_general(T: torch.Tensor, hashes: Sequence[ModeHash],
     pos = pos + out_len * torch.arange(D, device=T.device).reshape(
         (D,) + (1,) * N)
     out = torch.zeros(D * out_len, dtype=T.dtype, device=T.device)
-    out.index_add_(0, pos.reshape(-1), (sign * T).reshape(-1))
+    index_add_ordered_(out, pos.reshape(-1), (sign * T).reshape(-1))
     return out.reshape(D, out_len)
 
 

@@ -50,20 +50,43 @@
 //                 (the cell's 15-bit offset in its slab, the sign, and g
 //                 as bf16 bits: 4 bytes; 8 with an f32 g), places them in
 //                 shared memory slab by slab, and copies each slab's run
-//                 to the tile's range of the bin, a warp a run.  Device
-//                 memory then sees runs of tile / NS entries (~45 at the
-//                 FFN leaves) rather than scattered 4-byte stores, which
-//                 cost a DRAM read-modify-write of a sector each; the
-//                 window bounds the runs a block stages (the wrapper sizes
-//                 the tile to fill the staging);
+//                 to the tile's range of the bin, a warp a run.  Each warp
+//                 takes a contiguous share of the tile and counts its
+//                 entries per slab first (warps match equal slabs with
+//                 __match_any_sync), so a scan over the warps gives each
+//                 warp's place in each run and a popcount each entry's
+//                 place among its warp's: a run holds the tile's entries
+//                 of the slab in element order, with no atomic.  Device
+//                 memory then sees runs of tile / NS entries rather than
+//                 scattered 4-byte stores, which cost a DRAM
+//                 read-modify-write of a sector each; the window bounds
+//                 the runs a block stages (the wrapper sizes the tile to
+//                 fill the staging);
 //     5. slab:    one block per bin reads its slab into shared memory
 //                 once (scaling it by b1 or b2 in the first group), adds
 //                 the bin's entries there ((1-b1) * s * g or (1-b2) * g^2
 //                 formed in f32, as the per-element kernel did) and
-//                 writes the slab back once.
+//                 writes the slab back once.  The entries are taken a
+//                 block's width at a time; within such a chunk the
+//                 entries that share a cell are added in entry order, in
+//                 rounds: each pending entry bids for its cell's owner
+//                 slot (a 2^14-slot table hashed by the cell's offset)
+//                 with atomicMin of a key that falls from round to round,
+//                 and the lowest bidder of each slot adds its term with a
+//                 plain store.  About one entry a cell at yi-9b's bins:
+//                 two or three rounds a chunk.
 //   Device-memory traffic per group: the tables read and written once,
 //   the entries written and read once, g read once per window (mostly
 //   from L2: a tile's windows are neighbouring blocks).
+//
+//   The order of additions.  A bin's entries are the group's in (tile,
+//   element) order, which is the leaf's element order, groups in order,
+//   pieces in order within a group; each cell receives its terms in that
+//   order, one at a time.  So every cell of a table is
+//     (((b * m) + t_0) + t_1) + ...,  t in the leaf's element order,
+//   whatever the grouping, the tile, the number of SMs or the timing: two
+//   launches agree bitwise, and kernels/ref.py:sketch_accumulate_ordered_ref
+//   adds in the same order.
 //
 // The retrieve (estimates form) and the fused apply gather 2R random
 // cells an element; that stays random by nature.  Each thread takes
@@ -78,13 +101,16 @@
 //   p  = round_to_p_type(p - lr * d)
 // and writes p in place: m_hat and v_hat never reach memory.
 //
-// Numerics.  The slab adds a bin's entries with shared-memory f32 atomics,
-// whose order changes from run to run, and adds each scaled term into the
-// scaled table where the plain version scales the finished sum: a cell
-// differs from the plain version by a few f32 ulps of the sum of its
-// terms' magnitudes.  Median and min are 1-Lipschitz, so estimates differ
-// by no more than the tables do; given equal tables the apply computes
-// the plain path's operations on the card in the same order.
+// Numerics.  The slab adds each scaled term into the scaled table where
+// the plain version (sketch_accumulate_ref) scales the finished sum, and
+// adds a cell's terms one at a time in element order where the plain
+// version adds them in its own order: a cell differs from the plain
+// version by a few f32 ulps of the sum of its terms' magnitudes, and
+// equals the ordered model bitwise (each operation rounded once: the
+// intrinsics keep the compiler from contracting into fma).  Median and min
+// are 1-Lipschitz, so estimates differ by no more than the tables do; given
+// equal tables the apply computes the plain path's operations on the card
+// in the same order.
 //
 // Every launch function runs on ``stream``, allocates nothing and returns
 // cudaGetLastError() (0 on success); the Python wrapper raises otherwise.
@@ -103,11 +129,23 @@ constexpr int kMaxBlocks = 132 * 16;   // grid-stride: 16 blocks per SM
 constexpr int kSlabBits = 15;
 constexpr int kSlab = 1 << kSlabBits;  // cells a slab (128 KB of f32)
 constexpr int kWindow = 1024;          // slabs a scatter block writes into
-constexpr int kStageBytes = 51200 * 4;  // a scatter block's staging
+constexpr int kStageBytes = 37 * 4096;  // a scatter block's staging
 constexpr int kBinThreads = 1024;      // count, scatter and slab blocks
+constexpr int kWarps = kBinThreads / 32;
 constexpr int kMaxBinsPerRow = 1 << 15;  // 128 KB of shared counters
 constexpr int kMaxSegs = 64;           // pieces a launch
+constexpr int kOwnerBits = 14;         // a slab block's owner slots
+constexpr int kOwner = 1 << kOwnerBits;
+constexpr int kRounds = kBinThreads + 1;  // bound on a chunk's rounds
+constexpr uint32_t kNone = 0xffffffffu;   // an element outside the window
+// a scatter block's per-warp slab table: 16-bit beside the staging, or
+// 32-bit over it when the window's entries go straight to device memory
+constexpr int kWarpTable16 = kWarps * kWindow * 2;
 static_assert(kWindow <= kBinThreads, "one thread a slab of the window");
+static_assert(kBinThreads <= 1024, "a slab key's thread fits 10 bits");
+static_assert(kStageBytes / 4 < 65536, "staged places fit 16 bits");
+static_assert(kStageBytes >= kWarps * kWindow * 4,
+              "the 32-bit warp table fits the staging");
 
 // The pieces of one launch, passed by value: segment k has n[k] elements
 // at ``data[k]`` (g, or the params for the apply), elements first[k] ..
@@ -298,13 +336,36 @@ bin_offsets_kernel(const uint32_t* __restrict__ total, int NB,
 
 // Pass 4.  Block (window w + tile * windows, t): the tile's entries of
 // row t that fall in the slabs [w kWindow, (w+1) kWindow), into their
-// bins' ranges for this tile.  They are first placed in shared memory,
+// bins' ranges for this tile, in element order.  Warp j takes the j-th
+// contiguous share of the tile, 32 elements at a time.  It first counts
+// its entries per slab (lanes of one slab found by __match_any_sync, the
+// lowest adding their number) into its row of a per-warp table; a scan
+// over the warps turns the table into each warp's first place in each
+// slab's run; a second walk places every entry at its warp's place plus
+// its rank among the lanes of its slab, and the lowest such lane moves
+// the warp's place on.  The entries are first placed in shared memory,
 // each slab's run together (the tile's count of a slab is the difference
 // of two of pass 2's starts), then every run is copied to its range by
 // one warp, so device memory sees contiguous runs of tile / NS entries
 // rather than scattered 4-byte stores.  A window whose entries exceed the
 // staging room (never at the shapes of the main path) writes them
-// straight to their ranges.  The window bounds the runs a block holds.
+// straight to their ranges, its warp table in 32 bits over the staging.
+// The window bounds the runs a block holds.
+struct WarpTable {
+  unsigned char* base;
+  bool wide;
+  __device__ __forceinline__ uint32_t get(int q) const {
+    return wide ? reinterpret_cast<const uint32_t*>(base)[q]
+                : reinterpret_cast<const uint16_t*>(base)[q];
+  }
+  __device__ __forceinline__ void set(int q, uint32_t x) const {
+    if (wide)
+      reinterpret_cast<uint32_t*>(base)[q] = x;
+    else
+      reinterpret_cast<uint16_t*>(base)[q] = (uint16_t)x;
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kBinThreads)
 bin_scatter_kernel(Segs segs, const uint32_t* __restrict__ cm,
@@ -316,12 +377,12 @@ bin_scatter_kernel(Segs segs, const uint32_t* __restrict__ cm,
                    typename Entry<T>::type* __restrict__ ws) {
   using E = typename Entry<T>::type;
   constexpr int kCap = kStageBytes / (int)sizeof(E);
-  __shared__ uint32_t cursor[kWindow];   // staging (or device) position
   __shared__ uint32_t run0[kWindow];     // a run's first staging slot
   __shared__ uint32_t dest[kWindow];     // a run's first device slot
-  __shared__ uint32_t part[kBinThreads / 32];
-  extern __shared__ __align__(16) unsigned char stage_raw[];
-  E* stage = reinterpret_cast<E*>(stage_raw);
+  __shared__ uint32_t len[kWindow];      // the tile's entries of a slab
+  __shared__ uint32_t part[kWarps];
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* stage = reinterpret_cast<E*>(smem);
   const int windows = (NS + kWindow - 1) / kWindow;
   const long long tile = blockIdx.x / windows;
   const int s0 = (int)(blockIdx.x % windows) * kWindow;
@@ -351,7 +412,7 @@ bin_scatter_kernel(Segs segs, const uint32_t* __restrict__ cm,
   if (lane == 31) part[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    uint32_t y = lane < kBinThreads / 32 ? part[lane] : 0u;
+    uint32_t y = lane < kWarps ? part[lane] : 0u;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const uint32_t z = __shfl_up_sync(0xffffffffu, y, d);
@@ -361,40 +422,90 @@ bin_scatter_kernel(Segs segs, const uint32_t* __restrict__ cm,
   }
   __syncthreads();
   const uint32_t excl = x - cnt + (warp ? part[warp - 1] : 0u);
-  const uint32_t room = part[kBinThreads / 32 - 1];
+  const uint32_t room = part[kWarps - 1];
   const bool staged = room <= (uint32_t)kCap;
   if (sl < ns) {
     run0[sl] = excl;
-    cursor[sl] = staged ? excl : dest[sl];
+    len[sl] = cnt;
   }
+  const WarpTable tab{staged ? smem + kStageBytes : smem, !staged};
+  for (int q = threadIdx.x; q < kWarps * kWindow; q += kBinThreads)
+    tab.set(q, 0u);
   __syncthreads();
   long long i0, i1;
   const int k = tile_of(segs, tile, i0, i1);
   const T* g = static_cast<const T*>(segs.data[k]);
   const Coord at(segs, k);
-  for (long long i = i0 + threadIdx.x; i < i1; i += kBinThreads) {
-    bool neg;
-    const uint32_t b = h.bucket(at(i), C, neg);
-    const int w = (int)(b >> kSlabBits) - s0;
-    if (w < 0 || w >= ns) continue;
-    const uint32_t pos = atomicAdd(&cursor[w], 1u);
-    const E e = Entry<T>::make(b & (kSlab - 1), neg, g[i]);
-    if (staged)
-      stage[pos] = e;
-    else
-      ws[pos] = e;
+  const long long per = ((i1 - i0 + kWarps - 1) / kWarps + 31) / 32 * 32;
+  const long long w0 = i0 + warp * per, w1 = min(i1, w0 + per);
+  const int row = warp * kWindow;
+  // the warp's count of each slab
+  for (long long base = w0; base < w1; base += 32) {
+    const long long i = base + lane;
+    uint32_t key = kNone;
+    if (i < w1) {
+      const int w = (int)(sketch::bucket(h.a, h.b, at(i), C) >> kSlabBits) -
+                    s0;
+      if (w >= 0 && w < ns) key = (uint32_t)w;
+    }
+    const uint32_t peers = __match_any_sync(0xffffffffu, key);
+    if (key != kNone && lane == __ffs(peers) - 1)
+      tab.set(row + key, tab.get(row + key) + __popc(peers));
+  }
+  __syncthreads();
+  // each warp's first place in each slab's run, relative to the run
+  if (sl < ns) {
+    uint32_t run = 0;
+    for (int j = 0; j < kWarps; ++j) {
+      const uint32_t c = tab.get(j * kWindow + sl);
+      tab.set(j * kWindow + sl, run);
+      run += c;
+    }
+  }
+  __syncthreads();
+  const uint32_t below = (1u << lane) - 1u;
+  for (long long base = w0; base < w1; base += 32) {
+    const long long i = base + lane;
+    uint32_t key = kNone, b = 0;
+    bool neg = false;
+    if (i < w1) {
+      b = h.bucket(at(i), C, neg);
+      const int w = (int)(b >> kSlabBits) - s0;
+      if (w >= 0 && w < ns) key = (uint32_t)w;
+    }
+    const uint32_t peers = __match_any_sync(0xffffffffu, key);
+    const uint32_t place = key != kNone ? tab.get(row + key) : 0u;
+    __syncwarp();
+    if (key != kNone) {
+      const uint32_t rank = __popc(peers & below);
+      const uint32_t pos = (staged ? run0[key] : dest[key]) + place + rank;
+      const E e = Entry<T>::make(b & (kSlab - 1), neg, g[i]);
+      if (staged)
+        stage[pos] = e;
+      else
+        ws[pos] = e;
+      if (rank == 0) tab.set(row + key, place + __popc(peers));
+    }
+    __syncwarp();
   }
   if (!staged) return;
   __syncthreads();
-  for (int r = warp; r < ns; r += kBinThreads / 32) {
-    const uint32_t a = run0[r], n = cursor[r] - a, d = dest[r];
+  for (int r = warp; r < ns; r += kWarps) {
+    const uint32_t a = run0[r], n = len[r], d = dest[r];
     for (uint32_t j = lane; j < n; j += 32) ws[d + j] = stage[a + j];
   }
 }
 
 // Pass 5.  Block per bin (t, s): the slab's cells into shared memory
-// (scaled by b in the first group), the bin's entries added there, the
-// slab written back.  16-byte loads and stores when C is a multiple of 4.
+// (scaled by b in the first group), the bin's entries added there in
+// entry order, the slab written back.  A chunk of kBinThreads entries at a
+// time; in each round every pending entry bids for its owner slot (cell
+// offset mod kOwner) with a key that is lower than any of the earlier
+// rounds' and, within the round, lower for a lower thread; the slot's
+// lowest bidder adds its term (the only store to its cell this round) and
+// is done.  Entries of one cell share a slot, so a cell receives its terms
+// in entry order; the slots are reset after the chunk.  16-byte loads and
+// stores when C is a multiple of 4.
 template <typename T>
 __global__ void __launch_bounds__(kBinThreads)
 slab_add_kernel(float* __restrict__ m, float* __restrict__ v, int R,
@@ -402,6 +513,7 @@ slab_add_kernel(float* __restrict__ m, float* __restrict__ v, int R,
                 const typename Entry<T>::type* __restrict__ ws, float b1,
                 float b2, float a1, float a2, int scale) {
   extern __shared__ __align__(16) float slab[];
+  uint32_t* owner = reinterpret_cast<uint32_t*>(slab + kSlab);
   const int bin = blockIdx.x;
   const int t = bin / NS, s = bin - t * NS;
   const bool is_m = t < R;
@@ -413,35 +525,51 @@ slab_add_kernel(float* __restrict__ m, float* __restrict__ v, int R,
   const int nvec = vec ? cells / 4 : 0;
   float4* slab4 = reinterpret_cast<float4*>(slab);
   const float4* row4 = reinterpret_cast<const float4*>(row + c0);
+  for (int c = threadIdx.x; c < kOwner; c += kBinThreads) owner[c] = kNone;
   for (int c = threadIdx.x; c < nvec; c += kBinThreads) {
     float4 x = row4[c];
     if (scale) {
-      x.x *= b;
-      x.y *= b;
-      x.z *= b;
-      x.w *= b;
+      x.x = __fmul_rn(x.x, b);
+      x.y = __fmul_rn(x.y, b);
+      x.z = __fmul_rn(x.z, b);
+      x.w = __fmul_rn(x.w, b);
     }
     slab4[c] = x;
   }
   for (int c = 4 * nvec + threadIdx.x; c < cells; c += kBinThreads) {
     const float x = row[c0 + c];
-    slab[c] = scale ? x * b : x;
+    slab[c] = scale ? __fmul_rn(x, b) : x;
   }
   __syncthreads();
   const uint32_t e1 = start[bin + 1];
-  for (uint32_t j = start[bin] + threadIdx.x; j < e1; j += kBinThreads) {
-    uint32_t off;
-    bool neg;
-    float gi;
-    Entry<T>::read(ws[j], off, neg, gi);
-    float add;
-    if (is_m) {
-      const float gm = a * gi;
-      add = neg ? -gm : gm;
-    } else {
-      add = a * (gi * gi);
+  for (uint32_t j0 = start[bin]; j0 < e1; j0 += kBinThreads) {
+    const uint32_t j = j0 + threadIdx.x;
+    const bool live = j < e1;
+    bool pending = live;
+    uint32_t off = 0;
+    float add = 0.0f;
+    if (live) {
+      bool neg;
+      float gi;
+      Entry<T>::read(ws[j], off, neg, gi);
+      if (is_m) {
+        const float gm = __fmul_rn(a, gi);
+        add = neg ? -gm : gm;
+      } else {
+        add = __fmul_rn(a, __fmul_rn(gi, gi));
+      }
     }
-    atomicAdd(&slab[off], add);
+    uint32_t* slot = owner + (off & (kOwner - 1));
+    for (uint32_t r = 0; __syncthreads_or(pending); ++r) {
+      const uint32_t key = ((kRounds - r) << 10) | threadIdx.x;
+      if (pending) atomicMin(slot, key);
+      __syncthreads();
+      if (pending && *slot == key) {
+        slab[off] = __fadd_rn(slab[off], add);
+        pending = false;
+      }
+    }
+    if (live) *slot = kNone;
   }
   __syncthreads();
   float4* out4 = reinterpret_cast<float4*>(row + c0);
@@ -646,14 +774,16 @@ int accumulate_group(const Segs& segs, long long tiles, float* m, float* v,
   bin_offsets_kernel<<<1, kBinThreads, 0, s>>>(total, (int)NB, start);
   if (tiles > 0) {
     const int windows = (NS + kWindow - 1) / kWindow;
-    const int err = set_smem((const void*)bin_scatter_kernel<T>, kStageBytes);
+    const int scatter_bytes = kStageBytes + kWarpTable16;
+    const int err =
+        set_smem((const void*)bin_scatter_kernel<T>, scatter_bytes);
     if (err) return err;
     bin_scatter_kernel<T><<<dim3((unsigned)(tiles * windows), 2 * R),
-                            kBinThreads, kStageBytes, s>>>(
+                            kBinThreads, scatter_bytes, s>>>(
         segs, cm, cv, R, sketch::make_divisor(C), NS, tiles, counts, total,
         start, entries);
   }
-  const int slab_bytes = kSlab * (int)sizeof(float);
+  const int slab_bytes = (kSlab + kOwner) * (int)sizeof(float);
   int err = set_smem((const void*)slab_add_kernel<T>, slab_bytes);
   if (err) return err;
   slab_add_kernel<T><<<(unsigned)NB, kBinThreads, slab_bytes, s>>>(

@@ -18,6 +18,10 @@ piece at ``offset`` is coordinate ``offset + j``); they are what
 ``sketch_apply_ref`` is the fused form's plain version: the two halves,
 then ``sketched_leaf_update`` (the AdamW step of one param piece from its
 estimates, the sketched optimizer's math) piece by piece.
+``sketch_accumulate_ordered_ref`` is the update half in the CUDA kernel's
+order of additions (the tables scaled first, then every cell's terms
+added one at a time in the vector's element order): the kernel equals it
+bitwise.
 
 ``tail_fold_ref`` and ``tail_scores_ref`` are the sketched-KV tail fold
 and score estimates of ``repro/kernels/ref.py:kv_tail_fold_ref`` /
@@ -56,7 +60,8 @@ from repro_torch.sketch.hashing import row_buckets_signs
 
 __all__ = ["count_sketch_ref", "count_sketch_tiled_ref",
            "paged_attention_ref", "median_rows",
-           "sketch_accumulate_ref", "sketch_apply_ref",
+           "sketch_accumulate_ordered_ref", "sketch_accumulate_ref",
+           "sketch_apply_ref",
            "sketch_retrieve_ref", "sketched_leaf_update",
            "sketch_update_ref", "tail_fold_ref", "tail_fold_rowwise_ref",
            "tail_scores_ref", "unsketch_ref"]
@@ -163,6 +168,56 @@ def sketch_accumulate_ref(pieces: Iterable[tuple],
     new_m = b1 * m_table + (1.0 - b1) * cs_g.table
     new_v = b2 * v_table + (1.0 - b2) * cs_g2.table
     return new_m, new_v
+
+
+def sketch_accumulate_ordered_ref(pieces: Iterable[tuple],
+                                  m_table: torch.Tensor,
+                                  v_table: torch.Tensor,
+                                  coeffs_m: torch.Tensor,
+                                  coeffs_v: torch.Tensor, b1: float,
+                                  b2: float):
+    """``sketch_accumulate_ref`` with the CUDA kernel's f32 operations in
+    its order, functional: each table scaled first (b1 * m, b2 * v), then
+    each cell receives its terms ``(1-b1) * s * g`` / ``(1-b2) * g^2``
+    (the product rounded, then the sign applied) one addition at a time,
+    in the flat vector's element order over the pieces in order.  The
+    terms of one cell are found by a stable sort of the cells; round k
+    adds every cell's k-th term."""
+    f32 = torch.float32
+    scalar = lambda x: torch.tensor(x, dtype=f32, device=m_table.device)
+    a1, a2 = scalar(1.0 - b1), scalar(1.0 - b2)
+    R, C = m_table.shape
+    rows = torch.arange(R, device=m_table.device)[:, None] * C
+    cells_m, terms_m, cells_v, terms_v = [], [], [], []
+    for piece in pieces:
+        g, offset, row, stride = piece_layout(piece)
+        gf = g.to(f32)
+        idx = piece_coords(gf.numel(), offset, row, stride, gf.device)
+        bk, sg = row_buckets_signs(coeffs_m, idx, C, signed=True)
+        cells_m.append((rows + bk.long()).T.reshape(-1))
+        terms_m.append(((a1 * gf)[None, :] * sg).T.reshape(-1))
+        bk, _ = row_buckets_signs(coeffs_v, idx, C, signed=False)
+        cells_v.append((rows + bk.long()).T.reshape(-1))
+        terms_v.append((a2 * (gf * gf))[None, :].expand(R, -1).T.reshape(-1))
+    out = []
+    for table, b, cells, terms in ((m_table, b1, cells_m, terms_m),
+                                   (v_table, b2, cells_v, terms_v)):
+        flat = (table * scalar(b)).reshape(-1)
+        if cells:
+            cells, terms = torch.cat(cells), torch.cat(terms)
+            srt, order = torch.sort(cells, stable=True)
+            n = srt.numel()
+            head = torch.ones(n, dtype=torch.bool, device=srt.device)
+            head[1:] = srt[1:] != srt[:-1]
+            first = torch.cummax(torch.where(
+                head, torch.arange(n, device=srt.device), 0), 0).values
+            rank = torch.arange(n, device=srt.device) - first
+            for k in range(int(rank.max()) + 1 if n else 0):
+                sel = rank == k
+                c = srt[sel]
+                flat[c] = flat[c] + terms[order[sel]]
+        out.append(flat.view(R, C))
+    return out[0], out[1]
 
 
 def sketch_retrieve_ref(n: int, offset: int, m_table: torch.Tensor,

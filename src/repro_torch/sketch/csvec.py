@@ -68,12 +68,32 @@ def accumulate(sk: CSVec, vec: torch.Tensor, offset: int = 0) -> CSVec:
     return accumulate_coords(sk, idx, flat)
 
 
+def index_add_ordered_(out: torch.Tensor, index: torch.Tensor,
+                       values: torch.Tensor) -> torch.Tensor:
+    """``out[index[j]] += values[j]`` for a 1-D ``out``, in place, in an
+    order fixed by the data alone.  On the CPU ``index_add_`` adds a
+    cell's terms one at a time in j order; on the card an accumulating
+    ``index_put_`` sorts the cells stably and one warp sums each cell's
+    run (j order) with a fixed reduction, with no atomics.
+    (``index_add_`` and ``scatter_add_`` add on the card with f32 atomics,
+    in an order that changes from run to run, and an accumulating
+    ``index_put_`` on the CPU adds from several threads.)"""
+    if out.device.type == "cpu":
+        return out.index_add_(0, index, values)
+    return out.index_put_((index,), values, accumulate=True)
+
+
 def accumulate_coords(sk: CSVec, idx: torch.Tensor,
                       vals: torch.Tensor) -> CSVec:
-    """Sparse accumulate, in place: add vals[j] at coordinates idx[j]."""
+    """Sparse accumulate, in place: add vals[j] at coordinates idx[j], in
+    a fixed order (``index_add_ordered_``), so two runs agree bitwise on
+    the card too."""
     bk, sg = row_buckets_signs(sk.coeffs, idx, sk.cols, sk.signed)
     upd = sg * vals.to(torch.float32)[None, :]
-    sk.table.scatter_add_(1, bk.to(torch.int64), upd)
+    cells = bk.to(torch.int64) + sk.cols * torch.arange(
+        sk.rows, device=bk.device)[:, None]
+    index_add_ordered_(sk.table.view(-1), cells.reshape(-1),
+                       upd.reshape(-1))
     return sk
 
 

@@ -42,10 +42,13 @@ gradients applies, and Adam's per-coordinate normalization absorbs the
 variance in practice.  ``init_error_feedback`` keeps the reference's
 zero (1,) leaves for the checkpoint's and the API's shape.
 
-The sketch is ``index_add_`` and the estimate a gather, in plain
-PyTorch, as the reference's are plain jnp (no Pallas kernel lies on
-this path).  On the card ``index_add_`` adds with f32 atomics, so two
-runs may round a bucket's sum apart.
+The sketch is a scatter-add and the estimate a gather, in plain
+PyTorch, as the reference's are plain jnp (``.at[pos].add``; no Pallas
+kernel lies on this path).  The sketch adds in an order fixed by the
+shapes and the hashes (``sketch_leaf``: each chunk's whole rows summed
+by their row bucket h1 after a stable sort, then added column by column
+at the shifts h2; no two terms of a bucket in one atomic add), so two
+runs, and a resumed run, agree bitwise on the card too.
 
 ``make_podwise_compressed_step`` is the reference's pod-wise step (a
 ``shard_map`` over the multi-pod mesh's "pod" axis): each pod rank
@@ -64,9 +67,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.transformer import Params, param_leaves
+from repro_torch.sketch.csvec import index_add_ordered_
 
 MIN_COMPRESS_ELEMS = 1 << 16
-CHUNK = 1 << 24            # elements of a piece hashed at once
+CHUNK = 1 << 26            # elements of a piece hashed (and sketched) at once
 
 Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -135,12 +139,64 @@ def _chunks(pieces: Sequence[torch.Tensor], c: LeafCodec, tables: Tables
         off += flat.numel()
 
 
+def _add_elements(sk: torch.Tensor, flat: torch.Tensor, start: int,
+                  a: int, b: int, c: LeafCodec, tables: Tables) -> None:
+    """Elements [a, b) of a piece's flat view (the piece's first element
+    is leaf index ``start``) added one term at a time
+    (``index_add_ordered_``)."""
+    if b <= a:
+        return
+    h1, s1, h2, s2 = tables
+    idx = torch.arange(start + a, start + b, device=flat.device)
+    i1 = torch.div(idx, c.k, rounding_mode="floor")
+    i2 = idx - i1 * c.k
+    index_add_ordered_(sk, h1[i1].long() + h2[i2].long(),
+                       flat[a:b].float() * (s1[i1] * s2[i2]))
+
+
+def _add_rows(sk: torch.Tensor, rows: torch.Tensor, r0: int, c: LeafCodec,
+              tables: Tables) -> None:
+    """Whole rows r0, r0 + 1, ... of the leaf's (I1, k) view (``rows``:
+    their elements, flat): each row times s1 summed into its bucket
+    h1(i1), the rows of one bucket in row order (a stable sort of the
+    buckets, then a sum of each bucket's run), then column i2 of those
+    sums times s2(i2) added at h1 + h2(i2), column by column.  Within one
+    column's add the buckets are distinct, so each receives one term."""
+    h1, s1, h2, s2 = tables
+    m = rows.numel() // c.k
+    i1 = torch.arange(r0, r0 + m, device=rows.device)
+    key, order = torch.sort(h1[i1].long(), stable=True)
+    buckets, counts = torch.unique_consecutive(key, return_counts=True)
+    vals = rows.float().view(m, c.k) * s1[i1][:, None]
+    sums = torch.segment_reduce(vals[order], "sum", lengths=counts, axis=0)
+    for j in range(c.k):
+        sk.index_add_(0, buckets + h2[j].long(), sums[:, j] * s2[j])
+
+
 def sketch_leaf(pieces: Sequence[torch.Tensor], c: LeafCodec,
                 tables: Tables) -> torch.Tensor:
-    """FCS sketch of one gradient leaf given as its pieces: (J~,) f32."""
+    """FCS sketch of one gradient leaf given as its pieces: (J~,) f32.
+
+    Chunk by chunk (``CHUNK`` elements of a piece, in leaf order), in an
+    order fixed by the shapes and the hashes: the elements of a row that
+    the chunk's edges cut, one at a time; the chunk's whole rows through
+    ``_add_rows``; then the cut row at its end.  No two terms of a bucket
+    meet in one add with atomics, so the card sums each bucket as the
+    CPU does, run after run."""
     sk = torch.zeros((c.Jt,), dtype=torch.float32, device=pieces[0].device)
-    for g, pos, sign in _chunks(pieces, c, tables):
-        sk.index_add_(0, pos, g.float() * sign)
+    start = 0
+    for p in pieces:
+        flat = p.view(-1)
+        n = flat.numel()
+        for a in range(0, n, CHUNK):
+            b = min(a + CHUNK, n)
+            lo = min(b, a + (-(start + a)) % c.k)     # first whole row
+            hi = max(lo, b - (start + b) % c.k)       # end of the last
+            _add_elements(sk, flat, start, a, lo, c, tables)
+            if hi > lo:
+                _add_rows(sk, flat[lo:hi], (start + lo) // c.k, c, tables)
+            _add_elements(sk, flat, start, hi, b, c, tables)
+        start += n
     return sk
 
 

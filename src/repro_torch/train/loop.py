@@ -2,10 +2,14 @@
 
   * checkpoint cadence with atomic writes and resume from LATEST (the data
     is stateless-seeded by step and the optimizer state is saved, so a
-    resumed run on the CPU continues bit for bit; on the card the
-    ``sketch_update`` kernel's shared-memory f32 atomics add a slab's
-    entries in a varying order, so a resumed sketched run agrees within
-    that rounding);
+    resumed run continues bit for bit, on the card too: every float sum
+    of the step adds in an order fixed by the shapes and the data —
+    ``sketch_update``'s accumulate adds each table cell's terms in
+    element order, the gradient sketch sums rows by bucket and then
+    columns (``grad_compress.sketch_leaf``), sketched Adagrad adds through
+    ``sketch/csvec.py:index_add_ordered_``, and the backward passes of
+    the step's gathers add through sorted index puts or into distinct
+    targets (``train/determinism.py`` audits a step's ops);
   * a straggler monitor: steps slower than ``straggler_factor`` x the
     EMA of step wall time are logged and listed;
   * a loss-spike record: steps whose loss is above ``spike_factor`` x the

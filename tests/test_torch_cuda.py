@@ -12,8 +12,12 @@ with kernel-path logits within tolerance of the plain path, and the
 reduced recurrent configs' engines (xlstm-1.3b, zamba2-2.7b) graphed
 bitwise their eager twins, an admission in the overlap window landing
 in place, an FCS-compressed gradient leaf on the card against its CPU
-computation from the same hashes, and a reduced moe and xlstm train step
-on the card against the CPU's.  Every test
+computation from the same hashes, a reduced moe and xlstm train step
+on the card against the CPU's, and the fixed-order sums: the
+sketch_update accumulate bitwise across launches (at the yi-9b w_gate
+layer piece too), bitwise its ordered model and whatever the grouping,
+the gradient, Adagrad and TS / FCS sketches bitwise across calls, and
+crashed-and-resumed runs bitwise the straight run's.  Every test
 carries the ``cuda`` marker and skips without a card; the file imports
 nothing of JAX, so it runs on the card's machine:
 
@@ -428,8 +432,8 @@ def _groups(parts, R):
 @pytest.mark.parametrize("shape", SKETCH_SHAPES)
 def test_sketch_update_kernel_matches_plain_version(card, shape):
     """Tables and estimates within rtol 1e-5 and atol 1e-5 x max|table|:
-    shared-memory f32 atomics add a slab's entries in a varying order,
-    and the kernel scales each term where the plain version scales the
+    the kernel adds each cell's terms in element order and scales each
+    term, where the plain version sums in its own order and scales the
     sum.  Launches: five a group of the accumulate, one retrieve a
     piece."""
     n, C, R, offset, dtype, npieces = shape
@@ -488,7 +492,8 @@ def test_sketch_apply_is_the_plain_path_given_equal_tables(card, shape):
 def test_multi_piece_accumulate_equals_one_piece(card):
     """Five ragged pieces in one accumulate (one group of five segments)
     give the tables of the same vector as one piece, within the tables'
-    tolerance (the slab adds vary in order)."""
+    tolerance (``test_accumulate_is_bitwise_whatever_the_grouping`` holds
+    them bitwise)."""
     g, parts, mt, vt, cm, cv = _sketch_inputs(400_000, 70_000, 3, 9,
                                               torch.bfloat16, card, 5)
     am, av, bm, bv = mt.clone(), vt.clone(), mt.clone(), vt.clone()
@@ -519,6 +524,132 @@ def test_accumulate_in_several_groups(card, monkeypatch):
     for got, want in ((km, new_m), (kv, new_v)):
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * want.abs().max().item())
+
+
+# the accumulate adds each cell's terms one at a time in element order:
+# SKETCH_SHAPES and the yi-9b w_gate leaf's layer-47 piece (the train
+# path's largest geometry; chip_smoke.py's SKETCH_MAIN)
+REPEAT_SHAPES = SKETCH_SHAPES + [
+    (45_088_768, 180_355_072, 3, 47 * 45_088_768, torch.bfloat16, 1)]
+
+
+@pytest.mark.parametrize("shape", REPEAT_SHAPES)
+def test_accumulate_repeats_bitwise(card, shape):
+    """Two launches of the accumulate on the same inputs give the same
+    bits (no f32 atomics), and the fused form's tables are the
+    accumulate's."""
+    n, C, R, offset, dtype, npieces = shape
+    g, parts, mt, vt, cm, cv = _sketch_inputs(n, C, R, offset, dtype, card,
+                                              npieces)
+    am, av, bm, bv = mt.clone(), vt.clone(), mt.clone(), vt.clone()
+    accumulate(parts, am, av, cm, cv, b1=0.9, b2=0.95)
+    accumulate(parts, bm, bv, cm, cv, b1=0.9, b2=0.95)
+    assert torch.equal(am, bm) and torch.equal(av, bv)
+    del bm, bv
+    params = [torch.zeros(gp.numel(), dtype=torch.bfloat16, device=card)
+              for gp, _ in parts]
+    fm, fv = mt.clone(), vt.clone()
+    sketch_apply(parts, params, fm, fv, cm, cv, b1=0.9, b2=0.95, lr=1e-2,
+                 eps=1e-8, weight_decay=0.01, bc1=0.1, bc2=0.05)
+    assert torch.equal(fm, am) and torch.equal(fv, av)
+
+
+@pytest.mark.parametrize("shape", SKETCH_SHAPES)
+def test_accumulate_is_its_ordered_model_bitwise(card, shape):
+    """The kernel's tables bitwise ``sketch_accumulate_ordered_ref`` on the
+    card: the tables scaled, then each cell's terms in element order."""
+    n, C, R, offset, dtype, npieces = shape
+    g, parts, mt, vt, cm, cv = _sketch_inputs(n, C, R, offset, dtype, card,
+                                              npieces)
+    km, kv = mt.clone(), vt.clone()
+    accumulate(parts, km, kv, cm, cv, b1=0.9, b2=0.95)
+    om, ov = ref.sketch_accumulate_ordered_ref(parts, mt, vt, cm, cv, 0.9,
+                                               0.95)
+    assert torch.equal(km, om) and torch.equal(kv, ov)
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 7])
+def test_accumulate_is_bitwise_whatever_the_grouping(card, monkeypatch,
+                                                     pieces):
+    """The work space forced small, as ``test_accumulate_in_several_groups``
+    forces it: five groups (pieces cut across them) give the bits of one
+    group and of the ordered model; so do the same elements cut into
+    other pieces."""
+    from repro_torch.kernels import sketch_update as su
+    g, parts, mt, vt, cm, cv = _sketch_inputs(90_000, 40_000, 3, 0,
+                                              torch.bfloat16, card, pieces)
+    one_m, one_v = mt.clone(), vt.clone()
+    accumulate([(g, 0)], one_m, one_v, cm, cv, b1=0.9, b2=0.95)
+    monkeypatch.setattr(su, "WORKSPACE_BYTES", 20_000 * 6 * 4)
+    assert len(plan_groups([gp.numel() for gp, _ in parts], 3, 4,
+                           su.WORKSPACE_BYTES)) >= 5
+    km, kv = mt.clone(), vt.clone()
+    accumulate(parts, km, kv, cm, cv, b1=0.9, b2=0.95)
+    assert torch.equal(km, one_m) and torch.equal(kv, one_v)
+    om, ov = ref.sketch_accumulate_ordered_ref(parts, mt, vt, cm, cv, 0.9,
+                                               0.95)
+    assert torch.equal(km, om) and torch.equal(kv, ov)
+
+
+def test_strided_piece_accumulate_is_bitwise_per_row_pieces(card):
+    """A rank's block as one strided piece and as a contiguous piece a
+    row: the same terms in the same element order, the same bits."""
+    rng = np.random.RandomState(11)
+    rows, cols, c0, w = 512, 4096, 1024, 1024
+    g = torch.tensor(rng.randn(rows, w), dtype=torch.bfloat16, device=card)
+    R, C = 3, 40_000
+    mt = torch.tensor(rng.randn(R, C), dtype=torch.float32, device=card)
+    vt = torch.tensor(np.abs(rng.randn(R, C)), dtype=torch.float32,
+                      device=card)
+    cm, cv = cached_coeffs(5, R, device=card), cached_coeffs(6, R,
+                                                             device=card)
+    sm, sv, rm, rv = mt.clone(), vt.clone(), mt.clone(), vt.clone()
+    accumulate([(g, 77 + c0, w, cols)], sm, sv, cm, cv, b1=0.9, b2=0.95)
+    accumulate([(g[r], 77 + r * cols + c0) for r in range(rows)], rm, rv,
+               cm, cv, b1=0.9, b2=0.95)
+    assert torch.equal(sm, rm) and torch.equal(sv, rv)
+
+
+def test_ordered_sketches_repeat_bitwise_on_the_card(card):
+    """The gradient sketch (``sketch_leaf``), ``accumulate_coords`` (the
+    sketched Adagrad's and the plain versions' accumulate) and TS / FCS of
+    a dense tensor: two calls on the card give the same bits, and each is
+    within f32 rounding of its CPU computation (another order)."""
+    from repro_torch.core import sketches as core_sketches
+    from repro_torch.sketch.csvec import CSVec, accumulate_coords
+    from repro_torch.train import grad_compress as gcm
+    gen = torch.Generator(card).manual_seed(0)
+    c = gcm.LeafCodec(9, 1 << 20, 16, (1 << 20) + 15, 3)
+    tables = gcm.codec_hashes(c, 5, 1, card)
+    n = c.I1 * c.k - c.pad
+    pieces = [torch.randn(n // 2, generator=gen, device=card).to(
+        torch.bfloat16), torch.randn(n - n // 2, generator=gen, device=card)]
+    a = gcm.sketch_leaf(pieces, c, tables)
+    b = gcm.sketch_leaf(pieces, c, tables)
+    assert torch.equal(a, b)
+    cpu = gcm.sketch_leaf([p.cpu() for p in pieces], c,
+                          tuple(t.cpu() for t in tables))
+    torch.testing.assert_close(a.cpu(), cpu, rtol=1e-5,
+                               atol=1e-6 * cpu.abs().max().item())
+    idx = torch.randint(0, 1 << 31, (4_000_000,), generator=gen,
+                        device=card)
+    vals = torch.randn(4_000_000, generator=gen, device=card)
+    for signed in (True, False):
+        t = [CSVec(torch.zeros(3, 50_000, device=card),
+                   cached_coeffs(7, 3, device=card), 0, signed)
+             for _ in range(2)]
+        for sk in t:
+            accumulate_coords(sk, idx, vals)
+        assert torch.equal(t[0].table, t[1].table)
+    dims = (100, 100, 100)
+    hashes = make_tensor_hashes(dims, [1000, 1000, 1000], 2,
+                                generator=torch.Generator().manual_seed(3),
+                                device=card)
+    T = torch.randn(dims, generator=gen, device=card)
+    for kind in ("ts", "fcs"):
+        fn = getattr(core_sketches, f"{kind}_general")
+        x, y = fn(T, hashes), fn(T, hashes)
+        assert torch.equal(x, y), kind
 
 
 def test_sketched_optimizer_launches_the_kernel(card):
@@ -567,7 +698,8 @@ def test_strided_piece_kernel_matches_per_row_pieces(card, shape,
     """The kernel's strided piece ``(g, offset, row, stride)`` in the
     count, scatter, slab-add, retrieve and apply passes: its tables within
     the tables' tolerance of the same block given as one contiguous piece
-    a row and of the plain version (the slab adds vary in order); from
+    a row and of the plain version (``test_strided_piece_accumulate_is_
+    bitwise_per_row_pieces`` holds the first bitwise); from
     equal tables, its estimates and its AdamW step bitwise the per-row
     pieces' and the plain path's."""
     from repro_torch.kernels import sketch_update as su
@@ -1451,10 +1583,10 @@ def test_recurrent_admission_between_dispatches_lands_in_place(card, arch):
 def test_compressed_leaf_on_the_card_equals_its_cpu_computation(card):
     """A stacked leaf of three pieces whose rows straddle them, a padded
     tail and chunks cut small: from the same hashes, the card's sketch
-    within f32 rounding of the CPU's (``index_add_`` adds with atomics in
-    a varying order), its estimate given the CPU's sketch bitwise the
-    CPU's, and the round trip in place in bf16 bitwise the estimate of
-    its own sketch."""
+    within f32 rounding of the CPU's (the card sums each bucket's run
+    after a sort, the CPU one term at a time), its estimate given the
+    CPU's sketch bitwise the CPU's, and the round trip in place in bf16
+    bitwise the estimate of its own sketch."""
     from repro_torch.train import grad_compress as gcm
     g = torch.as_tensor(np.random.RandomState(3).randn(3, 700, 33)
                         .astype(np.float32))
@@ -1537,6 +1669,104 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
         if not f32 and want.abs().max() > 0:
             cos = (got * want).sum() / (got.norm() * want.norm())
             assert cos >= 0.999, (name, float(cos))
+
+
+def _final_state(tag, final, steps):
+    """``on_grads`` hook keeping the state the last step updates in
+    place."""
+    def hook(step, params, grads, opt):
+        if step == steps - 1:
+            final[tag] = {"params": params, "opt": opt}
+    return hook
+
+
+def _same_state(a, b):
+    from repro_torch.train import checkpoint as ckpt
+    la, lb = ckpt._leaves(a), ckpt._leaves(b)
+    assert [n for n, _, _ in la] == [n for n, _, _ in lb]
+    for (n, x, _), (_, y, _) in zip(la, lb):
+        assert (x == y) if isinstance(x, int) else torch.equal(x, y), n
+
+
+# (arch, widened, grad compression): reduced gemma-2b as the CPU's
+# test_resume_after_crash_is_bitwise, yi-9b widened to d_model 128 (five
+# leaves compressed) with FCS compression, and granite-moe
+RESUME_CASES = [("gemma-2b", False, False), ("yi-9b", True, True),
+                ("granite-moe-3b-a800m", False, False)]
+
+
+@pytest.mark.parametrize("arch,wide,compress", RESUME_CASES)
+def test_resume_is_bitwise_on_the_card(card, tmp_path, arch, wide,
+                                       compress):
+    """Sketched AdamW through ``train()`` on the card: 6 steps straight,
+    then a run checkpointed at step 3, crashed at 4 and resumed: losses,
+    params and every moment table bitwise the straight run's."""
+    from repro_torch.kernels.sketch_update import sketch_update as su
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import train
+    cfg = reduced_config(arch)
+    if wide:
+        cfg = dataclasses.replace(cfg, d_model=128, d_ff=256)
+    cfg = dataclasses.replace(cfg, sketch=dataclasses.replace(
+        cfg.sketch, opt_state_ratio=4, opt_state_min_elems=4096))
+    run = dict(steps=6, batch=2, seq=32, lr=1e-3, grad_compression=compress,
+               device=card, log_every=100, log_fn=lambda *_: None)
+    final = {}
+    before = su.launches
+    straight = train(cfg, on_grads=_final_state("a", final, 6), **run)
+    assert su.launches > before
+    d = str(tmp_path / "run")
+    with pytest.raises(RuntimeError, match="injected crash at step 4"):
+        train(cfg, ckpt_dir=d, ckpt_every=3, crash_at_step=4, **run)
+    assert ckpt.latest_step(d) == 3
+    resumed = train(cfg, ckpt_dir=d, ckpt_every=100, resume=True,
+                    on_grads=_final_state("b", final, 6), **run)
+    assert resumed.losses == straight.losses[3:]
+    _same_state(final["a"], final["b"])
+
+
+def test_sketched_adagrad_resumes_bitwise_on_the_card(card, tmp_path):
+    """Sketched Adagrad on reduced yi-9b's params (every leaf of >= 4096
+    elements sketched), seeded gradients: 4 steps straight, and 2 steps,
+    a checkpoint through train/checkpoint.py, a restore into a fresh
+    state and 2 more: params and tables bitwise."""
+    from repro_torch.sketch.optimizer import (sketched_adagrad_init,
+                                              sketched_adagrad_update)
+    from repro_torch.train import checkpoint as ckpt
+    cfg = reduced_config("yi-9b")
+
+    def grads(step, params):
+        gen = torch.Generator(card).manual_seed(100 + step)
+        return tf.tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device=card).to(p.dtype), params)
+
+    def fresh():
+        params = tf.init_params(cfg, seed=1, device=card)
+        return {"params": params, "opt": sketched_adagrad_init(
+            params, ratio=4, rows=3, min_elems=4096)}
+
+    def steps(state, a, b):
+        for k in range(a, b):
+            p, o = sketched_adagrad_update(grads(k, state["params"]),
+                                           state["opt"], state["params"],
+                                           lr=1e-2)
+            state["params"], state["opt"] = p, o
+
+    straight = fresh()
+    steps(straight, 0, 4)
+    first = fresh()
+    steps(first, 0, 2)
+    ckpt.save(str(tmp_path), 2, first)
+    del first
+    resumed = fresh()
+    assert ckpt.restore(str(tmp_path), resumed)[0] == 2
+    steps(resumed, 2, 4)
+    _same_state(straight, resumed)
+    # the step itself repeats: the same update twice from equal states
+    a, b = fresh(), fresh()
+    steps(a, 0, 1)
+    steps(b, 0, 1)
+    _same_state(a, b)
 
 
 # ---------------------------------------------------------------------------
